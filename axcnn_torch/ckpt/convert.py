@@ -17,6 +17,11 @@ state ``<bn>/mean var``       ``<bn>.running_mean|var``
 
 Only the unrolled reference layout is taken (``scan_blocks=False``; convert
 with ``axcnn.models.resnet.params_from_scan`` first). Arrays are numpy.
+
+The whole training state crosses too (``train_state_from_axcnn`` and
+``train_state_to_axcnn``): step, parameters, BN statistics, and the
+velocity and EMA trees, which have the parameters' shape and take the same
+leaf rule.
 """
 
 from __future__ import annotations
@@ -104,11 +109,39 @@ def from_axcnn(params, state, cfg) -> dict:
     return sd
 
 
-def to_axcnn(state_dict) -> tuple[dict, dict]:
+def bn_modules(state_dict) -> set:
+    """The BatchNorm modules of a full ``state_dict`` (those with buffers)."""
+    return {k[: -len(".running_mean")] for k in state_dict
+            if k.endswith(".running_mean")}
+
+
+def _reference_path(key: str, bn_mods) -> tuple[bool, list]:
+    """A port key -> (is model state, the reference's path to the leaf)."""
+    *mods, leaf = key.split(".")
+    if ".".join(mods) in bn_mods:
+        if leaf in ("running_mean", "running_var"):
+            return True, mods + [leaf[len("running_"):]]
+        return False, mods + ["gamma" if leaf == "weight" else "beta"]
+    if len(mods) >= 2 and mods[-2] == "se":
+        return False, mods[:-1] + [_SE_INV[(mods[-1], leaf)]]
+    return False, mods + ["w" if leaf == "weight" else "b"]
+
+
+def reference_paths(state_dict) -> dict:
+    """``{port key: 'stage2/block0/bn3/gamma'}``: the reference's leaf path of
+    every entry of a full ``state_dict``. A BN scale and a conv kernel share
+    the torch name ``weight``; here they are ``gamma`` and ``w``."""
+    bn_mods = bn_modules(state_dict)
+    return {k: "/".join(_reference_path(k, bn_mods)[1]) for k in state_dict}
+
+
+def to_axcnn(state_dict, bn_mods=None) -> tuple[dict, dict]:
     """The port's ``state_dict`` -> reference ``(params, state)`` trees of
-    numpy arrays (the inverse of :func:`from_axcnn`)."""
-    bn_mods = {k[: -len(".running_mean")] for k in state_dict
-               if k.endswith(".running_mean")}
+    numpy arrays (the inverse of :func:`from_axcnn`). A dict of parameters
+    alone (velocity, EMA) has no BN buffers to tell the BN modules by, so it
+    needs ``bn_mods`` from the model's full ``state_dict``."""
+    if bn_mods is None:
+        bn_mods = bn_modules(state_dict)
     params, state = {}, {}
 
     def put(tree, path, value):
@@ -118,17 +151,52 @@ def to_axcnn(state_dict) -> tuple[dict, dict]:
 
     for key, t in state_dict.items():
         a = t.detach().cpu().float().numpy()
-        *mods, leaf = key.split(".")
-        mod = ".".join(mods)
-        if mod in bn_mods:
-            if leaf in ("running_mean", "running_var"):
-                put(state, mods + [leaf[len("running_"):]], a)
-            else:
-                put(params, mods + ["gamma" if leaf == "weight" else "beta"], a)
-        elif len(mods) >= 2 and mods[-2] == "se":
-            put(params, mods[:-1] + [_SE_INV[(mods[-1], leaf)]],
-                _from_torch_layout(a))
-        else:
-            put(params, mods + ["w" if leaf == "weight" else "b"],
-                _from_torch_layout(a))
+        is_state, path = _reference_path(key, bn_mods)
+        put(state if is_state else params, path, _from_torch_layout(a))
     return params, state
+
+
+def train_state_from_axcnn(jstate, cfg, *, device="cpu"):
+    """The reference's ``TrainState`` (step, params, model_state, velocity,
+    ema; numpy or jax arrays) -> the port's ``TrainState`` on ``device``.
+    Velocity and EMA are parameter-shaped trees and take the same leaf rule."""
+    from axcnn_torch.models.resnet import ResNet
+    from axcnn_torch.train.train_step import TrainState
+
+    model = ResNet(cfg)
+    model.load_state_dict(from_axcnn(jstate.params, jstate.model_state, cfg))
+    model = model.to(device, memory_format=torch.channels_last)
+    names = [k for k, _ in model.named_parameters()]
+
+    def params_like(tree):
+        if tree is None:
+            return None
+        sd = tree_to_state_dict(tree, {})
+        if sorted(sd) != sorted(names):
+            raise ValueError("tree does not match the model's parameters")
+        return {k: sd[k].to(device).contiguous(memory_format=_format(p))
+                for k, p in model.named_parameters()}
+
+    return TrainState(model=model, step=int(np.asarray(jstate.step)),
+                      velocity=params_like(jstate.velocity),
+                      ema=params_like(jstate.ema))
+
+
+def _format(p):
+    return torch.channels_last if p.dim() == 4 else torch.contiguous_format
+
+
+def train_state_to_axcnn(state) -> dict:
+    """The port's ``TrainState`` -> the reference's fields as numpy trees:
+    ``{"step", "params", "model_state", "velocity", "ema"}``, ready for
+    ``axcnn.train.train_step.TrainState(**d)``."""
+    full = state.model.state_dict()
+    bn_mods = bn_modules(full)
+    params, model_state = to_axcnn(full)
+
+    def tree(d):
+        return None if d is None else to_axcnn(d, bn_mods)[0]
+
+    return {"step": np.int32(state.step), "params": params,
+            "model_state": model_state, "velocity": tree(state.velocity),
+            "ema": tree(state.ema)}

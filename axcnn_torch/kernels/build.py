@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``axcnn_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
-build happens at first use, into ``axcnn_torch/build/`` (git-ignored), and is
+one shared library with a plain C interface, loaded with ``ctypes``: one
+``nvcc -c`` per source, all started together, then one link. The build
+happens at first use, into ``axcnn_torch/build/`` (git-ignored), and is
 keyed on a hash of the sources and flags, so a fresh checkout builds itself
 and an edited source rebuilds. Nothing here runs at import time.
 """
@@ -20,7 +21,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib: ctypes.CDLL | None = None
 
@@ -51,21 +52,32 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(SRC_DIR.glob("*.cu"))]
-    # build under a temporary name and rename, so a concurrent or interrupted
-    # build never leaves a partial library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+    nvcc = _nvcc()
+    # build in a temporary directory and rename the library into place, so a
+    # concurrent or interrupted build never leaves a partial library under
+    # the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, proc in procs:
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, so.name)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, so)
     return so
 
 

@@ -1,17 +1,17 @@
-"""Assembled ResNet v1 bottleneck family, eval mode (port of
-``axcnn/models/resnet.py``).
+"""Assembled ResNet v1 bottleneck family (port of ``axcnn/models/resnet.py``).
 
-ResNet-50/101/152 with the assembly knobs the serving path uses: ResNet-D
-stem and shortcut, SE, SK, BlurPool ``sconv|proj|max``, zero-gamma and
-``width_multiplier``. Module and parameter names follow the reference's
+ResNet-50/101/152 with the assembly knobs: ResNet-D stem and shortcut, SE,
+SK, BlurPool ``sconv|proj|max``, DropBlock after every block of
+``dropblock_stages`` in training, zero-gamma and ``width_multiplier``. The
+train forward uses batch-statistic BN everywhere and updates the moving
+statistics in place. Module and parameter names follow the reference's
 param tree (``stem.conv0``, ``stage2.block0.sk.fc_z``, ``head``), so
 ``axcnn_torch.ckpt.convert`` maps one onto the other by rule.
 
 Not ported yet, and refused with ``NotImplementedError`` (ROADMAP.md):
-train mode (batch-stat BN, DropBlock), Big-Little stages (``bl_alpha``),
-``scan_blocks`` (a JAX compile-time lever) and the merged SK 5x5 conv.
-In eval, DropBlock is the identity and ``remat`` has no effect, as in the
-reference.
+Big-Little stages (``bl_alpha``), ``scan_blocks`` (a JAX compile-time
+lever), the merged SK 5x5 conv, and ``remat`` in training. In eval,
+DropBlock is the identity and ``remat`` has no effect, as in the reference.
 """
 
 from __future__ import annotations
@@ -23,7 +23,9 @@ import torch
 from torch import nn
 
 from axcnn_torch.core.dtypes import DEFAULT_POLICY, Policy
+from axcnn_torch.core.rng import RngStream
 from axcnn_torch.ops.blurpool import blur_pool
+from axcnn_torch.ops.dropblock import dropblock, dropblock_keep_prob, sample_seeds
 from axcnn_torch.ops.conv import Conv, Dense
 from axcnn_torch.ops.norm import BatchNorm
 from axcnn_torch.ops.pooling import avg_pool_same, global_avg_pool, max_pool_same
@@ -110,12 +112,12 @@ class Stem(nn.Module):
         for i, (cin, cout) in enumerate(widths):
             k = 3 if cfg.use_resnet_d else 7
             self.add_module(f"conv{i}", Conv(k, cin, cout, stride=2 if i == 0 else 1))
-            self.add_module(f"bn{i}", BatchNorm(cout))
+            self.add_module(f"bn{i}", BatchNorm(cout, momentum=cfg.bn_momentum))
 
-    def forward(self, x, compute_dtype):
+    def forward(self, x, compute_dtype, train: bool = False):
         for i in range(self.depth):
             x = getattr(self, f"conv{i}")(x, compute_dtype)
-            x = torch.relu(getattr(self, f"bn{i}")(x))
+            x = torch.relu(getattr(self, f"bn{i}")(x, train=train))
         if self.blur_max:
             return blur_pool(max_pool_same(x, window=3, stride=1))
         return max_pool_same(x, window=3, stride=2)
@@ -143,41 +145,42 @@ class Block(nn.Module):
         if has_proj:
             proj_stride = stride if (stride > 1 and self.short_pool is None) else 1
             self.proj_conv = Conv(1, in_ch, out_ch, stride=proj_stride)
-            self.proj_bn = BatchNorm(out_ch)
+            self.proj_bn = BatchNorm(out_ch, momentum=cfg.bn_momentum)
 
         mid_stride = 1 if self.blur_mid else stride
         self.conv1 = Conv(1, in_ch, filters)
-        self.bn1 = BatchNorm(filters)
+        m = cfg.bn_momentum
+        self.bn1 = BatchNorm(filters, momentum=m)
         if cfg.use_sk_block:
-            self.sk = SK(filters, filters, stride=mid_stride)
+            self.sk = SK(filters, filters, stride=mid_stride, bn_momentum=m)
         else:
             self.conv2 = Conv(3, filters, filters, stride=mid_stride)
-            self.bn2 = BatchNorm(filters)
+            self.bn2 = BatchNorm(filters, momentum=m)
         self.conv3 = Conv(1, filters, out_ch)
-        self.bn3 = BatchNorm(out_ch, zero_gamma=cfg.zero_gamma)
+        self.bn3 = BatchNorm(out_ch, zero_gamma=cfg.zero_gamma, momentum=m)
         if cfg.use_se_block:
             self.se = SE(out_ch, ratio=cfg.se_ratio)
 
-    def _shortcut(self, x, cd):
+    def _shortcut(self, x, cd, train):
         if not hasattr(self, "proj_conv"):
             return x
         if self.short_pool == "avg":
             x = avg_pool_same(x, window=self.stride, stride=self.stride)
         elif self.short_pool == "blur":
             x = blur_pool(x, stride=self.stride)
-        return self.proj_bn(self.proj_conv(x, cd))
+        return self.proj_bn(self.proj_conv(x, cd), train=train)
 
-    def forward(self, x, compute_dtype):
+    def forward(self, x, compute_dtype, train: bool = False):
         cd = compute_dtype
-        shortcut = self._shortcut(x, cd)
-        h = torch.relu(self.bn1(self.conv1(x, cd)))
+        shortcut = self._shortcut(x, cd, train)
+        h = torch.relu(self.bn1(self.conv1(x, cd), train=train))
         if hasattr(self, "sk"):
-            h = self.sk(h, cd)
+            h = self.sk(h, cd, train=train)
         else:
-            h = torch.relu(self.bn2(self.conv2(h, cd)))
+            h = torch.relu(self.bn2(self.conv2(h, cd), train=train))
         if self.blur_mid:
             h = blur_pool(h, stride=self.stride)
-        h = self.bn3(self.conv3(h, cd))
+        h = self.bn3(self.conv3(h, cd), train=train)
         if hasattr(self, "se"):
             h = self.se(h)
         return torch.relu(h + shortcut.to(h.dtype))
@@ -210,18 +213,38 @@ class ResNet(nn.Module):
                 m.reset_parameters(generator)
 
     def forward(self, images, *, train: bool = False,
-                policy: Policy = DEFAULT_POLICY):
-        """NHWC float images -> fp32 logits (N, num_classes)."""
-        if train:
+                policy: Policy = DEFAULT_POLICY, rng: RngStream | None = None,
+                progress: float = 1.0, dropblock_uniforms: dict | None = None):
+        """NHWC float images -> fp32 logits (N, num_classes).
+
+        ``train=True`` normalizes with batch statistics and updates the BN
+        moving statistics in place. ``progress`` in [0, 1] drives the
+        DropBlock keep-prob schedule; ``rng`` (the step's stream) seeds each
+        DropBlock site by its name, ``dropblock/stage{s}/block{b}``, and is
+        required when training with DropBlock. ``dropblock_uniforms`` maps
+        site names to (N, H, W) uniforms for the plain path (tests)."""
+        cfg = self.cfg
+        if train and cfg.remat != "none":
             raise NotImplementedError(
-                "the training forward is not ported yet (ROADMAP.md Queue A "
-                "item 5)")
+                f"remat={cfg.remat!r} in training is not ported to axcnn_torch "
+                "yet (ROADMAP.md Queue A item 8)")
+        use_db = train and cfg.use_dropblock
+        if use_db and rng is None:
+            raise ValueError("training with DropBlock requires rng")
+        kp = dropblock_keep_prob(progress, cfg.dropblock_keep_prob)
+        uniforms = dropblock_uniforms or {}
         cd = policy.compute_dtype
         # NHWC -> NCHW view: the memory stays NHWC, i.e. channels_last
         x = policy.cast_to_compute(images).permute(0, 3, 1, 2)
-        x = self.stem(x, cd)
+        x = self.stem(x, cd, train)
         for s in range(4):
-            for block in getattr(self, f"stage{s + 1}").values():
-                x = block(x, cd)
+            sname = f"stage{s + 1}"
+            for b, block in enumerate(getattr(self, sname).values()):
+                x = block(x, cd, train)
+                if use_db and s + 1 in cfg.dropblock_stages:
+                    site = f"dropblock/{sname}/block{b}"
+                    x = dropblock(x, sample_seeds(rng.numpy(site), x.shape[0]),
+                                  keep_prob=kp, block_size=cfg.dropblock_block_size,
+                                  train=True, uniforms=uniforms.get(site))
         pooled = global_avg_pool(x)  # (N, C), in the compute dtype
         return self.head(pooled, compute_dtype=torch.float32).float()

@@ -1,38 +1,49 @@
-"""Evaluation step (port of the eval half of ``axcnn/train/train_step.py``).
+"""Training and evaluation steps (port of ``axcnn/train/train_step.py``).
 
-``make_eval_step`` with the EMA swap (BASELINE config 3), ``topk_correct``
-and ``pad_batch``. The training step (mixup, losses, SGD, EMA and BN updates)
-comes with the training slice (ROADMAP.md Queue A item 5).
+``make_train_step`` for one device, ``grad_accum_steps == 1``, no teacher
+and no device AutoAugment (ROADMAP.md). In the reference's order: normalize,
+mixup, ``progress = step / total``, forward (train-mode BN, DropBlock) and
+loss, backward, momentum SGD with masked weight decay, EMA. The state is
+updated in place: parameters, velocity, EMA and the BN moving statistics.
+``make_eval_step`` evaluates with the EMA swap (BASELINE config 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
 from axcnn_torch.core.dtypes import DEFAULT_POLICY, Policy
+from axcnn_torch.core.rng import RngStream
+from axcnn_torch.data.mixup import draw_lambda, mixup_batch
 from axcnn_torch.data.preprocessing import normalize_device
 from axcnn_torch.models.resnet import ModelConfig, ResNet
+from axcnn_torch.train.ema import ema_init, ema_update
+from axcnn_torch.train.losses import decay_mask, softmax_ce_loss
+from axcnn_torch.train.optimizer import momentum_init, momentum_update
 
 
 @dataclasses.dataclass
 class TrainState:
     model: ResNet  # parameters + BN moving statistics (buffers)
     ema: dict | None  # EMA shadow of the parameters, by name; None when off
+    step: int = 0
+    velocity: dict | None = None  # momentum buffers, by parameter name
 
 
 def create_train_state(cfg: ModelConfig, *, generator: torch.Generator,
                        device, use_ema: bool = True) -> TrainState:
     """Random-init the model on the host from ``generator``, then move it to
-    ``device`` with channels_last weights. The EMA starts as a copy of the
-    parameters, as in the reference."""
+    ``device`` with channels_last weights. Velocity starts at zero and the
+    EMA as a copy of the parameters, as in the reference."""
     model = ResNet(cfg, generator=generator).to(
         device, memory_format=torch.channels_last).eval()
-    ema = ({k: p.detach().clone() for k, p in model.named_parameters()}
-           if use_ema else None)
-    return TrainState(model=model, ema=ema)
+    params = dict(model.named_parameters())
+    return TrainState(model=model, ema=ema_init(params) if use_ema else None,
+                      velocity=momentum_init(params))
 
 
 def load_ema(state: TrainState) -> None:
@@ -43,6 +54,75 @@ def load_ema(state: TrainState) -> None:
         return
     result = state.model.load_state_dict(state.ema, strict=False)
     assert not result.unexpected_keys, result.unexpected_keys
+
+
+def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
+                    policy: Policy = DEFAULT_POLICY, label_smoothing: float = 0.0,
+                    mixup_alpha: float = 0.0, mixup_symmetric: bool = False,
+                    weight_decay: float = 1e-4, momentum: float = 0.9,
+                    use_ema: bool = True, ema_decay: float = 0.9999,
+                    mean_rgb=None, stddev_rgb=None):
+    """Builds ``train_step(state, batch, root_seed) -> (state, metrics)``.
+
+    ``batch`` = {'images': uint8 NHWC, 'labels': int N}, on the state's
+    device. Per-step streams are folded from ``root_seed`` and the step, so
+    a run is reproducible. ``metrics`` holds ``loss`` and ``train_top1`` as
+    0-d device tensors (no host sync), ``lr`` and ``mixup_lam`` as floats.
+
+    ``lam=`` and ``dropblock_uniforms=`` (a dict by site name) replace the
+    step's own random draws; they let a CPU test hand in the reference's.
+    """
+    mask = None
+
+    def train_step(state: TrainState, batch, root_seed: int, *, lam=None,
+                   dropblock_uniforms=None):
+        nonlocal mask
+        model = state.model
+        if model.cfg != cfg:
+            raise ValueError("train_step built for another model config")
+        if mask is None:
+            mask = decay_mask(model)
+        step = state.step
+        rng = RngStream(root_seed).fold_step(step)
+        images = normalize_device(batch["images"], mean_rgb, stddev_rgb)
+        labels = batch["labels"]
+        labels_b = None
+        if mixup_alpha > 0:
+            if lam is None:
+                lam = draw_lambda(rng.numpy("mixup"), mixup_alpha,
+                                  symmetric=mixup_symmetric)
+            images, labels_a, labels_b = mixup_batch(images, labels, lam)
+        else:
+            labels_a, lam = labels, np.float32(1.0)
+        progress = np.float32(step) / np.float32(max(total_steps, 1))
+
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        logits = model(images, train=True, policy=policy, rng=rng,
+                       progress=progress, dropblock_uniforms=dropblock_uniforms)
+        loss = softmax_ce_loss(logits, labels_a, labels_b, float(lam),
+                               label_smoothing=label_smoothing)
+        loss.backward()
+
+        lr = float(lr_schedule(step))
+        grads = {k: p.grad for k, p in params.items()}
+        momentum_update(params, grads, state.velocity, lr=lr, momentum=momentum,
+                        weight_decay=weight_decay, mask=mask)
+        for p in params.values():
+            p.grad = None
+        if use_ema and state.ema is not None:
+            ema_update(state.ema, params, decay=ema_decay, step=step)
+
+        with torch.no_grad():
+            top1 = (logits.argmax(-1) == labels).float().mean()
+        metrics = {"loss": loss.detach(), "lr": lr, "train_top1": top1}
+        if mixup_alpha > 0:
+            metrics["mixup_lam"] = float(lam)
+        state.step = step + 1
+        return state, metrics
+
+    return train_step
 
 
 def eval_logits(state: TrainState, images_u8, *, policy: Policy = DEFAULT_POLICY,

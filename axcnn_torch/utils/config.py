@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import json
+import re
 from typing import Any, Sequence
 
 from axcnn_torch.models.resnet import ModelConfig
@@ -104,6 +106,24 @@ class Config:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, default=str)
+
+
+def resolve_preprocessing(data: DataConfig) -> DataConfig:
+    """Expand ``preprocessing_type`` ('imagenet_<size>_<min>[variant]') into
+    (image_size, resize_min); empty string keeps the explicit fields."""
+    if not data.preprocessing_type:
+        return data
+    m = re.fullmatch(r"imagenet_(\d+)_(\d+)[a-z]?", data.preprocessing_type)
+    if not m:
+        raise ValueError(
+            f"unknown preprocessing_type {data.preprocessing_type!r} "
+            "(expected 'imagenet_<crop>_<resize_min>[variant]', "
+            "e.g. 'imagenet_224_256a')")
+    return dataclasses.replace(data, image_size=int(m.group(1)),
+                               resize_min=int(m.group(2)))
 
 
 _SECTIONS = ("model", "data", "train", "runtime")

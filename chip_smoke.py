@@ -3,20 +3,33 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
-drives the port's serving path through its normal entry point and checks it:
+drives the port's serving and training paths through their normal entry
+points and checks them:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles axcnn_torch/csrc/*.cu with nvcc (sm_90a);
-3. kernel: the BlurPool kernel against its plain PyTorch version on the card
-   at the serving path's shapes, fp32 and bf16, and both timed at batch 128
-   on inputs read from device memory, not from the L2 cache;
-4. serve: ``axcnn_torch.cli.predict.main`` with --config=assemble_resnet50
+2. build: compiles axcnn_torch/csrc/*.cu with nvcc (sm_90a), one nvcc per
+   source, in parallel;
+3. kernel_check: each hand-written kernel against its plain PyTorch version
+   on the card, bit for bit: the BlurPool forward and backward at the
+   paths' shapes and odd extents, fp32 and bf16, the BlurPool autograd
+   Function against autograd through the plain forward, and the DropBlock
+   mask at 14x14 and 7x7 (bs 7) and 15x17 (bs 5) for three drop rates;
+4. kernel_time: each kernel and its plain version at batch 128, the BlurPool
+   kernels on inputs rotated through 256 MB so they read device memory;
+5. serve: ``axcnn_torch.cli.predict.main`` with --config=assemble_resnet50
    (full width, 1001 classes, 224x224, bf16) on 1, 8 and 32 generated JPEGs;
    every request must print a well-formed top-5 line per image and launch
-   the kernel exactly 3 times (the stride-2 block of stages 2-4);
-5. parity: a seeded full-width assembled R50 with perturbed BN, on the card
+   the forward kernel exactly 3 times (the stride-2 block of stages 2-4);
+6. parity: a seeded full-width assembled R50 with perturbed BN, on the card
    through the kernel against the CPU through the plain version;
-6. throughput: served images/s at batch 128 in bf16.
+7. throughput: served images/s at batch 128 in bf16;
+8. train: ``axcnn_torch.cli.main_classification.main`` with the assembled
+   preset at full width, batch 128, bf16, on synthetic data; every logged
+   loss finite, the kernels launched 3 + 3 + 9 times per step (plus the
+   end-of-run eval's forwards); step time, images/s and peak memory;
+9. train_parity: one full-width train step in fp32 (TF32 off), batch 4,
+   with DropBlock and mixup active, on the card through the kernels against
+   the CPU through the plain versions, from the same state and seeds.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the result line.
@@ -36,11 +49,20 @@ import numpy as np
 import torch
 
 from axcnn_torch.kernels import blurpool as kblur
+from axcnn_torch.kernels import dropblock as kdrop
 
 SLICE_SHAPES = [(32, 56, 56, 128), (32, 28, 28, 256), (32, 14, 14, 512)]
 CHECK_SHAPES = SLICE_SHAPES + [(8, 112, 112, 64), (3, 15, 17, 96)]
+# BlurPool backward: the forward INPUT extents (gradients are half-size)
+BWD_CHECK_SHAPES = SLICE_SHAPES + [(3, 15, 17, 96), (2, 8, 9, 8)]
+# DropBlock sites of the assembled R50 at 224x224: (H, W, block size)
+MASK_SHAPES = [(14, 14, 7), (7, 7, 7), (15, 17, 5)]
+MASK_TIME_SHAPES = MASK_SHAPES[:2]
+GAMMAS = (0.0, 0.02, 0.1)
 TIME_BATCH = 128
+TRAIN_STEPS = 20
 L2_FLUSH_BYTES = 256 << 20  # timing inputs cycle through at least this much (H100 L2: 50 MB)
+SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: longer than enqueueing 50 calls
 SEED = 0
 
 
@@ -83,11 +105,15 @@ def _bf16_ulp(v):
 
 
 def _time_ms(fn, xs, iters=50):
-    """Mean ms per call, cycling through the inputs ``xs``."""
+    """Mean device ms per call, cycling through the inputs ``xs``. A sleep
+    kernel queued first holds the card while the host enqueues every call,
+    so the calls run back to back and the events time the device, not the
+    host's launch overhead."""
     for x in xs[:3]:
         fn(x)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for i in range(iters):
         fn(xs[i % len(xs)])
@@ -96,52 +122,134 @@ def _time_ms(fn, xs, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase():
+def _check_equal(kernel, shape, case, got, want):
+    """Emit one kernel_check line; raise unless ``got`` equals ``want``.
+    ``case`` names the dtype or the drop rate checked."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item() if diff.numel() else 0.0
+    ok = bool(torch.equal(got, want))
+    emit("kernel_check", kernel=kernel, shape=list(shape), case=str(case),
+         max_abs_err=err, n_differ=int((diff > 0).sum()), numel=got.numel(),
+         tolerance="bit-exact", ok=ok)
+    if not ok:
+        raise AssertionError(f"{kernel} disagrees with its plain version at {shape} {case}")
+    return err
+
+
+def _expected_drop_fraction(h, w, bs, gamma):
+    """E[dropped share]: pixel p is dropped with probability 1-(1-gamma)^k(p),
+    k(p) the number of valid centres whose block covers p."""
+    half0, half1 = (bs - 1) // 2, bs // 2
+    valid = np.zeros((h, w))
+    valid[half0:h - half1, half0:w - half1] = 1
+    k = np.array([[valid[max(r - half0, 0):r + half1 + 1,
+                         max(c - half0, 0):c + half1 + 1].sum()
+                   for c in range(w)] for r in range(h)])
+    return float((1 - (1 - gamma) ** k).mean())
+
+
+def _seeds(n, gen):
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def kernel_check_phase():
+    """Each kernel against its plain version; returns max abs error by kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    max_err = 0.0
+    errs = {"fwd": 0.0, "bwd": 0.0, "mask": 0.0}
     for shape in CHECK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x = _nchw_input(shape, dtype, gen)
             got = kblur.blur_pool_cuda(x)
-            want = kblur.blur_pool_reference(x)
             torch.cuda.synchronize()
-            assert got.shape == want.shape and got.dtype == dtype
             assert got.is_contiguous(memory_format=torch.channels_last)
-            diff = (got.float() - want.float()).abs()
-            err = diff.max().item()
-            max_err = max(max_err, err)
-            if dtype == torch.float32:
-                ok, tol = err <= 1e-6, "max abs err <= 1e-6"
-            else:
-                ok, tol = bool((diff <= _bf16_ulp(want)).all()), "<= 1 bf16 ulp"
-            emit("kernel_check", shape_nhwc=list(shape), dtype=str(dtype),
-                 max_abs_err=err, n_differ=int((diff > 0).sum()),
-                 numel=got.numel(), tolerance=tol, ok=ok)
-            if not ok:
-                raise AssertionError(f"BlurPool kernel disagrees at {shape} {dtype}")
+            errs["fwd"] = max(errs["fwd"], _check_equal(
+                "blur_pool3_s2_fwd", shape, dtype, got, kblur.blur_pool_reference(x)))
+    for n, h, w, c in BWD_CHECK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = _nchw_input((n, (h + 1) // 2, (w + 1) // 2, c), dtype, gen)
+            got = kblur.blur_pool_bwd_cuda(g, (h, w))
+            torch.cuda.synchronize()
+            want = kblur.blur_pool_bwd_reference(g, (h, w))
+            errs["bwd"] = max(errs["bwd"], _check_equal(
+                "blur_pool3_s2_bwd", (n, h, w, c), dtype, got, want))
+            # the autograd Function against autograd through the plain forward
+            x = _nchw_input((n, h, w, c), dtype, gen).requires_grad_()
+            kblur.BlurPool3S2.apply(x).backward(g)
+            x2 = x.detach().clone().requires_grad_()
+            kblur.blur_pool_reference(x2).backward(g)
+            torch.cuda.synchronize()
+            _check_equal("BlurPool3S2.backward", (n, h, w, c), dtype, x.grad, x2.grad)
+    for h, w, bs in MASK_SHAPES:
+        for gamma in GAMMAS:
+            seeds = _seeds(TIME_BATCH, gen)
+            mask, counts = kdrop.dropblock_mask_cuda(seeds, gamma, h, w, bs)
+            torch.cuda.synchronize()
+            want_m, want_c = kdrop.dropblock_mask_reference(seeds, gamma, h, w, bs)
+            shape = (TIME_BATCH, h, w, bs)
+            errs["mask"] = max(errs["mask"], _check_equal(
+                "dropblock_mask", shape, "gamma=%g" % gamma, mask, want_m),
+                _check_equal("dropblock_mask.counts", shape, "gamma=%g" % gamma,
+                             counts, want_c))
+            emit("mask_stats", hw_bs=[h, w, bs], gamma=gamma, samples=TIME_BATCH,
+                 drop_fraction=1 - mask.mean().item(),
+                 expected=_expected_drop_fraction(h, w, bs, gamma))
+    return errs
 
-    kernel_ms = plain_ms = 0.0
+
+def _time_pair(kernel, plain, xs):
+    """plain, kernel, kernel, plain: the two orders bracket any drift."""
+    p1 = _time_ms(plain, xs)
+    k1 = _time_ms(kernel, xs)
+    k2 = _time_ms(kernel, xs)
+    p2 = _time_ms(plain, xs)
+    return (k1 + k2) / 2, (p1 + p2) / 2, [k1, k2], [p1, p2]
+
+
+def _rotating(x):
+    # copies whose sum exceeds the L2 cache several times over, so each call
+    # reads its input from device memory
+    return [x] + [x.clone() for _ in range(-(-L2_FLUSH_BYTES // x.nbytes) - 1)]
+
+
+def kernel_time_phase():
+    """Each kernel and its plain version at batch 128, bf16; total ms per
+    step's worth of shapes, by kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    totals = {k: [0.0, 0.0] for k in ("fwd", "bwd", "mask")}
     for n, h, w, c in SLICE_SHAPES:
-        shape = (TIME_BATCH, h, w, c)
-        x = _nchw_input(shape, torch.bfloat16, gen)
-        # cycle through copies whose sum exceeds the L2 cache several times
-        # over, so each call reads its input from device memory
-        xs = [x] + [x.clone() for _ in range(-(-L2_FLUSH_BYTES // x.nbytes) - 1)]
-        # plain, kernel, kernel, plain: the two orders bracket any drift
-        p1 = _time_ms(kblur.blur_pool_reference, xs)
-        k1 = _time_ms(kblur.blur_pool_cuda, xs)
-        k2 = _time_ms(kblur.blur_pool_cuda, xs)
-        p2 = _time_ms(kblur.blur_pool_reference, xs)
-        k, p = (k1 + k2) / 2, (p1 + p2) / 2
-        nbytes = x.nbytes + x.nbytes // 4  # ~ in + out, each once
-        emit("kernel_time", shape_nhwc=list(shape), dtype="bf16", kernel_us=k * 1e3,
-             plain_us=p * 1e3, kernel_runs_us=[k1 * 1e3, k2 * 1e3],
-             plain_runs_us=[p1 * 1e3, p2 * 1e3], rotating_inputs=len(xs),
-             kernel_gb_per_s=nbytes / (k * 1e-3) / 1e9)
-        del xs
-        kernel_ms += k
-        plain_ms += p
-    return max_err, kernel_ms, plain_ms
+        for kind in ("fwd", "bwd"):
+            if kind == "fwd":
+                shape = (TIME_BATCH, h, w, c)
+                kernel, plain = kblur.blur_pool_cuda, kblur.blur_pool_reference
+                nbytes_of = lambda x: x.nbytes + x.nbytes // 4  # noqa: E731
+            else:
+                shape = (TIME_BATCH, (h + 1) // 2, (w + 1) // 2, c)
+                kernel = lambda g, hw=(h, w): kblur.blur_pool_bwd_cuda(g, hw)  # noqa: E731
+                plain = lambda g, hw=(h, w): kblur.blur_pool_bwd_reference(g, hw)  # noqa: E731
+                nbytes_of = lambda g: g.nbytes * 5  # noqa: E731
+            xs = _rotating(_nchw_input(shape, torch.bfloat16, gen))
+            k, p, ks, ps = _time_pair(kernel, plain, xs)
+            emit("kernel_time", kernel=kind, shape_nhwc=list(shape), dtype="bf16",
+                 kernel_us=k * 1e3, plain_us=p * 1e3, kernel_runs_us=[v * 1e3 for v in ks],
+                 plain_runs_us=[v * 1e3 for v in ps], rotating_inputs=len(xs),
+                 kernel_gb_per_s=nbytes_of(xs[0]) / (k * 1e-3) / 1e9)
+            del xs
+            totals[kind][0] += k
+            totals[kind][1] += p
+    for h, w, bs in MASK_TIME_SHAPES:
+        # the mask kernel reads 512 bytes of seeds: there is no L2 to flush
+        seeds = [_seeds(TIME_BATCH, gen) for _ in range(16)]
+        k, p, ks, ps = _time_pair(
+            lambda sd: kdrop.dropblock_mask_cuda(sd, 0.02, h, w, bs),
+            lambda sd: kdrop.dropblock_mask_reference(sd, 0.02, h, w, bs), seeds)
+        emit("kernel_time", kernel="mask", shape=[TIME_BATCH, h, w, bs], gamma=0.02,
+             kernel_us=k * 1e3, plain_us=p * 1e3, kernel_runs_us=[v * 1e3 for v in ks],
+             plain_runs_us=[v * 1e3 for v in ps])
+        totals["mask"][0] += k
+        totals["mask"][1] += p
+    return totals
 
 
 def _write_jpegs(directory, count):
@@ -157,12 +265,20 @@ def _write_jpegs(directory, count):
     return paths
 
 
+def _zero_counts():
+    kblur.LAUNCHES = kblur.BWD_LAUNCHES = kdrop.LAUNCHES = 0
+
+
+def _counts():
+    return {"fwd": kblur.LAUNCHES, "bwd": kblur.BWD_LAUNCHES, "mask": kdrop.LAUNCHES}
+
+
 def serve_phase():
     from axcnn_torch.cli import predict
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = _write_jpegs(tmp, 32)
-        kblur.LAUNCHES = 0
+        _zero_counts()
         for n in (1, 8, 32):
             before = kblur.LAUNCHES
             out, err = io.StringIO(), io.StringIO()
@@ -186,7 +302,9 @@ def serve_phase():
                  seconds=seconds, first=lines[0])
             if launched != 3:
                 raise AssertionError(f"expected 3 BlurPool launches, got {launched}")
-        return kblur.LAUNCHES
+        if kblur.BWD_LAUNCHES or kdrop.LAUNCHES:
+            raise AssertionError(f"serving launched training kernels: {_counts()}")
+        return _counts()
 
 
 def _assembled_cfg():
@@ -268,19 +386,169 @@ def throughput_phase(smi):
              img_per_s=batch / dt, ms_per_batch=dt * 1e3, iters=iters, card=smi)
 
 
+def train_phase(smi):
+    """The training CLI at full width, b128, bf16, on synthetic data."""
+    from axcnn_torch.cli import main_classification
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--config=assemble_resnet50", "--data.use_synthetic_data",
+                f"--train.train_steps={TRAIN_STEPS}", f"--train.batch_size={TIME_BATCH}",
+                "--train.log_every=1", f"--runtime.model_dir={tmp}"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, err = io.StringIO(), io.StringIO()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            metrics = main_classification.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    train = [r for r in records if r["tag"] == "train"]
+    losses = [r["loss"] for r in train]
+    assert [r["step"] for r in train] == list(range(1, TRAIN_STEPS + 1)), records
+    assert all(np.isfinite(losses)), losses
+    assert metrics["count"] == 4 * TIME_BATCH, metrics  # the synthetic eval set
+    # log_every=1: each record follows a host sync on the step's loss, so the
+    # gaps between records are CUDA-synchronized step walls
+    walls = np.diff([r["time"] for r in train])
+    step_s = float(walls.mean())
+    eval_batches = 4
+    want = {"fwd": 3 * TRAIN_STEPS + 3 * eval_batches, "bwd": 3 * TRAIN_STEPS,
+            "mask": 9 * TRAIN_STEPS}
+    emit("train", model="assemble_resnet50", batch=TIME_BATCH, dtype="bf16",
+         steps=TRAIN_STEPS, first_loss=losses[0], last_loss=losses[-1],
+         mean_step_ms=step_s * 1e3, step_ms_min=float(walls.min()) * 1e3,
+         step_ms_max=float(walls.max()) * 1e3, train_img_per_s=TIME_BATCH / step_s,
+         max_memory_allocated_gib=peak / 2 ** 30, launches=counts, expected=want,
+         eval=metrics, seconds=seconds, card=smi)
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, expected {want}")
+    return counts
+
+
+def _state_copy(state, device):
+    """A copy of a train state on ``device`` (channels_last weights)."""
+    import copy
+
+    new = copy.deepcopy(state)
+    new.model.to(device, memory_format=torch.channels_last)
+    new.velocity = {k: v.to(device) for k, v in new.velocity.items()}
+    new.ema = {k: v.to(device) for k, v in new.ema.items()}
+    return new
+
+
+def _update_errors(old, new, ref):
+    """Per-parameter relative L2 of the update ``new - old`` against
+    ``ref - old``, in float64."""
+    errs = {}
+    for k, p0 in old.items():
+        want = (ref[k] - p0).double()
+        errs[k] = float(((new[k] - p0).double() - want).norm() / want.norm().clamp_min(1e-30))
+    return errs
+
+
+def train_parity_phase():
+    """One full-width train step, fp32 with TF32 off, batch 4, DropBlock and
+    mixup active, from one state, batch and seeds: on the card through the
+    kernels, on the CPU through the plain versions, and on the CPU in
+    float64 (every fp32 cast of the port re-pointed to float64). At batch 4
+    fp32 rounding flips ReLU and max-pool ties, so two fp32 runs differ by
+    ~1e-2 per leaf whatever their device; the check is that the card's fp32
+    step is as near the float64 step as the CPU's own fp32 step is."""
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, Policy, set_fp32_precision
+    from axcnn_torch.train.schedules import make_lr_schedule
+    from axcnn_torch.train.train_step import create_train_state, make_train_step
+
+    set_fp32_precision(DEFAULT_POLICY)
+    n, step, total = 4, 5, 10
+    cfg = _assembled_cfg()
+    cpu = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
+                             device="cpu", use_ema=True)
+    _perturb_bn(cpu.model, SEED)
+    cpu.step = step  # keep-prob 0.95: DropBlock drops
+    card, cpu64 = _state_copy(cpu, "cuda"), _state_copy(cpu, "cpu")
+    cpu64.model.double()
+    cpu64.velocity = {k: v.double() for k, v in cpu64.velocity.items()}
+    cpu64.ema = {k: v.double() for k, v in cpu64.ema.items()}
+    kw = dict(lr_schedule=make_lr_schedule(base_lr=0.1 * n / 256, total_steps=total,
+                                           warmup_steps=2),
+              total_steps=total, label_smoothing=0.1, mixup_alpha=0.2)
+    train_step = make_train_step(cfg, **kw)
+    rng = np.random.default_rng(SEED)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, 1001, n).astype(np.int64))}
+    old = {k: p.detach().clone() for k, p in cpu.model.named_parameters()}
+
+    _zero_counts()
+    card, m_card = train_step(card, {k: v.cuda() for k, v in batch.items()}, SEED + 1)
+    torch.cuda.synchronize()
+    launched = _counts()
+    cpu, m_cpu = train_step(cpu, batch, SEED + 1)
+    to_float = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        step64 = make_train_step(cfg, policy=Policy(torch.float64, torch.float64), **kw)
+        cpu64, m_64 = step64(cpu64, batch, SEED + 1)
+    finally:
+        torch.Tensor.float = to_float
+
+    params = lambda st: {k: p.detach().cpu() for k, p in st.model.named_parameters()}  # noqa: E731
+    ref = params(cpu64)
+    e_card = _update_errors(old, params(card), ref)
+    e_cpu = _update_errors(old, params(cpu), ref)
+    e_pair = _update_errors(old, params(card), params(cpu))
+    med = lambda e: float(np.median(list(e.values())))  # noqa: E731
+    loss_rel = abs(m_card["loss"].item() - m_64["loss"].item()) / abs(m_64["loss"].item())
+    tol = dict(loss_rel=1e-4, median_vs_cpu_fp32=3.0, worst_vs_cpu_fp32=3.0)
+    ok = (loss_rel <= tol["loss_rel"]
+          and med(e_card) <= tol["median_vs_cpu_fp32"] * med(e_cpu)
+          and max(e_card.values()) <= tol["worst_vs_cpu_fp32"] * max(e_cpu.values())
+          and launched == {"fwd": 3, "bwd": 3, "mask": 9})
+    emit("train_parity", batch=n, step=step, dtype="fp32", tf32=False,
+         loss_card=m_card["loss"].item(), loss_cpu=m_cpu["loss"].item(),
+         loss_fp64=m_64["loss"].item(), loss_rel_card_vs_fp64=loss_rel,
+         mixup_lam=m_cpu["mixup_lam"],
+         card_vs_fp64={"median": med(e_card), "worst": max(e_card.values()),
+                       "worst_leaf": max(e_card, key=e_card.get)},
+         cpu_fp32_vs_fp64={"median": med(e_cpu), "worst": max(e_cpu.values())},
+         card_vs_cpu_fp32={"median": med(e_pair), "worst": max(e_pair.values())},
+         leaves=len(e_card), tolerance=tol, launches_per_step=launched, ok=ok)
+    if not ok:
+        raise AssertionError("card-vs-CPU train step parity failed")
+
+
+KERNELS = (  # (key, name, source, the TPU kernel it replaces)
+    ("fwd", "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
+     "axcnn/pallas/blurpool.py:73"),
+    ("bwd", "blur_pool3_s2_bwd", "axcnn_torch/csrc/blurpool.cu",
+     "axcnn/pallas/blurpool.py:123"),
+    ("mask", "dropblock_mask", "axcnn_torch/csrc/dropblock.cu",
+     "axcnn/pallas/dropblock.py:100"),
+)
+
+
 def main():
     smi = device_phase()
     build_phase()
-    max_err, kernel_ms, plain_ms = kernel_phase()
-    launches = serve_phase()
+    errs = kernel_check_phase()
+    times = kernel_time_phase()
+    served = serve_phase()
     parity_phase()
     throughput_phase(smi)
+    trained = train_phase(smi)
+    train_parity_phase()
+    for key, name, *_ in KERNELS:
+        if served[key] + trained[key] == 0:
+            raise AssertionError(f"{name} was never launched on the main paths")
     print(json.dumps({"kernels": [{
-        "name": "blur_pool3_s2_fwd", "route": "cuda",
-        "source": "axcnn_torch/csrc/blurpool.cu",
-        "replaces": "axcnn/pallas/blurpool.py:73",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": served[key] + trained[key],
+        "launches_by_path": {"serve": served[key], "train": trained[key]},
+        "max_abs_err": errs[key], "ms": times[key][0], "plain_ms": times[key][1]}
+        for key, name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -79,6 +79,15 @@ def test_dtype_policies_match_reference():
         tdtypes.policy_from_name("fp8")
 
 
+# the training slice's modules, named so that the walk below must reach them
+TRAINING_MODULES = [
+    "axcnn_torch.cli.main_classification", "axcnn_torch.core.rng",
+    "axcnn_torch.data.mixup", "axcnn_torch.kernels.dropblock",
+    "axcnn_torch.ops.dropblock", "axcnn_torch.train.ema", "axcnn_torch.train.loop",
+    "axcnn_torch.train.losses", "axcnn_torch.train.optimizer",
+    "axcnn_torch.train.schedules"]
+
+
 def test_port_imports_no_jax():
     """Every module of axcnn_torch imports without pulling in jax."""
     code = (
@@ -86,7 +95,8 @@ def test_port_imports_no_jax():
         "import axcnn_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(axcnn_torch.__path__, 'axcnn_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 20, mods\n"
+        f"assert set({TRAINING_MODULES!r}) <= set(mods), mods\n"
+        "assert len(mods) >= 30, mods\n"
         "assert 'jax' not in sys.modules, [m for m in sys.modules if 'jax' in m]\n"
         "print('ok', len(mods))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -102,8 +112,10 @@ def test_kernel_module_imports_without_nvcc(monkeypatch):
     env["PATH"] = os.path.dirname(sys.executable)
     proc = subprocess.run(
         [sys.executable, "-c", "import axcnn_torch.kernels.blurpool as k; "
+         "import axcnn_torch.kernels.dropblock as d; "
          "from axcnn_torch.kernels import build; "
-         "assert k.LAUNCHES == 0 and build._lib is None"],
+         "assert k.LAUNCHES == k.BWD_LAUNCHES == d.LAUNCHES == 0; "
+         "assert build._lib is None"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
@@ -121,4 +133,5 @@ def test_library_path_is_keyed_on_the_sources():
     so = build.library_path()
     assert so.parent == build.BUILD_DIR and so.suffix == ".so"
     assert so == build.library_path()  # stable for unchanged sources
-    assert (REPO / "axcnn_torch" / "csrc" / "blurpool.cu").exists()
+    for src in ("blurpool.cu", "dropblock.cu"):
+        assert (REPO / "axcnn_torch" / "csrc" / src).exists()

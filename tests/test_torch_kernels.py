@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from axcnn_torch.kernels import blurpool as kblur
+from axcnn_torch.kernels import dropblock as kdrop
 from axcnn_torch.ops.blurpool import blur_pool
+from axcnn_torch.ops.dropblock import dropblock
 
 
 def _nchw(shape_nhwc, seed, device="cpu", dtype=torch.float32):
@@ -95,3 +97,112 @@ def test_kernel_refuses_bad_inputs_on_card():
         kblur.blur_pool_cuda(x.half())
     with pytest.raises(NotImplementedError):
         kblur.blur_pool_cuda(x, filter_size=5)
+
+
+# ---------------------------------------------------------------------------
+# BlurPool backward and its autograd Function
+# ---------------------------------------------------------------------------
+
+def _grad_for(shape_nhwc, seed, device="cpu", dtype=torch.float32):
+    n, h, w, c = shape_nhwc
+    return _nchw((n, (h + 1) // 2, (w + 1) // 2, c), seed, device, dtype)
+
+
+def test_blur_bwd_reference_against_the_forward_transpose():
+    """<D x, g> == <x, D^T g>: the plain backward is the transpose of the
+    plain forward, odd extents included (both compute in fp32; the inner
+    products are taken in float64, so rtol 1e-6 covers fp32 rounding)."""
+    for hw in [(8, 8), (7, 9), (1, 1), (2, 3), (15, 17)]:
+        x, g = _nchw((2, *hw, 3), 17), _grad_for((2, *hw, 3), 18)
+        lhs = (kblur.blur_pool_reference(x).double() * g.double()).sum()
+        rhs = (x.double() * kblur.blur_pool_bwd_reference(g, hw).double()).sum()
+        torch.testing.assert_close(lhs, rhs, rtol=1e-6, atol=1e-6)
+
+
+def test_blur_bwd_refuses_what_it_does_not_take():
+    g = torch.zeros(1, 8, 3, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kblur.blur_pool_bwd_cuda(g, (6, 6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 56, 56, 128), (4, 28, 28, 256), (4, 14, 14, 512),
+                                   (3, 15, 17, 96), (2, 8, 9, 3)])
+def test_bwd_kernel_matches_reference_on_card(shape, dtype):
+    _cuda()
+    g = _grad_for(shape, 19, "cuda", dtype)
+    before = kblur.BWD_LAUNCHES
+    got = kblur.blur_pool_bwd_cuda(g, shape[1:3])
+    torch.cuda.synchronize()
+    assert kblur.BWD_LAUNCHES == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, kblur.blur_pool_bwd_reference(g, shape[1:3]))
+    # autograd may hand in a gradient in another memory format
+    assert torch.equal(kblur.blur_pool_bwd_cuda(g.contiguous(), shape[1:3]), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_gradient_matches_autograd_of_plain_forward_on_card(dtype):
+    _cuda()
+    shape = (3, 15, 17, 96)
+    x = _nchw(shape, 20, "cuda", dtype).requires_grad_()
+    g = _grad_for(shape, 21, "cuda", dtype)
+    fwd, bwd = kblur.LAUNCHES, kblur.BWD_LAUNCHES
+    blur_pool(x).backward(g)
+    assert (kblur.LAUNCHES, kblur.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    x2 = x.detach().clone().requires_grad_()
+    kblur.blur_pool_reference(x2).backward(g)
+    assert torch.equal(x.grad, x2.grad)
+
+
+# ---------------------------------------------------------------------------
+# DropBlock mask
+# ---------------------------------------------------------------------------
+
+def test_dropblock_routes_cpu_tensors_to_reference():
+    x = _nchw((2, 14, 14, 8), 22)
+    seeds = np.array([3, 4], np.int32)
+    before = kdrop.LAUNCHES
+    y = dropblock(x, seeds, keep_prob=0.8, block_size=7, train=True)
+    assert kdrop.LAUNCHES == before
+    assert y.shape == x.shape and torch.isfinite(y).all()
+
+
+def test_dropblock_mask_kernel_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="CUDA seeds"):
+        kdrop.dropblock_mask_cuda(torch.zeros(2, dtype=torch.int32), 0.1, 14, 14, 7)
+    with pytest.raises(ValueError, match="H\\*W"):
+        kdrop.check_mask_args(200, 200, 7)
+    with pytest.raises(ValueError, match="block_size"):
+        kdrop.check_mask_args(5, 5, 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,bs", [(14, 14, 7), (7, 7, 7), (15, 17, 5)])
+@pytest.mark.parametrize("gamma", [0.0, 0.02, 0.1])
+def test_mask_kernel_matches_reference_on_card(h, w, bs, gamma):
+    _cuda()
+    seeds = torch.from_numpy(np.random.default_rng(23).integers(
+        -2 ** 31, 2 ** 31, 128, dtype=np.int32)).cuda()
+    before = kdrop.LAUNCHES
+    mask, counts = kdrop.dropblock_mask_cuda(seeds, gamma, h, w, bs)
+    torch.cuda.synchronize()
+    assert kdrop.LAUNCHES == before + 1  # it launches for gamma = 0 too
+    want_m, want_c = kdrop.dropblock_mask_reference(seeds, gamma, h, w, bs)
+    assert torch.equal(mask, want_m) and torch.equal(counts, want_c)
+    if gamma == 0.0:
+        assert bool((mask == 1).all())
+
+
+@pytest.mark.cuda
+def test_dropblock_op_on_card_matches_cpu():
+    """The op on the card (mask kernel) equals the op on the CPU (plain
+    version) bit for bit, from the same seeds."""
+    _cuda()
+    x = _nchw((8, 14, 14, 64), 24)
+    seeds = np.random.default_rng(25).integers(-2 ** 31, 2 ** 31, 8, dtype=np.int32)
+    want = dropblock(x, seeds, keep_prob=0.8, block_size=7, train=True)
+    got = dropblock(x.cuda(), seeds, keep_prob=0.8, block_size=7, train=True)
+    assert torch.equal(got.cpu(), want)

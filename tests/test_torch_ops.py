@@ -122,8 +122,21 @@ def test_bn_eval_matches(dtype):
 
 
 def test_bn_train_mode_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchNorm(4)(torch.zeros(1, 4, 2, 2), train=True)
+    """Train mode refuses torch's BatchNorm semantics (ROADMAP hazard (a)):
+    F.batch_norm with momentum 1 - m updates the moving variance with the
+    unbiased estimator; the port, like the reference, with the biased one.
+    Parity of train mode with the reference is in test_torch_train_ops.py."""
+    x = _nchw(_normal(np.random.default_rng(51), (2, 3, 3, 8)))
+    bn = BatchNorm(8)
+    bn.reset_parameters()
+    bn(x, train=True)
+    rm, rv = torch.zeros(8), torch.ones(8)
+    torch.nn.functional.batch_norm(x, rm, rv, training=True, momentum=0.003)
+    np.testing.assert_allclose(bn.running_mean.numpy(), rm.numpy(), atol=1e-7)
+    var = x.var(dim=(0, 2, 3), unbiased=False)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               (0.997 + 0.003 * var).numpy(), rtol=1e-6)
+    assert not torch.allclose(bn.running_var, rv, rtol=1e-6, atol=0)
 
 
 def test_bn_eval_on_vector():
