@@ -9,9 +9,24 @@ Usage, with the reference's argv grammar and presets:
     ... --runtime.platform=cpu --model.width_multiplier=0.125 \\
         --data.image_size=64 --train.batch_size=8
 
+    # checkpoints every 1000 steps; rerunning the same command resumes from
+    # the latest one, with the data stream's position:
+    ... --runtime.model_dir=/tmp/run1 --runtime.save_checkpoint_steps=1000
+
+    # evaluate what a run saved:
+    ... --runtime.model_dir=/tmp/run1 --runtime.eval_only
+
+    # fine-tune (warm start, a new head):
+    ... --config=finetune_fgvc --train.pretrained_checkpoint=/tmp/run1/checkpoints
+
+    # distil into Assemble-ResNet-152; batch 1024 as 8 micro-batches:
+    ... --config=assemble_resnet152_kd --train.grad_accum_steps=8 \\
+        --train.kd_teacher_checkpoint=/tmp/run1/checkpoints
+
 ``runtime.platform`` picks the device: ``""`` or ``gpu`` is the CUDA card,
 and the run exits non-zero with a message when there is none; ``cpu`` is the
-host. The metrics go to ``<runtime.model_dir>/metrics.jsonl``.
+host. The metrics go to ``<runtime.model_dir>/metrics.jsonl``. SIGTERM
+finishes the step in flight, saves a checkpoint and exits 0.
 """
 
 from __future__ import annotations

@@ -6,19 +6,26 @@ Usage:
     # fp32 on the host CPU (BASELINE config 1):
     ... --train.dtype=fp32 --cpu
 
+    # what a training run saved (its EMA weights under --train.use_ema):
+    ... --config=assemble_resnet50 --runtime.model_dir=/tmp/run1
+
 Runs on the CUDA device by default and refuses to start without one unless
 ``--cpu`` is given. Prints one JSON line per image:
 ``{"image": ..., "top5": [[class, prob], ...]}``.
 
-Reading the reference's orbax checkpoints is not ported yet (ROADMAP.md Queue
-A item 7): like the reference CLI when it finds no checkpoint, this warns and
-serves a seeded random init. ``--export`` is not ported either.
+Serves the latest checkpoint of ``<runtime.model_dir>/checkpoints``, with
+its EMA weights when ``train.use_ema`` and the checkpoint has them; like the
+reference CLI, it warns and serves a seeded random init when there is none.
+A checkpoint whose ``model_config.json`` disagrees with the command line's
+model is refused with a message naming both. ``--export`` is not ported
+(ROADMAP.md Queue A item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -59,8 +66,11 @@ def main(argv=None):
 
     from axcnn.data.datasets import DatasetInfo, get_dataset
     from axcnn.data.preprocessing import preprocess_eval
+    from axcnn_torch.ckpt.checkpoint import (
+        CheckpointManager, arch_mismatch, model_from_payload)
     from axcnn_torch.core.dtypes import policy_from_name, set_fp32_precision
-    from axcnn_torch.train.train_step import create_train_state, eval_logits, load_ema
+    from axcnn_torch.train.train_step import (
+        TrainState, create_train_state, eval_logits, load_ema)
     from axcnn_torch.utils.config import parse_cli
 
     cfg = parse_cli(rest)
@@ -83,11 +93,27 @@ def main(argv=None):
     policy = policy_from_name(cfg.train.dtype)
     set_fp32_precision(policy)
 
-    print(f"warning: reading checkpoints ({cfg.runtime.model_dir}) is not "
-          "ported yet; using random init (seed 0)", file=sys.stderr)
-    state = create_train_state(model_cfg, generator=torch.Generator().manual_seed(0),
-                               device=device, use_ema=cfg.train.use_ema)
-    load_ema(state)
+    mgr = CheckpointManager(os.path.join(cfg.runtime.model_dir, "checkpoints"))
+    meta = mgr.model_config()
+    differ = arch_mismatch(meta, model_cfg) if meta is not None else {}
+    if differ:
+        print(f"error: the checkpoint in {mgr.directory} was written for another "
+              "model (field: checkpoint's, command line's): "
+              + ", ".join(f"{k}: {a!r}, {b!r}" for k, (a, b) in differ.items()),
+              file=sys.stderr)
+        return 1
+    raw = mgr.load(device=device)
+    if raw is None:
+        print(f"warning: no checkpoint in {mgr.directory}; using random init "
+              "(seed 0)", file=sys.stderr)
+        state = create_train_state(model_cfg, generator=torch.Generator().manual_seed(0),
+                                   device=device, use_ema=cfg.train.use_ema)
+        load_ema(state)
+    else:
+        model = model_from_payload(raw, model_cfg, device=device,
+                                   use_ema=cfg.train.use_ema,
+                                   where=f"checkpoint {mgr.path(raw['step'])}")
+        state = TrainState(model=model, ema=None, step=raw["step"])
     logits = eval_logits(state, torch.from_numpy(batch).to(device), policy=policy,
                          mean_rgb=info.mean_rgb, stddev_rgb=info.stddev_rgb)
     logits = logits.cpu().numpy()

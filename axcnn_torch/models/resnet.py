@@ -247,4 +247,6 @@ class ResNet(nn.Module):
                                   keep_prob=kp, block_size=cfg.dropblock_block_size,
                                   train=True, uniforms=uniforms.get(site))
         pooled = global_avg_pool(x)  # (N, C), in the compute dtype
-        return self.head(pooled, compute_dtype=torch.float32).float()
+        # the head computes in fp32 at least (a float64 policy keeps float64)
+        head_dtype = torch.promote_types(pooled.dtype, torch.float32)
+        return self.head(pooled, compute_dtype=head_dtype).float()

@@ -5,8 +5,8 @@ fp32. Weight decay applies to the leaves whose REFERENCE name starts with
 ``w``: conv and dense kernels ``w`` and the SE FCs ``w1``/``w2``; never BN
 gamma/beta and never a bias. The mask is built from the reference's leaf
 names through the converter's mapping, not from torch names: in the port a
-BN scale and a conv kernel are both called ``weight``. Knowledge
-distillation (``kd_loss``) comes with the KD slice.
+BN scale and a conv kernel are both called ``weight``. ``kd_loss`` is the
+knowledge-distillation term ``T^2 * KL(teacher_T || student_T)``.
 """
 
 from __future__ import annotations
@@ -53,3 +53,14 @@ def l2_regularization(model: torch.nn.Module, weight_decay: float):
     total = sum(p.float().square().sum() for name, p in model.named_parameters()
                 if mask[name])
     return weight_decay * 0.5 * total
+
+
+def kd_loss(student_logits, teacher_logits, *, temperature: float = 1.0):
+    """``T^2 * KL(teacher_T || student_T)``, the batch mean, in fp32 (the
+    ``T^2`` keeps the gradient's scale independent of ``T``)."""
+    t = temperature
+    s = torch.log_softmax(student_logits.float() / t, dim=-1)
+    p = torch.softmax(teacher_logits.float() / t, dim=-1)
+    logp = torch.log_softmax(teacher_logits.float() / t, dim=-1)
+    kl = (p * (logp - s)).sum(dim=-1)
+    return (t * t) * kl.mean()

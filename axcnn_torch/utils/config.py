@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import pkgutil
 import re
 from typing import Any, Sequence
 
@@ -177,8 +178,19 @@ def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
                      for s in _SECTIONS})
 
 
+def presets() -> list[str]:
+    """The names ``--config=`` takes."""
+    import axcnn_torch.configs
+
+    return sorted(m.name for m in pkgutil.iter_modules(axcnn_torch.configs.__path__))
+
+
 def load_preset(name: str) -> Config:
-    """Load ``axcnn_torch/configs/<name>.py`` (defines ``get_config()``)."""
+    """Load ``axcnn_torch/configs/<name>.py`` (defines ``get_config()``);
+    ``ValueError`` naming the presets for an unknown name."""
+    if name not in presets():
+        raise ValueError(f"unknown preset {name!r} (--config= takes one of "
+                         f"{', '.join(presets())})")
     return importlib.import_module(f"axcnn_torch.configs.{name}").get_config()
 
 

@@ -29,7 +29,22 @@ points and checks them:
    end-of-run eval's forwards); step time, images/s and peak memory;
 9. train_parity: one full-width train step in fp32 (TF32 off), batch 4,
    with DropBlock and mixup active, on the card through the kernels against
-   the CPU through the plain versions, from the same state and seeds.
+   the CPU through the plain versions, from the same state and seeds;
+10. checkpoint: a full-width assembled R50 state after 3 b128 bf16 steps is
+    saved and restored into a fresh state; every tensor must come back bit
+    for bit with the fresh state's strides; save and restore seconds, MB;
+11. resume: the training CLI at full width, b128, bf16, 5 steps with a
+    checkpoint at step 5, the hang watchdog armed and steps 1-2 profiled,
+    then the same command to 10 steps: it must log ``restore`` at step 5,
+    only finite losses, 3 + 3 + 9 launches per step, and a trace;
+12. serve_ckpt: ``predict`` on what the resumed run saved; its top-5 lines
+    must equal those of the restored state's own EMA ``eval_logits``;
+13. kd: the training CLI with ``--config=assemble_resnet152_kd`` at full
+    width, the resumed R50 run as the teacher, global batch 1024 as 8
+    micro-batches of 128, bf16, 3 steps; finite losses, the launches per
+    step (per micro-batch: the student's 3 forward and 3 backward BlurPool
+    launches, the teacher's 3 forward launches, 39 DropBlock masks), step
+    time, images/s and peak memory.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the result line.
@@ -37,6 +52,7 @@ The last two lines are the kernels' summary and the result line.
 
 import contextlib
 import dataclasses
+import glob
 import io
 import json
 import os
@@ -61,6 +77,8 @@ MASK_TIME_SHAPES = MASK_SHAPES[:2]
 GAMMAS = (0.0, 0.02, 0.1)
 TIME_BATCH = 128
 TRAIN_STEPS = 20
+RESUME_STEPS = (5, 10)  # the first run's steps, then the resumed run's end
+KD_BATCH, KD_ACCUM, KD_STEPS = 1024, 8, 3
 L2_FLUSH_BYTES = 256 << 20  # timing inputs cycle through at least this much (H100 L2: 50 MB)
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: longer than enqueueing 50 calls
 SEED = 0
@@ -278,6 +296,8 @@ def serve_phase():
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = _write_jpegs(tmp, 32)
+        # a model_dir of its own, without checkpoints: the seeded random init
+        model_dir = os.path.join(tmp, "no_checkpoints")
         _zero_counts()
         for n in (1, 8, 32):
             before = kblur.LAUNCHES
@@ -285,10 +305,13 @@ def serve_phase():
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
                 rc = predict.main([*(f"--image={p}" for p in paths[:n]),
-                                   "--config=assemble_resnet50"])
+                                   "--config=assemble_resnet50",
+                                   f"--runtime.model_dir={model_dir}"])
             seconds = time.perf_counter() - t0
             if rc != 0:
                 raise AssertionError(f"predict exited {rc}: {err.getvalue()}")
+            if "random init" not in err.getvalue():
+                raise AssertionError(f"predict did not serve the random init: {err.getvalue()}")
             lines = [json.loads(line) for line in out.getvalue().splitlines()]
             assert [line["image"] for line in lines] == paths[:n], lines
             for line in lines:
@@ -386,34 +409,46 @@ def throughput_phase(smi):
              img_per_s=batch / dt, ms_per_batch=dt * 1e3, iters=iters, card=smi)
 
 
-def train_phase(smi):
-    """The training CLI at full width, b128, bf16, on synthetic data."""
+def _run_cli(argv):
+    """``main_classification.main(argv)`` with the kernel counts zeroed just
+    before; returns (metrics, counts, seconds, peak bytes, records)."""
     from axcnn_torch.cli import main_classification
 
+    model_dir = next(a.split("=", 1)[1] for a in argv if a.startswith("--runtime.model_dir="))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, err = io.StringIO(), io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        metrics = main_classification.main(argv)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return metrics, counts, seconds, peak, records
+
+
+def _step_walls(train):
+    """log_every=1: each record follows a host sync on the step's loss, so
+    the gaps between records are CUDA-synchronized step walls."""
+    return np.diff([r["time"] for r in train])
+
+
+def train_phase(smi):
+    """The training CLI at full width, b128, bf16, on synthetic data."""
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--config=assemble_resnet50", "--data.use_synthetic_data",
                 f"--train.train_steps={TRAIN_STEPS}", f"--train.batch_size={TIME_BATCH}",
                 "--train.log_every=1", f"--runtime.model_dir={tmp}"]
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        out, err = io.StringIO(), io.StringIO()
-        _zero_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            metrics = main_classification.main(argv)
-        seconds = time.perf_counter() - t0
-        counts = _counts()
-        peak = torch.cuda.max_memory_allocated()
-        with open(os.path.join(tmp, "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
+        metrics, counts, seconds, peak, records = _run_cli(argv)
     train = [r for r in records if r["tag"] == "train"]
     losses = [r["loss"] for r in train]
     assert [r["step"] for r in train] == list(range(1, TRAIN_STEPS + 1)), records
     assert all(np.isfinite(losses)), losses
     assert metrics["count"] == 4 * TIME_BATCH, metrics  # the synthetic eval set
-    # log_every=1: each record follows a host sync on the step's loss, so the
-    # gaps between records are CUDA-synchronized step walls
-    walls = np.diff([r["time"] for r in train])
+    walls = _step_walls(train)
     step_s = float(walls.mean())
     eval_batches = 4
     want = {"fwd": 3 * TRAIN_STEPS + 3 * eval_batches, "bwd": 3 * TRAIN_STEPS,
@@ -520,6 +555,184 @@ def train_parity_phase():
         raise AssertionError("card-vs-CPU train step parity failed")
 
 
+def _state_tensors(state):
+    return {"model": state.model.state_dict(), "velocity": state.velocity,
+            "ema": state.ema}
+
+
+def checkpoint_phase(smi, tmp):
+    """A full-width assembled R50 state after 3 b128 bf16 train steps, saved
+    and restored into a fresh state: bit for bit, in the fresh strides."""
+    from axcnn_torch.ckpt.checkpoint import CheckpointManager
+    from axcnn_torch.core.dtypes import BF16_POLICY
+    from axcnn_torch.train.schedules import make_lr_schedule
+    from axcnn_torch.train.train_step import create_train_state, make_train_step
+
+    cfg = _assembled_cfg()
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
+                               device="cuda", use_ema=True)
+    step = make_train_step(cfg, lr_schedule=make_lr_schedule(
+        base_lr=0.05, total_steps=10, warmup_steps=0), total_steps=10,
+        policy=BF16_POLICY, label_smoothing=0.1, mixup_alpha=0.2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"images": torch.randint(0, 256, (TIME_BATCH, 224, 224, 3), generator=gen,
+                                     device="cuda", dtype=torch.uint8),
+             "labels": torch.randint(0, 1001, (TIME_BATCH,), generator=gen, device="cuda")}
+    _zero_counts()
+    for _ in range(3):
+        state, metrics = step(state, batch, SEED + 1)
+    torch.cuda.synchronize()
+    counts = _counts()
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt"), max_to_keep=1)
+    t0 = time.perf_counter()
+    mgr.save(state)
+    save_s = time.perf_counter() - t0
+    fresh = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED + 9),
+                               device="cuda", use_ema=True)
+    strides = {f: {k: t.stride() for k, t in d.items()}
+               for f, d in _state_tensors(fresh).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, _, _ = mgr.restore(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    n, bad = 0, []
+    for field, want in _state_tensors(state).items():
+        got = _state_tensors(restored)[field]
+        for k, t in want.items():
+            n += 1
+            if not (torch.equal(got[k], t) and got[k].stride() == strides[field][k]
+                    and got[k].device == t.device):
+                bad.append(f"{field}/{k}")
+    ok = not bad and restored.step == 3 and counts == {"fwd": 9, "bwd": 9, "mask": 27}
+    emit("checkpoint", model="assemble_resnet50", steps=3, batch=TIME_BATCH, dtype="bf16",
+         loss=metrics["loss"].item(), tensors=n, differ=bad[:5],
+         file_mb=os.path.getsize(mgr.path(3)) / 1e6, save_s=save_s, restore_s=restore_s,
+         launches=counts, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"checkpoint round trip failed: {bad[:5]} {counts}")
+    return counts
+
+
+def _resume_argv(model_dir, steps):
+    return ["--config=assemble_resnet50", "--data.use_synthetic_data",
+            f"--train.train_steps={steps}", f"--train.batch_size={TIME_BATCH}",
+            "--train.log_every=1", f"--runtime.save_checkpoint_steps={RESUME_STEPS[0]}",
+            "--runtime.hang_watchdog_s=300", "--runtime.profile_steps=2",
+            f"--runtime.model_dir={model_dir}"]
+
+
+def resume_phase(smi, model_dir):
+    """The CLI for 5 steps, then the same command to 10: the second run
+    restores step 5 and trains 6-10 through the kernels."""
+    first, second = RESUME_STEPS
+    eval_fwd = 3 * 4  # the end-of-run eval: 4 synthetic batches
+    runs = []
+    for start, end in ((0, first), (first, second)):
+        metrics, counts, seconds, peak, records = _run_cli(_resume_argv(model_dir, end))
+        n = end - start
+        want = {"fwd": 3 * n + eval_fwd, "bwd": 3 * n, "mask": 9 * n}
+        new = records[sum(len(r["records"]) for r in runs):]
+        train = [r for r in new if r["tag"] == "train"]
+        runs.append(dict(records=new, counts=counts, want=want, seconds=seconds,
+                         steps=[r["step"] for r in train],
+                         losses=[r["loss"] for r in train], walls=_step_walls(train)))
+    r1, r2 = runs
+    restore = [r for r in r2["records"] if r["tag"] == "restore"]
+    traces = glob.glob(os.path.join(model_dir, "profile", "*.json"))
+    ok = (r1["steps"] == list(range(1, first + 1))
+          and r2["steps"] == list(range(first + 1, second + 1))
+          and [r["step"] for r in restore] == [first]
+          and all(np.isfinite(r1["losses"] + r2["losses"]))
+          and all(r["counts"] == r["want"] for r in runs) and bool(traces))
+    emit("resume", model="assemble_resnet50", batch=TIME_BATCH, dtype="bf16",
+         restored_at=[r["step"] for r in restore], losses=r1["losses"] + r2["losses"],
+         launches=[r["counts"] for r in runs], expected=[r["want"] for r in runs],
+         resumed_mean_step_ms=float(r2["walls"].mean()) * 1e3,
+         seconds=[r["seconds"] for r in runs], traces=[os.path.basename(t) for t in traces],
+         checkpoints=sorted(os.listdir(os.path.join(model_dir, "checkpoints"))),
+         card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("resume phase failed")
+    return r2["counts"]
+
+
+def _predict_lines(logits, paths):
+    """predict's output lines for fp32 ``logits``, computed as it does."""
+    e = np.exp(logits - logits.max(axis=-1, keepdims=True))
+    probs = e / e.sum(axis=-1, keepdims=True)
+    return [{"image": p, "top5": [[int(i), round(float(pr[i]), 5)]
+                                  for i in np.argsort(pr)[::-1][:5]]}
+            for p, pr in zip(paths, probs)]
+
+
+def serve_ckpt_phase(model_dir, tmp):
+    """``predict`` on the resumed run's checkpoint against the restored EMA
+    state's own ``eval_logits`` on the same decoded batch."""
+    from axcnn.data.datasets import get_dataset
+    from axcnn.data.preprocessing import preprocess_eval
+    from axcnn_torch.ckpt.checkpoint import CheckpointManager
+    from axcnn_torch.cli import predict
+    from axcnn_torch.core.dtypes import BF16_POLICY
+    from axcnn_torch.train.train_step import create_train_state, eval_logits
+
+    paths = _write_jpegs(tmp, 8)
+    out, err = io.StringIO(), io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = predict.main([*(f"--image={p}" for p in paths), "--config=assemble_resnet50",
+                           f"--runtime.model_dir={model_dir}"])
+    counts = _counts()
+    if rc != 0:
+        raise AssertionError(f"predict exited {rc}: {err.getvalue()}")
+    got = [json.loads(line) for line in out.getvalue().splitlines()]
+    state = create_train_state(_assembled_cfg(), generator=torch.Generator(),
+                               device="cuda", use_ema=True)
+    state, _, _ = CheckpointManager(os.path.join(model_dir, "checkpoints")).restore(state)
+    u8 = np.stack([preprocess_eval(open(p, "rb").read(), image_size=224, resize_min=256)
+                   for p in paths])
+    info = get_dataset("imagenet")
+    logits = eval_logits(state, torch.from_numpy(u8).cuda(), policy=BF16_POLICY, use_ema=True,
+                         mean_rgb=info.mean_rgb, stddev_rgb=info.stddev_rgb)
+    want = _predict_lines(logits.cpu().numpy(), paths)
+    ok = (got == want and "random init" not in err.getvalue()
+          and counts == {"fwd": 3, "bwd": 0, "mask": 0})
+    emit("serve_ckpt", images=len(paths), step=state.step, launches=counts,
+         top5_equal=got == want, first=got[0], want_first=want[0], ok=ok)
+    if not ok:
+        raise AssertionError("serving the checkpoint disagrees with its restored state")
+    return counts
+
+
+def kd_phase(smi, teacher_dir, model_dir):
+    """Assemble-ResNet-152 distilled from the resumed R50 run, global batch
+    1024 as 8 micro-batches of 128, bf16, through the CLI."""
+    argv = ["--config=assemble_resnet152_kd", "--data.use_synthetic_data",
+            f"--train.batch_size={KD_BATCH}", f"--train.grad_accum_steps={KD_ACCUM}",
+            f"--train.train_steps={KD_STEPS}", "--train.log_every=1",
+            f"--train.kd_teacher_checkpoint={teacher_dir}/checkpoints",
+            f"--runtime.model_dir={model_dir}"]
+    metrics, counts, seconds, peak, records = _run_cli(argv)
+    train = [r for r in records if r["tag"] == "train"]
+    losses = [r["loss"] for r in train]
+    walls = _step_walls(train)
+    step_s = float(walls.mean())
+    micro = KD_STEPS * KD_ACCUM
+    want = {"fwd": micro * (3 + 3) + 3 * 4, "bwd": micro * 3, "mask": micro * 39}
+    ok = ([r["step"] for r in train] == list(range(1, KD_STEPS + 1))
+          and all(np.isfinite(losses)) and counts == want
+          and metrics["count"] == 4 * KD_BATCH)
+    emit("kd", model="assemble_resnet152_kd", teacher="assemble_resnet50",
+         batch=KD_BATCH, grad_accum_steps=KD_ACCUM, micro_batch=KD_BATCH // KD_ACCUM,
+         dtype="bf16", steps=KD_STEPS, losses=losses, step_ms=[w * 1e3 for w in walls],
+         mean_step_ms=step_s * 1e3, train_img_per_s=KD_BATCH / step_s,
+         max_memory_allocated_gib=peak / 2 ** 30, launches=counts, expected=want,
+         eval=metrics, seconds=seconds, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"KD phase failed: launches {counts}, expected {want}")
+    return counts
+
+
 KERNELS = (  # (key, name, source, the TPU kernel it replaces)
     ("fwd", "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
@@ -535,18 +748,24 @@ def main():
     build_phase()
     errs = kernel_check_phase()
     times = kernel_time_phase()
-    served = serve_phase()
+    paths = {"serve": serve_phase()}
     parity_phase()
     throughput_phase(smi)
-    trained = train_phase(smi)
+    paths["train"] = train_phase(smi)
     train_parity_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "resume")
+        paths["checkpoint"] = checkpoint_phase(smi, tmp)
+        paths["resume"] = resume_phase(smi, run_dir)
+        paths["serve_ckpt"] = serve_ckpt_phase(run_dir, tmp)
+        paths["kd"] = kd_phase(smi, run_dir, os.path.join(tmp, "kd"))
     for key, name, *_ in KERNELS:
-        if served[key] + trained[key] == 0:
+        if not any(counts[key] for counts in paths.values()):
             raise AssertionError(f"{name} was never launched on the main paths")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": served[key] + trained[key],
-        "launches_by_path": {"serve": served[key], "train": trained[key]},
+        "launches": sum(counts[key] for counts in paths.values()),
+        "launches_by_path": {path: counts[key] for path, counts in paths.items()},
         "max_abs_err": errs[key], "ms": times[key][0], "plain_ms": times[key][1]}
         for key, name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,8 @@ def test_fields_and_defaults_match_reference(section):
     assert _fields(tcls) == _fields(jcls)
 
 
-@pytest.mark.parametrize("preset", ["assemble_resnet50", "vanilla_resnet50"])
+@pytest.mark.parametrize("preset", ["assemble_resnet50", "vanilla_resnet50", "finetune_fgvc",
+                                    "assemble_resnet152_kd", "bl_resnet50"])
 def test_presets_match_reference(preset):
     assert tconfig.load_preset(preset).to_dict() == jconfig.load_preset(preset).to_dict()
 
@@ -67,6 +68,11 @@ def test_cli_errors_match_reference(argv, match):
             parse(argv)
 
 
+def test_unknown_preset_names_the_presets():
+    with pytest.raises(ValueError, match="unknown preset 'nope'.*assemble_resnet152_kd"):
+        tconfig.parse_cli(["--config=nope"])
+
+
 def test_dtype_policies_match_reference():
     jmap = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
     for name in ("fp32", "float32", "bf16", "bfloat16", "fp16", "float16", "amp"):
@@ -81,7 +87,8 @@ def test_dtype_policies_match_reference():
 
 # the training slice's modules, named so that the walk below must reach them
 TRAINING_MODULES = [
-    "axcnn_torch.cli.main_classification", "axcnn_torch.core.rng",
+    "axcnn_torch.ckpt.checkpoint", "axcnn_torch.cli.main_classification",
+    "axcnn_torch.core.rng",
     "axcnn_torch.data.mixup", "axcnn_torch.kernels.dropblock",
     "axcnn_torch.ops.dropblock", "axcnn_torch.train.ema", "axcnn_torch.train.loop",
     "axcnn_torch.train.losses", "axcnn_torch.train.optimizer",

@@ -206,3 +206,81 @@ def test_dropblock_op_on_card_matches_cpu():
     want = dropblock(x, seeds, keep_prob=0.8, block_size=7, train=True)
     got = dropblock(x.cuda(), seeds, keep_prob=0.8, block_size=7, train=True)
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the kernels on the KD and gradient-accumulation paths
+# ---------------------------------------------------------------------------
+
+KD_CFG = dict(width_multiplier=0.125, num_classes=10, use_resnet_d=True,
+              use_se_block=True, use_sk_block=True, anti_alias_type="sconv",
+              use_dropblock=True, dropblock_keep_prob=0.5, zero_gamma=True)
+
+
+def _teacher(device):
+    from axcnn_torch.models.resnet import ModelConfig, ResNet
+
+    model = ResNet(ModelConfig(**KD_CFG), generator=torch.Generator().manual_seed(30))
+    return model.to(device, memory_format=torch.channels_last).eval().requires_grad_(False)
+
+
+def _kd_batch():
+    rng = np.random.default_rng(31)
+    return {"images": torch.from_numpy(rng.integers(0, 256, (8, 64, 64, 3), dtype=np.uint8)),
+            "labels": torch.from_numpy(rng.integers(0, 10, 8))}
+
+
+def _counts():
+    return (kblur.LAUNCHES, kblur.BWD_LAUNCHES, kdrop.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_teacher_forward_on_card():
+    """The frozen teacher's no_grad forward launches the BlurPool forward
+    kernel at the 3 stride-2 blocks and no backward; its logits agree with
+    the CPU's plain path (fp32, TF32 off)."""
+    _cuda()
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, set_fp32_precision
+
+    set_fp32_precision(DEFAULT_POLICY)
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (4, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = _teacher("cpu")(x)
+        before = _counts()
+        got = _teacher("cuda")(x.cuda()).cpu()
+    assert np.subtract(_counts(), before).tolist() == [3, 0, 0]
+    assert (got - want).norm() / want.norm() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_accumulated_kd_step_on_card():
+    """One KD step with grad_accum_steps=2 on the card: per micro-batch the
+    student's 3 forward and 3 backward BlurPool launches, the teacher's 3
+    forward launches and 9 DropBlock masks; the loss agrees with the same
+    step on the CPU through the plain versions."""
+    _cuda()
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, set_fp32_precision
+    from axcnn_torch.models.resnet import ModelConfig
+    from axcnn_torch.train.schedules import make_lr_schedule
+    from axcnn_torch.train.train_step import create_train_state, make_train_step
+
+    set_fp32_precision(DEFAULT_POLICY)
+    cfg = ModelConfig(**KD_CFG)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        state = create_train_state(cfg, generator=torch.Generator().manual_seed(33),
+                                   device=device)
+        state.step = 5  # DropBlock drops
+        step = make_train_step(cfg, lr_schedule=make_lr_schedule(
+            base_lr=0.1, total_steps=10, warmup_steps=0), total_steps=10,
+            mixup_alpha=0.2, teacher=_teacher(device), kd_temp=2.0, grad_accum_steps=2)
+        before = _counts()
+        state, metrics = step(state, {k: v.to(device) for k, v in _kd_batch().items()}, 7)
+        losses[device] = metrics["loss"].item()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert np.subtract(_counts(), before).tolist() == [2 * (3 + 3), 2 * 3, 2 * 9]
+            assert all(torch.isfinite(v).all() for v in state.velocity.values())
+    assert np.isfinite(losses["cuda"])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])

@@ -2,7 +2,9 @@
 
 Runs the assembled preset at width 0.125 and 64x64 on two generated JPEGs
 and checks the output contract the reference CLI has: one JSON line per
-image with five [class, prob] pairs, probabilities descending.
+image with five [class, prob] pairs, probabilities descending. Each test
+points ``--runtime.model_dir`` at an empty directory, so predict serves the
+seeded random init; serving a checkpoint is in tests/test_torch_ckpt.py.
 """
 
 import json
@@ -16,6 +18,12 @@ from axcnn_torch.cli import predict
 
 SMALL = ["--config=assemble_resnet50", "--model.width_multiplier=0.125",
          "--data.image_size=64"]
+
+
+@pytest.fixture
+def small(tmp_path):
+    """SMALL, reading checkpoints from an empty directory."""
+    return [*SMALL, f"--runtime.model_dir={tmp_path / 'empty'}"]
 
 
 @pytest.fixture
@@ -42,8 +50,8 @@ def _lines(capsys):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])
-def test_predict_cpu_prints_top5_per_image(jpegs, capsys, dtype):
-    rc = predict.main([*(f"--image={p}" for p in jpegs), *SMALL, "--cpu",
+def test_predict_cpu_prints_top5_per_image(jpegs, small, capsys, dtype):
+    rc = predict.main([*(f"--image={p}" for p in jpegs), *small, "--cpu",
                        f"--train.dtype={dtype}"])
     assert rc == 0
     lines = _lines(capsys)
@@ -58,26 +66,26 @@ def test_predict_cpu_prints_top5_per_image(jpegs, capsys, dtype):
         assert probs == sorted(probs, reverse=True) and 0 < sum(probs) <= 1.0 + 1e-4
 
 
-def test_predict_labels_file(jpegs, capsys, tmp_path):
+def test_predict_labels_file(jpegs, small, capsys, tmp_path):
     labels = tmp_path / "labels.txt"
     labels.write_text("\n".join(f"class_{i}" for i in range(1001)))
-    assert predict.main([f"--image={jpegs[0]}", *SMALL, "--cpu",
+    assert predict.main([f"--image={jpegs[0]}", *small, "--cpu",
                          f"--labels={labels}"]) == 0
     (line,) = _lines(capsys)
     assert all(c.startswith("class_") for c, _ in line["top5"])
 
 
-def test_predict_fp32_turns_tf32_off(jpegs, capsys):
+def test_predict_fp32_turns_tf32_off(jpegs, small, capsys):
     torch.backends.cudnn.allow_tf32 = True
-    assert predict.main([f"--image={jpegs[0]}", *SMALL, "--cpu",
+    assert predict.main([f"--image={jpegs[0]}", *small, "--cpu",
                          "--train.dtype=fp32"]) == 0
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
-def test_predict_without_cuda_refuses_to_run_on_cpu(jpegs, capsys, monkeypatch):
+def test_predict_without_cuda_refuses_to_run_on_cpu(jpegs, small, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert predict.main([f"--image={jpegs[0]}", *SMALL]) != 0
+    assert predict.main([f"--image={jpegs[0]}", *small]) != 0
     out = capsys.readouterr()
     assert out.out == "" and "--cpu" in out.err
 

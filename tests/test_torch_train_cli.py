@@ -5,7 +5,8 @@ Both run the assembled preset at the size of tests/test_torch_train_step.py
 (width 0.125, 64x64, batch 8) for 2 steps on synthetic data; the port's
 metrics log must carry the reference's tags and metric keys. Every option
 the port does not have yet is refused, and without CUDA the default
-platform exits non-zero: nothing runs on the CPU unless asked.
+platform exits non-zero: nothing runs on the CPU unless asked. Checkpoints,
+resume, eval-only, warm start and KD are in tests/test_torch_loop.py.
 """
 
 import json
@@ -108,26 +109,18 @@ def test_cli_trains_on_tfrecords(producers, tmp_path):
 
 # one command-line flag for each entry of the loop's list of refusals
 REFUSED_FLAGS = {
-    "checkpoint saves (runtime.save_checkpoint_steps)": "--runtime.save_checkpoint_steps=5",
-    "runtime.eval_only": "--runtime.eval_only",
-    "warm start (train.pretrained_checkpoint)": "--train.pretrained_checkpoint=/nonexistent",
-    "knowledge distillation (train.kd_teacher_checkpoint)":
-        "--train.kd_teacher_checkpoint=/nonexistent",
-    "train.grad_accum_steps > 1": "--train.grad_accum_steps=2",
     "runtime.num_devices > 1": "--runtime.num_devices=2",
     "runtime.spatial_partitions > 1": "--runtime.spatial_partitions=2",
     "runtime.dcn_slices > 1": "--runtime.dcn_slices=2",
     "data.autoaugment_device": "--data.autoaugment_device",
     "data.echo_factor > 1": "--data.echo_factor=2",
     "runtime.export_dir": "--runtime.export_dir=/nonexistent",
-    "runtime.hang_watchdog_s > 0": "--runtime.hang_watchdog_s=60",
-    "runtime.profile_steps": "--runtime.profile_steps=2",
     "runtime.eval_imagenet_c": "--runtime.eval_imagenet_c",
 }
 
 
 def test_every_refusal_has_a_flag():
-    assert set(REFUSED_FLAGS) == {what for what, _ in UNPORTED}
+    assert set(REFUSED_FLAGS) == {what for what, _, _ in UNPORTED}
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED_FLAGS))
@@ -135,7 +128,8 @@ def test_unported_option_is_refused(what, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         tcli.main([*SMALL, "--runtime.platform=cpu", REFUSED_FLAGS[what],
                    f"--runtime.model_dir={tmp_path}"])
-    assert what in str(err.value)
+    item = {w: i for w, i, _ in UNPORTED}[what]
+    assert f"{what} (item {item})" in str(err.value)
     assert not os.listdir(tmp_path)  # refused before anything ran
 
 

@@ -436,8 +436,10 @@ def _param_trees(rng, model):
 def test_momentum_update_matches_reference():
     model = _small_model()
     bn_mods, [(p, jp), (g, jg), (v, jv)] = _param_trees(np.random.default_rng(61), model)
-    want_p, want_v = jopt.momentum_update(jp, jg, jv, lr=0.05, momentum=0.9,
-                                          weight_decay=1e-4)
+    # the reference's inputs share memory with the torch tensors that the
+    # port updates in place: finish its asynchronous dispatch first
+    want_p, want_v = jax.block_until_ready(jopt.momentum_update(
+        jp, jg, jv, lr=0.05, momentum=0.9, weight_decay=1e-4))
     topt.momentum_update(p, g, v, lr=0.05, momentum=0.9, weight_decay=1e-4,
                          mask=tlosses.decay_mask(model))
     for got, want in ((p, want_p), (v, want_v)):
@@ -450,7 +452,8 @@ def test_momentum_update_matches_reference():
 def test_ema_update_matches_reference(step):
     model = _small_model()
     bn_mods, [(e, je), (p, jp), _] = _param_trees(np.random.default_rng(62), model)
-    want = jema.ema_update(je, jp, decay=0.9999, step=step)
+    # as above: the reference must read ``e`` before the port updates it
+    want = jax.block_until_ready(jema.ema_update(je, jp, decay=0.9999, step=step))
     tema.ema_update(e, p, decay=0.9999, step=step)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6,
                                                          atol=1e-7),
