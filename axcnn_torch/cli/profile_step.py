@@ -1,0 +1,218 @@
+"""Step walls and device-time breakdown of the train step on one CUDA card.
+
+    python -m axcnn_torch.cli.profile_step --what=step       # the R50 step
+    python -m axcnn_torch.cli.profile_step --what=dropblock  # its DropBlock sites
+    python -m axcnn_torch.cli.profile_step --what=kd         # the R152 KD step
+
+``step``: ``assemble_resnet50`` at full width, 1001 classes, batch 128, bf16,
+random uint8 images on the card, the train step as ``make_train_step``
+builds it (mixup 0.2, label smoothing 0.1). ``dropblock``: the R50 step's
+nine DropBlock sites alone (6 at 14x14x1024 and 3 at 7x7x2048, batch 128,
+bf16, channels_last), each run forward and then backward through
+``axcnn_torch.ops.dropblock.dropblock``; one repetition is one step's worth.
+``kd``: ``assemble_resnet152_kd`` (R152 student, batch 1024 as 8
+micro-batches of 128, bf16) with a seeded ``assemble_resnet50`` teacher.
+
+After three warm-up steps, ``--untraced`` steps are timed one by one on the
+host clock: the wall until the step's loss reached the host (a synchronize
+for ``dropblock``) and the part of it the host spent enqueueing; then one
+``torch.profiler`` window of ``--steps`` steps (0: none). Prints one JSON
+line: the untraced walls' median, minimum, mean and maximum, and per step
+of the window its wall, the device busy time (the union of the device
+events' intervals), the idle share (1 - busy / wall; the profiler lengthens
+the wall, so it overstates an untraced share), the device events, and
+device time by category and by the 12 largest kernels. The categories are
+matched on the kernel's name, so a copy or a cast counts as elementwise.
+Needs a CUDA card; measures whichever ``axcnn_torch`` is first on the path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BATCH = 128
+SEED = 0
+# the assembled R50's DropBlock sites at 224x224: (H, W, C, sites per step)
+DROPBLOCK_SITES = ((14, 14, 1024, 6), (7, 7, 2048, 3))
+CATEGORIES = (  # (category, substrings of a device event's name); the first match wins
+    ("hand-written kernels", ("blur3_s2", "dropblock_")),
+    ("elementwise_kernel<128, 2>", ("elementwise_kernel<128, 2,",)),
+    ("other elementwise, copies and casts", ("elementwise_kernel", "elementwise")),
+    ("reductions", ("reduce_kernel", "Reduce", "reduce")),
+    ("optimizer and EMA (_foreach)", ("multi_tensor_apply",)),
+    ("memcpy and memset", ("Memcpy", "Memset")),
+    ("convolutions and GEMMs", ("cudnn", "xmma", "gemm", "cutlass", "conv", "sm90", "dgrad",
+                                "wgrad", "implicit")),
+)
+
+
+def device_events(prof) -> list:
+    """The device events (kernels, copies, sets) of a ``torch.profiler``
+    window, as ``FunctionEvent``s."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def category(name: str) -> str:
+    return next((cat for cat, keys in CATEGORIES if any(k in name for k in keys)), "other")
+
+
+def _busy_us(events) -> float:
+    """Length of the union of the events' intervals."""
+    busy, end = 0.0, -float("inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def breakdown(events, steps: int, wall_s: float) -> dict:
+    """Per-step totals of a window of ``steps`` steps."""
+    by_cat, by_name = {}, {}
+    for e in events:
+        us = e.time_range.end - e.time_range.start
+        by_cat[category(e.name)] = by_cat.get(category(e.name), 0.0) + us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    busy_ms = _busy_us(events) / 1e3 / steps
+    wall_ms = wall_s * 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "steps": steps, "wall_ms": wall_ms, "busy_ms": busy_ms,
+        "idle_share": 1 - busy_ms / wall_ms, "device_events": len(events) / steps,
+        "by_category_ms": {k: v / 1e3 / steps for k, v in sorted(by_cat.items(),
+                                                                  key=lambda kv: -kv[1])},
+        "by_category_share": {k: v / 1e3 / steps / busy_ms for k, v in by_cat.items()},
+        "top_kernels_ms": [[name[:160], v / 1e3 / steps] for name, v in top],
+    }
+
+
+def _stats(values) -> dict:
+    v = np.asarray(values) * 1e3
+    return {"median": float(np.median(v)), "min": float(v.min()), "mean": float(v.mean()),
+            "max": float(v.max())}
+
+
+def _measure(enqueue, wait, untraced: int, steps: int) -> dict:
+    """``enqueue()`` runs one step and returns what ``wait`` needs to block
+    until the step is done."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        wait(enqueue())
+    walls, enqueues = [], []
+    for _ in range(untraced):
+        t0 = time.perf_counter()
+        pending = enqueue()
+        t1 = time.perf_counter()
+        wait(pending)
+        walls.append(time.perf_counter() - t0)
+        enqueues.append(t1 - t0)
+    result = {"untraced_steps": untraced, "untraced_wall_ms": _stats(walls),
+              "untraced_enqueue_ms": _stats(enqueues)} if untraced else {}
+    if steps:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                wait(enqueue())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        result.update(breakdown(device_events(prof), steps, wall))
+    return result
+
+
+def _wait_loss(metrics):
+    metrics["loss"].item()  # the host waits for the step, as the loop's log does
+
+
+def _step_runner(kd: bool):
+    import dataclasses
+
+    from axcnn_torch.core.dtypes import BF16_POLICY
+    from axcnn_torch.models.resnet import ResNet
+    from axcnn_torch.train.schedules import make_lr_schedule
+    from axcnn_torch.train.train_step import create_train_state, make_train_step
+    from axcnn_torch.utils.config import load_preset
+
+    r50 = dataclasses.replace(load_preset("assemble_resnet50").model, num_classes=1001)
+    kw = dict(policy=BF16_POLICY, label_smoothing=0.1, mixup_alpha=0.2)
+    batch_size = BATCH
+    if kd:
+        preset = load_preset("assemble_resnet152_kd")
+        cfg = dataclasses.replace(preset.model, num_classes=1001)
+        teacher = ResNet(r50, generator=torch.Generator().manual_seed(SEED + 1))
+        kw.update(teacher=teacher.to("cuda", memory_format=torch.channels_last).eval()
+                  .requires_grad_(False), kd_temp=preset.train.kd_temp,
+                  kd_alpha=preset.train.kd_alpha, grad_accum_steps=8)
+        batch_size = 8 * BATCH
+    else:
+        cfg = r50
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
+                               device="cuda", use_ema=True)
+    step = make_train_step(cfg, lr_schedule=make_lr_schedule(
+        base_lr=0.05, total_steps=100, warmup_steps=0), total_steps=100, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"images": torch.randint(0, 256, (batch_size, 224, 224, 3), generator=gen,
+                                     device="cuda", dtype=torch.uint8),
+             "labels": torch.randint(0, 1001, (batch_size,), generator=gen, device="cuda")}
+    box = [state]
+
+    def enqueue():
+        box[0], metrics = step(box[0], batch, SEED + 1)
+        return metrics
+
+    return enqueue, _wait_loss
+
+
+def _dropblock_runner():
+    from axcnn_torch.ops.dropblock import dropblock
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    sites = []
+    for h, w, c, count in DROPBLOCK_SITES:
+        for _ in range(count):
+            x = torch.randn(BATCH, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+            g = torch.randn(BATCH, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+            sites.append((x.permute(0, 3, 1, 2).requires_grad_(), g.permute(0, 3, 1, 2)))
+
+    def enqueue():
+        for x, g in sites:
+            seeds = rng.integers(-2 ** 31, 2 ** 31, BATCH, dtype=np.int32)
+            y = dropblock(x, seeds, keep_prob=0.9, block_size=7, train=True)
+            torch.autograd.grad(y, x, g)
+
+    return enqueue, lambda _: torch.cuda.synchronize()
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--what", choices=("step", "dropblock", "kd"), default="step")
+    parser.add_argument("--steps", type=int, default=3, help="steps in the traced window")
+    parser.add_argument("--untraced", type=int, default=20, help="steps timed untraced")
+    parser.add_argument("--label", default="", help="a name for the tree measured")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    enqueue, wait = (_dropblock_runner() if args.what == "dropblock"
+                     else _step_runner(kd=args.what == "kd"))
+    result = _measure(enqueue, wait, args.untraced, args.steps)
+    print(json.dumps({"profile": args.what, "label": args.label, "dtype": "bf16",
+                      "card": smi.splitlines()[0], **result}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
-// DropBlock keep-mask for NVIDIA Hopper (sm_90a).
+// DropBlock for NVIDIA Hopper (sm_90a): the keep-mask and the rescaled apply.
 //
-// Replaces the TPU kernel axcnn/pallas/dropblock.py: _make_kernel /
-// dropblock_mask_pallas (the pallas_call at line 100). Per sample n:
+// dropblock_mask_kernel replaces the TPU kernel axcnn/pallas/dropblock.py:
+// _make_kernel / dropblock_mask_pallas (the pallas_call at line 100). Per
+// sample n:
 //
 //   bits[p]  = fmix32(fmix32(seed[n]) ^ p)     p = pixel index r*W + c
 //   u[p]     = (bits[p] >> 8) * 2^-24          top 24 bits, as the TPU kernel
@@ -17,14 +18,38 @@
 // torch integer ops. The TPU drew from its core PRNG instead; the streams
 // differ, the distribution is the same.
 //
-// What bounds it: nothing much. The maps are small (14x14 and 7x7 on the
-// assembled R50), so the cost is one launch plus writing N*H*W floats. One
-// CTA per sample; the H x W centre and row-max maps live in shared memory as
-// bytes (at most kMaxHW pixels each); the count is a block reduction over
-// integers, so it is exact. The apply x * mask * scale stays in PyTorch.
+// What bounds the mask: nothing much. The maps are small (14x14 and 7x7 on
+// the assembled R50), so the cost is one launch plus writing N*H*W floats.
+// One CTA per sample; the H x W centre and row-max maps live in shared
+// memory as bytes (at most kMaxHW pixels each); the count is a block
+// reduction over integers, so it is exact.
 //
-// Plain C interface, loaded with ctypes; returns cudaGetLastError().
+// dropblock_apply_kernel replaces the apply that dropblock_pallas
+// (axcnn/pallas/dropblock.py:133-135) left to XLA, forward and backward:
+//
+//   scale = numel / (max(sum(counts), 1) * C)          fp32, in this order
+//   y     = (x * mask[n, h, w]) * scale                forward
+//   dx    = (g * scale) * mask[n, h, w]                backward (autograd's order)
+//
+// each product rounded once in fp32 (__fmul_rn: no contraction), the result
+// cast once to the tensor's type, so it is bit-identical to the plain
+// version (dropblock_apply_reference and autograd through it), infinities
+// and NaNs included. What bounds it: bytes, 2 * itemsize per element (read
+// x, write y) plus 4 per pixel of mask; two fp32 multiplies per element are
+// far below the card's rate. The design streams: a grid-stride loop over
+// dense NHWC in 16-byte vectors (8 bf16 or 4 fp32 channels of one pixel),
+// each thread issuing kApplyUnroll independent loads before its stores, the
+// pixel's mask value loaded once per vector, streaming loads and stores.
+// Each CTA forms the scale itself (one warp sums the N counts from L2 while
+// the CTA's first loads are in flight), so no eager op and no cross-CTA
+// reduction sits between the mask kernel and the apply. The sum is exact:
+// the counts are integers and N*H*W <= 2^24. Widths whose C * itemsize is
+// not a multiple of 16 bytes, or a tensor that is not 16-byte aligned, take
+// the same loop one element at a time.
+//
+// Plain C interface, loaded with ctypes; each entry returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -96,6 +121,120 @@ __global__ void dropblock_mask_kernel(const int32_t* __restrict__ seeds,
   }
 }
 
+constexpr int kApplyThreads = 256;
+constexpr int kApplyUnroll = 4;     // independent 16-byte loads in flight per thread
+constexpr int kApplyCtasPerSm = 8;  // 8 x 256 threads: a full SM
+constexpr long long kMaxApplyPixels = 1LL << 24;  // N*H*W: the fp32 count sum stays exact
+
+struct ApplyArgs {
+  const void* src;
+  const float* mask;
+  const float* counts;
+  void* dst;
+  float numel;           // the element count as the plain version's fp32 value
+  int n, c;
+  long long units;       // vectors (or elements) in the tensor
+  long long per_pixel;   // vectors (or elements) per pixel: C / (16 / itemsize), or C
+  bool backward;
+};
+
+// (v * a) * b, each product rounded once
+__device__ __forceinline__ float mul2(float v, float a, float b) {
+  return __fmul_rn(__fmul_rn(v, a), b);
+}
+
+__device__ __forceinline__ float apply_unit(float v, float a, float b) { return mul2(v, a, b); }
+
+__device__ __forceinline__ __nv_bfloat16 apply_unit(__nv_bfloat16 v, float a, float b) {
+  return __float2bfloat16_rn(mul2(__bfloat162float(v), a, b));
+}
+
+__device__ __forceinline__ float4 apply_unit(float4 v, float a, float b) {
+  return make_float4(mul2(v.x, a, b), mul2(v.y, a, b), mul2(v.z, a, b), mul2(v.w, a, b));
+}
+
+__device__ __forceinline__ uint32_t apply_bf16x2(uint32_t bits, float a, float b) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&bits);
+  const float2 f = __bfloat1622float2(h);
+  h = __floats2bfloat162_rn(mul2(f.x, a, b), mul2(f.y, a, b));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// 8 bf16 channels of one pixel
+__device__ __forceinline__ uint4 apply_unit(uint4 v, float a, float b) {
+  return make_uint4(apply_bf16x2(v.x, a, b), apply_bf16x2(v.y, a, b),
+                    apply_bf16x2(v.z, a, b), apply_bf16x2(v.w, a, b));
+}
+
+// the unit a thread moves: 16 bytes of channels, or one element
+template <typename T, bool kVec> struct UnitOf { using type = T; };
+template <> struct UnitOf<float, true> { using type = float4; };
+template <> struct UnitOf<__nv_bfloat16, true> { using type = uint4; };
+
+template <typename T, bool kVec, typename Index>
+__global__ void __launch_bounds__(kApplyThreads) dropblock_apply_kernel(ApplyArgs args) {
+  using Unit = typename UnitOf<T, kVec>::type;
+  const Unit* __restrict__ in = static_cast<const Unit*>(args.src);
+  Unit* __restrict__ out = static_cast<Unit*>(args.dst);
+  const float* __restrict__ mask = args.mask;
+  const Index units = (Index)args.units, per_pixel = (Index)args.per_pixel;
+  const Index stride = (Index)gridDim.x * kApplyThreads;
+  __shared__ float s_scale;
+  Unit v[kApplyUnroll];
+  float m[kApplyUnroll];
+  Index i = (Index)blockIdx.x * kApplyThreads + threadIdx.x;
+
+#pragma unroll
+  for (int u = 0; u < kApplyUnroll; ++u) {
+    const Index j = i + u * stride;
+    if (j < units) {
+      v[u] = __ldcs(in + j);
+      m[u] = __ldg(mask + j / per_pixel);
+    }
+  }
+  // warp 0 forms the scale while the first loads are in flight; the partial
+  // sums are integers below 2^24, so any order gives the exact sum
+  if (threadIdx.x < 32) {
+    float sum = 0.0f;
+    for (int k = threadIdx.x; k < args.n; k += 32) sum += __ldg(args.counts + k);
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (threadIdx.x == 0)
+      s_scale = __fdiv_rn(args.numel, __fmul_rn(fmaxf(sum, 1.0f), (float)args.c));
+  }
+  __syncthreads();
+  const float s = s_scale;
+
+  for (; i < units; i += kApplyUnroll * stride) {
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      const Index j = i + u * stride;
+      if (j < units) {
+        // forward (x * m) * s; backward (g * s) * m
+        const float a = args.backward ? s : m[u], b = args.backward ? m[u] : s;
+        __stcs(out + j, apply_unit(v[u], a, b));
+      }
+    }
+    const Index next = i + kApplyUnroll * stride;
+#pragma unroll
+    for (int u = 0; u < kApplyUnroll; ++u) {
+      const Index j = next + u * stride;
+      if (j < units) {
+        v[u] = __ldcs(in + j);
+        m[u] = __ldg(mask + j / per_pixel);
+      }
+    }
+  }
+}
+
+template <typename T, bool kVec>
+int launch_apply(const ApplyArgs& args, unsigned grid, bool narrow, cudaStream_t stream) {
+  if (narrow)
+    dropblock_apply_kernel<T, kVec, uint32_t><<<grid, kApplyThreads, 0, stream>>>(args);
+  else
+    dropblock_apply_kernel<T, kVec, unsigned long long><<<grid, kApplyThreads, 0, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // seeds: (n,) int32 on the device; mask: (n, h, w) fp32; counts: (n,) fp32.
@@ -111,4 +250,38 @@ extern "C" int axcnn_dropblock_mask(const void* seeds, float gamma, void* mask,
       static_cast<const int32_t*>(seeds), gamma, static_cast<float*>(mask),
       static_cast<float*>(counts), (int)h, (int)w, (int)bs);
   return (int)cudaGetLastError();
+}
+
+// src, dst: dense NHWC (channels_last) fp32 (dtype 0) or bf16 (dtype 1);
+// mask: (n, h*w) fp32; counts: (n,) fp32; numel: n*h*w*c as fp32. backward
+// 0 computes (src * mask) * scale, 1 computes (src * scale) * mask.
+// Requires n*h*w <= 2^24.
+extern "C" int axcnn_dropblock_apply(const void* src, const void* mask, const void* counts,
+                                     void* dst, int dtype, float numel, long long n,
+                                     long long hw, long long c, int backward, void* stream) {
+  if (n <= 0 || hw <= 0 || c <= 0 || n * hw > kMaxApplyPixels || c > 0x7fffffffLL ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const long long item = dtype == 1 ? 2 : 4;
+  const bool vec = c * item % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  const long long per_pixel = vec ? c * item / 16 : c;
+  const ApplyArgs args{src, static_cast<const float*>(mask), static_cast<const float*>(counts),
+                       dst, numel, (int)n, (int)c, n * hw * per_pixel, per_pixel, backward != 0};
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long per_cta = (long long)kApplyThreads * kApplyUnroll;
+  long long grid = (args.units + per_cta - 1) / per_cta;
+  if (grid > (long long)sms * kApplyCtasPerSm) grid = (long long)sms * kApplyCtasPerSm;
+  // 32-bit indices when no index the loop forms (below units + 2 * grid *
+  // per_cta: the next round's loads) reaches 2^32
+  const bool narrow = args.units + 2 * grid * per_cta <= 0xffffffffLL;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return vec ? launch_apply<__nv_bfloat16, true>(args, (unsigned)grid, narrow, st)
+               : launch_apply<__nv_bfloat16, false>(args, (unsigned)grid, narrow, st);
+  return vec ? launch_apply<float, true>(args, (unsigned)grid, narrow, st)
+             : launch_apply<float, false>(args, (unsigned)grid, narrow, st);
 }

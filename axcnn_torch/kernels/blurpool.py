@@ -26,6 +26,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from axcnn_torch.kernels.build import entry
+
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 ROUTES = {"fwd_tma": 0, "fwd_thread": 0, "bwd_tma": 0, "bwd_thread": 0}
@@ -81,16 +83,6 @@ def blur_pool_bwd_reference(g: torch.Tensor, in_hw) -> torch.Tensor:
     return _blur3_s2_rows_bwd(t, h).to(g.dtype)
 
 
-def _kernel(name: str):
-    """A C entry point, on the library that ``load_library`` caches."""
-    from axcnn_torch.kernels.build import load_library
-
-    fn = getattr(load_library(), name)
-    fn.argtypes = ENTRY_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_cuda_nchw(fn: str, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{fn} needs a CUDA tensor, got {x.device}")
@@ -106,8 +98,8 @@ def _launch(name: str, kind: str, src: torch.Tensor, out: torch.Tensor, hw) -> N
     n, c = src.shape[:2]
     route = ctypes.c_int(-1)
     stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = _kernel(name)(src.data_ptr(), out.data_ptr(), _DTYPE_CODES[src.dtype], n, *hw, c,
-                        stream, ctypes.byref(route))
+    err = entry(name, ENTRY_ARGTYPES)(src.data_ptr(), out.data_ptr(), _DTYPE_CODES[src.dtype],
+                                      n, *hw, c, stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"{name} failed: error {err} (a CUDA error; 9999: no "
                            f"cuTensorMapEncodeTiled or cuCtxGetCurrent; 10000 + r: the encode "

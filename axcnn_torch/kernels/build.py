@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-ldl",)  # blurpool.cu finds its driver entry points with dlsym
 
 _lib: ctypes.CDLL | None = None
+_entries: dict = {}
 
 
 def _nvcc() -> str:
@@ -88,3 +89,15 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
+
+
+def entry(name: str, argtypes):
+    """The C entry point ``name`` (it returns a CUDA error code), bound once
+    with ``argtypes``."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(load_library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn

@@ -1,17 +1,26 @@
-"""DropBlock keep-mask: the CUDA kernel's wrapper and its plain version.
+"""DropBlock: the CUDA kernels' wrappers, their plain versions, and the
+``torch.autograd.Function`` of the apply.
 
-The kernel (``axcnn_torch/csrc/dropblock.cu``) replaces the TPU kernel
-``axcnn/pallas/dropblock.py:dropblock_mask_pallas``. From per-sample int32
-seeds and a drop rate ``gamma`` it returns the (N, H, W) fp32 keep-mask and
+The kernels (``axcnn_torch/csrc/dropblock.cu``) replace the TPU kernel
+``axcnn/pallas/dropblock.py:dropblock_mask_pallas`` and the apply that
+``dropblock_pallas`` left to XLA. The mask kernel takes per-sample int32
+seeds and a drop rate ``gamma`` and returns the (N, H, W) fp32 keep-mask and
 the (N,) fp32 per-sample keep counts. A pixel's uniform comes from the top
 24 bits of a stateless hash of (seed, pixel index), MurmurHash3's fmix32
 applied twice; block centres are drawn in the valid region and expanded by a
-separable ``bs``-tap max, as in the reference.
+separable ``bs``-tap max, as in the reference. The apply kernel rescales a
+channels_last activation by the mask and ``numel / (max(sum(counts), 1) * C)``,
+forward ``(x * m) * s`` and backward ``(g * s) * m``, in fp32, cast once.
 
 ``dropblock_mask_reference`` computes the same hash with torch integer ops,
 so kernel and plain version agree bit for bit. Given ``uniforms`` it uses
 those instead: the hook through which the CPU tests hand in the reference's
-own random draws. ``LAUNCHES`` counts the kernel's launches.
+own random draws. ``dropblock_apply_reference`` and
+``dropblock_apply_bwd_reference`` are the apply's plain versions (the second
+is autograd through the first). ``LAUNCHES`` counts the mask kernel's
+launches, ``APPLY_LAUNCHES`` and ``APPLY_BWD_LAUNCHES`` the apply kernel's by
+direction, and ``APPLY_NOT_CHANNELS_LAST`` the apply calls whose tensor was
+not channels_last-contiguous and so was copied first.
 """
 
 from __future__ import annotations
@@ -21,8 +30,22 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from axcnn_torch.kernels.build import entry
+
 LAUNCHES = 0
+APPLY_LAUNCHES = 0
+APPLY_BWD_LAUNCHES = 0
+APPLY_NOT_CHANNELS_LAST = 0
 MAX_HW = 16384  # kMaxHW of dropblock.cu: two H x W byte maps in shared memory
+MAX_APPLY_PIXELS = 1 << 24  # kMaxApplyPixels: N*H*W, so the fp32 count sum is exact
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry points' parameters, in order
+MASK_ARGTYPES = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                 *[ctypes.c_longlong] * 4, ctypes.c_void_p]
+# (src, mask, counts, dst, dtype, numel, n, hw, c, backward, stream)
+APPLY_ARGTYPES = [*[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_float,
+                  *[ctypes.c_longlong] * 3, ctypes.c_int, ctypes.c_void_p]
 
 _M32 = 0xFFFFFFFF
 
@@ -82,15 +105,29 @@ def dropblock_mask_reference(seeds: torch.Tensor, gamma, h: int, w: int,
     return mask, mask.sum(dim=(1, 2))
 
 
-def _kernel():
-    from axcnn_torch.kernels.build import load_library
+def dropblock_scale_reference(counts: torch.Tensor, numel: int, c: int) -> torch.Tensor:
+    """The rescale ``numel / (max(sum(counts), 1) * c)`` as a 0-d tensor, in
+    fp32 as the reference takes it (``numel`` rounded to fp32 first)."""
+    total_keep = torch.clamp_min(counts.sum(), 1.0) * c
+    numel = torch.full((), float(numel), dtype=torch.float32, device=counts.device)
+    return numel / total_keep
 
-    fn = load_library().axcnn_dropblock_mask
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+
+def dropblock_apply_reference(x: torch.Tensor, mask: torch.Tensor,
+                              counts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch apply on NCHW: ``(x * mask * scale)`` in fp32, cast back
+    once."""
+    scale = dropblock_scale_reference(counts, x.numel(), x.shape[1])
+    return (x.float() * mask[:, None] * scale).to(x.dtype)
+
+
+def dropblock_apply_bwd_reference(g: torch.Tensor, mask: torch.Tensor,
+                                  counts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch apply backward: autograd's order through
+    ``dropblock_apply_reference``, ``(g * scale) * mask`` in fp32, cast back
+    once."""
+    scale = dropblock_scale_reference(counts, g.numel(), g.shape[1])
+    return (g.float() * scale * mask[:, None]).to(g.dtype)
 
 
 def dropblock_mask_cuda(seeds: torch.Tensor, gamma, h: int, w: int,
@@ -111,9 +148,80 @@ def dropblock_mask_cuda(seeds: torch.Tensor, gamma, h: int, w: int,
     if n == 0:
         return mask, counts
     stream = torch.cuda.current_stream(seeds.device).cuda_stream
-    err = _kernel()(seeds.data_ptr(), float(gamma), mask.data_ptr(),
-                    counts.data_ptr(), n, h, w, block_size, stream)
+    err = entry("axcnn_dropblock_mask", MASK_ARGTYPES)(
+        seeds.data_ptr(), float(gamma), mask.data_ptr(), counts.data_ptr(), n, h, w,
+        block_size, stream)
     if err != 0:
         raise RuntimeError(f"axcnn_dropblock_mask failed: CUDA error {err}")
     LAUNCHES += 1
     return mask, counts
+
+
+def _check_apply_args(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor) -> None:
+    """Raise on what the apply kernel does not take: type, shape and size
+    first, then the device."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"dropblock_apply_cuda takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"dropblock_apply_cuda takes NCHW, got shape {tuple(x.shape)}")
+    n, _, h, w = x.shape
+    if mask.dtype != torch.float32 or tuple(mask.shape) != (n, h, w):
+        raise ValueError(f"mask must be ({n}, {h}, {w}) float32, got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if counts.dtype != torch.float32 or tuple(counts.shape) != (n,):
+        raise ValueError(f"counts must be ({n},) float32, got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+    if n * h * w > MAX_APPLY_PIXELS:
+        raise ValueError(f"the DropBlock apply kernel takes N*H*W <= {MAX_APPLY_PIXELS}, "
+                         f"got {n}x{h}x{w}")
+    for t in (x, mask, counts):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"dropblock_apply_cuda needs CUDA tensors on one device, got "
+                             f"{x.device}, {mask.device}, {counts.device}")
+
+
+def dropblock_apply_cuda(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor, *,
+                         backward: bool = False) -> torch.Tensor:
+    """Launch the apply kernel: forward ``(x * m) * s``, or with ``backward``
+    the cotangent ``(x * s) * m``; raise on anything it does not take. A
+    tensor that is not channels_last-contiguous is counted and copied into
+    that layout first. The result is channels_last. Launches on the current
+    stream of the calling thread, which for autograd is its backward
+    thread."""
+    global APPLY_LAUNCHES, APPLY_BWD_LAUNCHES, APPLY_NOT_CHANNELS_LAST
+    _check_apply_args(x, mask, counts)
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        APPLY_NOT_CHANNELS_LAST += 1
+        x = x.contiguous(memory_format=torch.channels_last)
+    mask, counts = mask.contiguous(), counts.contiguous()
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    if x.numel() == 0:
+        return y
+    n, c, h, w = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = entry("axcnn_dropblock_apply", APPLY_ARGTYPES)(
+        x.data_ptr(), mask.data_ptr(), counts.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
+        float(x.numel()), n, h * w, c, int(backward), stream)
+    if err != 0:
+        raise RuntimeError(f"axcnn_dropblock_apply failed: CUDA error {err}")
+    if backward:
+        APPLY_BWD_LAUNCHES += 1
+    else:
+        APPLY_LAUNCHES += 1
+    return y
+
+
+class DropBlockApply(torch.autograd.Function):
+    """The apply kernel with itself, in backward order, as its gradient (the
+    apply of ``dropblock_pallas``, which XLA differentiated). Only the mask
+    and the counts are saved; the scale is formed again in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, mask, counts):
+        ctx.save_for_backward(mask, counts)
+        return dropblock_apply_cuda(x, mask, counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, counts = ctx.saved_tensors
+        return dropblock_apply_cuda(g, mask, counts, backward=True), None, None

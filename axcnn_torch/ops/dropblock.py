@@ -9,9 +9,13 @@ default). The drop rate, block size and rescale are the reference's:
     y     = (x.float() * mask * (x.numel() / (max(sum(counts), 1) * C))).to(x.dtype)
 
 with gamma and the keep-prob schedule computed on the host in fp32, in the
-reference's order of operations. The device decides the mask's route: a CPU
-tensor takes ``dropblock_mask_reference``, a CUDA tensor the mask kernel.
-The apply stays in PyTorch. In eval DropBlock is the identity.
+reference's order of operations. The device decides the route: a CPU tensor
+takes the plain versions (``dropblock_mask_reference``, then
+``dropblock_apply_reference`` under autograd); a CUDA tensor takes the mask
+kernel, then the apply kernel through ``DropBlockApply``, whose backward is
+the apply kernel in backward order. On the card a site's device work is the
+seeds' copy, the mask kernel and one apply launch each way. In eval
+DropBlock is the identity.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from axcnn_torch.kernels.dropblock import dropblock_mask_cuda, dropblock_mask_reference
+from axcnn_torch.kernels.dropblock import (DropBlockApply, dropblock_apply_reference,
+                                           dropblock_mask_cuda, dropblock_mask_reference)
 
 
 def dropblock_keep_prob(progress, final_keep_prob: float) -> np.float32:
@@ -47,17 +52,14 @@ def dropblock(x, seeds, *, keep_prob, block_size: int = 7, train: bool,
     on the plain path, replace the hashed draws (the tests' hook)."""
     if not train:
         return x
-    n, c, h, w = x.shape
+    _, _, h, w = x.shape
     bs = min(block_size, h, w)
     gamma = float(dropblock_gamma(keep_prob, bs, h, w))
     seeds = torch.as_tensor(seeds, dtype=torch.int32).to(x.device, non_blocking=True)
     if x.device.type == "cpu":
         mask, counts = dropblock_mask_reference(seeds, gamma, h, w, bs, uniforms)
-    elif uniforms is not None:
+        return dropblock_apply_reference(x, mask, counts)
+    if uniforms is not None:
         raise ValueError("uniforms are taken on the plain (CPU) path only")
-    else:
-        mask, counts = dropblock_mask_cuda(seeds, gamma, h, w, bs)
-    total_keep = torch.clamp_min(counts.sum(), 1.0) * c
-    numel = torch.full((), float(x.numel()), dtype=torch.float32, device=x.device)
-    scale = numel / total_keep
-    return (x.float() * mask[:, None] * scale).to(x.dtype)
+    mask, counts = dropblock_mask_cuda(seeds, gamma, h, w, bs)
+    return DropBlockApply.apply(x, mask, counts)

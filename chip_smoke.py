@@ -15,14 +15,20 @@ points and checks them:
    smallest TMA-legal width and at widths only the per-thread route takes,
    and a tensor at a misaligned storage offset, fp32 and bf16, each
    asserting the route it took; the BlurPool autograd Function against
-   autograd through the plain forward; and the DropBlock mask at 14x14 and
-   7x7 (bs 7) and 15x17 (bs 5) for three drop rates;
+   autograd through the plain forward; the DropBlock mask at 14x14 and
+   7x7 (bs 7) and 15x17 (bs 5) for three drop rates; and the DropBlock
+   apply, forward and backward, fp32 and bf16, with inf, -inf and NaN at a
+   dropped and a kept pixel, bit for bit (NaNs included), at the R50 sites
+   at batch 128, at C = 8, 6 and 4 (the per-element route where C * itemsize
+   is not a multiple of 16 bytes) and at a misaligned storage offset, and
+   its autograd Function against autograd through the plain apply;
 4. kernel_time: each kernel, its plain version and (BlurPool) the cuDNN call
-   for the same function and a device copy of the same bytes at batch 128,
-   bf16, beside its bound (bytes over the card's memory rate or operations
-   over its fp32 rate), the BlurPool kernels on inputs rotated through
-   256 MB so they read device memory; each kernel's output on the timed
-   input is held bit for bit against its plain version's;
+   for the same function, and (BlurPool, the apply) a device copy of the
+   same bytes, at batch 128, bf16, beside its bound (bytes over the card's
+   memory rate or operations over its fp32 rate), the BlurPool kernels and
+   the apply on inputs rotated through 256 MB so they read device memory;
+   each of these kernels' output on the timed input is held bit for bit
+   against its plain version's;
 5. serve: ``axcnn_torch.cli.predict.main`` with --config=assemble_resnet50
    (full width, 1001 classes, 224x224, bf16) on 1, 8 and 32 generated JPEGs;
    every request must print a well-formed top-5 line per image and launch
@@ -32,10 +38,11 @@ points and checks them:
 7. throughput: served images/s at batch 128 in bf16;
 8. train: ``axcnn_torch.cli.main_classification.main`` with the assembled
    preset at full width, batch 128, bf16, on synthetic data; every logged
-   loss finite, the kernels launched 3 + 3 + 9 times per step (plus the
-   end-of-run eval's forwards), all on the BlurPool TMA route; step time,
-   images/s, peak memory, and the backward calls whose gradient was not
-   channels_last;
+   loss finite, the kernels launched 3 + 3 + 9 + 9 + 9 times per step
+   (BlurPool forward and backward, DropBlock mask, apply forward and
+   backward; plus the end-of-run eval's forwards), all BlurPool launches on
+   the TMA route; step time, images/s, peak memory, and the calls whose
+   tensor was not channels_last (BlurPool backward, DropBlock apply);
 9. train_parity: one full-width train step in fp32 (TF32 off), batch 4,
    with DropBlock and mixup active, on the card through the kernels against
    the CPU through the plain versions, from the same state and seeds;
@@ -45,15 +52,15 @@ points and checks them:
 11. resume: the training CLI at full width, b128, bf16, 5 steps with a
     checkpoint at step 5, the hang watchdog armed and steps 1-2 profiled,
     then the same command to 10 steps: it must log ``restore`` at step 5,
-    only finite losses, 3 + 3 + 9 launches per step, and a trace;
+    only finite losses, 3 + 3 + 9 + 9 + 9 launches per step, and a trace;
 12. serve_ckpt: ``predict`` on what the resumed run saved; its top-5 lines
     must equal those of the restored state's own EMA ``eval_logits``;
 13. kd: the training CLI with ``--config=assemble_resnet152_kd`` at full
     width, the resumed R50 run as the teacher, global batch 1024 as 8
     micro-batches of 128, bf16, 3 steps; finite losses, the launches per
     step (per micro-batch: the student's 3 forward and 3 backward BlurPool
-    launches, the teacher's 3 forward launches, 39 DropBlock masks), step
-    time, images/s and peak memory.
+    launches, the teacher's 3 forward launches, 39 DropBlock masks and 39
+    applies each way), step time, images/s and peak memory.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the result line.
@@ -94,6 +101,10 @@ MISALIGNED_SHAPE = (2, 15, 17, 64)
 # DropBlock sites of the assembled R50 at 224x224: (H, W, block size)
 MASK_SHAPES = [(14, 14, 7), (7, 7, 7), (15, 17, 5)]
 MASK_TIME_SHAPES = MASK_SHAPES[:2]
+# DropBlock apply, NHWC: the R50 sites at batch 128, then C = 8, 6 and 4
+APPLY_TIME_SHAPES = [(TIME_BATCH, 14, 14, 1024), (TIME_BATCH, 7, 7, 2048)]
+APPLY_CHECK_SHAPES = APPLY_TIME_SHAPES + [(4, 15, 17, 8), (4, 15, 17, 6), (4, 15, 17, 4)]
+APPLY_MISALIGNED_SHAPE = (2, 14, 14, 64)
 GAMMAS = (0.0, 0.02, 0.1)
 TRAIN_STEPS = 20
 RESUME_STEPS = (5, 10)  # the first run's steps, then the resumed run's end
@@ -176,16 +187,24 @@ def _time_ms(fn, xs, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def _check_equal(kernel, shape, case, got, want):
-    """Emit one kernel_check line; raise unless ``got`` equals ``want``.
-    ``case`` names the dtype or the drop rate checked."""
+def _bits(t):
+    """The bit patterns of ``t``: equal bits hold NaNs and signed zeros too."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _check_equal(kernel, shape, case, got, want, bits=False):
+    """Emit one kernel_check line; raise unless ``got`` equals ``want`` (with
+    ``bits``, bit for bit, NaNs included; the error is over the elements
+    that are finite in both). ``case`` names the dtype or the drop rate."""
     assert got.shape == want.shape and got.dtype == want.dtype
-    diff = (got.float() - want.float()).abs()
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    diff = torch.where(finite, got.float() - want.float(), 0.0).abs()
     err = diff.max().item() if diff.numel() else 0.0
-    ok = bool(torch.equal(got, want))
+    same = _bits(got) == _bits(want) if bits else got == want
+    ok = bool(same.all())
     emit("kernel_check", kernel=kernel, shape=list(shape), case=str(case),
-         max_abs_err=err, n_differ=int((diff > 0).sum()), numel=got.numel(),
-         tolerance="bit-exact", ok=ok)
+         max_abs_err=err, n_differ=int((~same).sum()), numel=got.numel(),
+         tolerance="bit-exact, NaNs included" if bits else "bit-exact", ok=ok)
     if not ok:
         raise AssertionError(f"{kernel} disagrees with its plain version at {shape} {case}")
     return err
@@ -208,10 +227,38 @@ def _seeds(n, gen):
                          dtype=torch.int32)
 
 
+def _apply_inputs(shape, dtype, gen, offset=0, specials=True):
+    """A channels_last NCHW input (NHWC ``shape``), with inf, -inf and NaN at
+    a dropped and at a kept pixel unless ``specials`` is false, and the mask
+    kernel's mask (drop rate 0.1) and counts for it."""
+    n, h, w, c = shape
+    x = _nchw_input(shape, dtype, gen, offset)
+    mask, counts = kdrop.dropblock_mask_cuda(_seeds(n, gen), 0.1, h, w, min(7, h, w))
+    for keep in (0.0, 1.0):
+        hit = (mask == keep).nonzero() if specials else []
+        if len(hit):
+            s, r, col = hit[0].tolist()
+            x[s, :3, r, col] = torch.tensor([float("inf"), -float("inf"), float("nan")],
+                                            device="cuda")[:c].to(dtype)
+    return x, mask, counts
+
+
+def _apply_fns(mask, counts, backward):
+    """The apply kernel and its plain version, as functions of the input."""
+    def kernel(t):
+        return kdrop.dropblock_apply_cuda(t, mask, counts, backward=backward)
+
+    def plain(t):
+        ref = kdrop.dropblock_apply_bwd_reference if backward else kdrop.dropblock_apply_reference
+        return ref(t, mask, counts)
+
+    return kernel, plain
+
+
 def kernel_check_phase():
     """Each kernel against its plain version; returns max abs error by kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {"fwd": 0.0, "bwd": 0.0, "mask": 0.0}
+    errs = {"fwd": 0.0, "bwd": 0.0, "mask": 0.0, "apply": 0.0}
     routes = set()
 
     def check_route(kind, before, shape, dtype, want):
@@ -273,6 +320,28 @@ def kernel_check_phase():
             emit("mask_stats", hw_bs=[h, w, bs], gamma=gamma, samples=TIME_BATCH,
                  drop_fraction=1 - mask.mean().item(),
                  expected=_expected_drop_fraction(h, w, bs, gamma))
+    for shape, offset in [(s, 0) for s in APPLY_CHECK_SHAPES] + [(APPLY_MISALIGNED_SHAPE, 1)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, mask, counts = _apply_inputs(shape, dtype, gen, offset)
+            case = f"{dtype}, offset {offset}" if offset else dtype
+            for backward in (False, True):
+                kernel, plain = _apply_fns(mask, counts, backward)
+                got = kernel(x)
+                torch.cuda.synchronize()
+                assert got.is_contiguous(memory_format=torch.channels_last)
+                errs["apply"] = max(errs["apply"], _check_equal(
+                    f"dropblock_apply_{'bwd' if backward else 'fwd'}", shape, case, got,
+                    plain(x), bits=True))
+            if shape != APPLY_TIME_SHAPES[0]:
+                continue
+            # the autograd Function against autograd through the plain apply
+            g = _nchw_input(shape, dtype, gen)
+            x1, x2 = x.detach().clone().requires_grad_(), x.detach().clone().requires_grad_()
+            (got,) = torch.autograd.grad(kdrop.DropBlockApply.apply(x1, mask, counts), x1, g)
+            (want,) = torch.autograd.grad(kdrop.dropblock_apply_reference(x2, mask, counts),
+                                          x2, g)
+            torch.cuda.synchronize()
+            _check_equal("DropBlockApply.backward", shape, dtype, got, want, bits=True)
     return errs
 
 
@@ -334,7 +403,7 @@ def kernel_time_phase(errs):
     must equal its plain version's; ``errs`` takes the largest error."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set(),
-                  "library_ms": 0.0} for k in ("fwd", "bwd", "mask")}
+                  "library_ms": 0.0} for k in ("fwd", "bwd", "mask", "apply")}
 
     def add(kind, k, p, bound, bound_by, lib):
         tot = totals[kind]
@@ -403,6 +472,35 @@ def kernel_time_phase(errs):
              kernel_runs_us=[v * 1e3 for v in t["kernel"][1]],
              plain_runs_us=[v * 1e3 for v in t["plain"][1]], bytes=nbytes)
         add("mask", k, p, bound, bound_by, None)
+    for shape in APPLY_TIME_SHAPES:
+        n, h, w, c = shape
+        x, mask, counts = _apply_inputs(shape, torch.bfloat16, gen, specials=False)
+        xs = _rotating(x)
+        elems = x.numel()
+        # bf16 in and out once each, the fp32 mask and counts read once; two
+        # fp32 multiplies per element
+        nbytes = 2 * elems * x.element_size() + n * h * w * 4 + n * 4
+        bound, bound_by = _bound_us(nbytes, 2 * elems)
+        copy, srcs = _copy_yardstick(nbytes, gen)
+        for backward in (False, True):
+            kernel, plain = _apply_fns(mask, counts, backward)
+            kind = "apply_bwd" if backward else "apply_fwd"
+            errs["apply"] = max(errs["apply"], _check_equal(
+                f"dropblock_{kind}", shape, "bf16, timed input", kernel(xs[0]), plain(xs[0]),
+                bits=True))
+            t = _time_set({"plain": plain, "kernel": kernel, "copy": copy}, xs,
+                          inputs={"copy": srcs})
+            k, p, cp = (t[n][0] for n in ("kernel", "plain", "copy"))
+            emit("kernel_time", kernel=kind, shape_nhwc=list(shape), dtype="bf16",
+                 kernel_us=k * 1e3, plain_us=p * 1e3, library_us=None, copy_us=cp * 1e3,
+                 bound_us=bound, bound_by=bound_by, pct_of_bound=100 * bound / (k * 1e3),
+                 copy_pct_of_bound=100 * bound / (cp * 1e3), kernel_over_copy=k / cp,
+                 kernel_runs_us=[v * 1e3 for v in t["kernel"][1]],
+                 plain_runs_us=[v * 1e3 for v in t["plain"][1]],
+                 copy_runs_us=[v * 1e3 for v in t["copy"][1]], bytes=nbytes, ops=2 * elems,
+                 rotating_inputs=len(xs), kernel_gb_per_s=nbytes / (k * 1e-3) / 1e9)
+            add("apply", k, p, bound, bound_by, None)
+        del xs, srcs
     for tot in totals.values():
         tot["bound_by"] = "/".join(sorted(tot["bound_by"]))
     return totals
@@ -423,12 +521,20 @@ def _write_jpegs(directory, count):
 
 def _zero_counts():
     kblur.LAUNCHES = kblur.BWD_LAUNCHES = kdrop.LAUNCHES = 0
-    kblur.BWD_G_NOT_CHANNELS_LAST = 0
+    kdrop.APPLY_LAUNCHES = kdrop.APPLY_BWD_LAUNCHES = 0
+    kblur.BWD_G_NOT_CHANNELS_LAST = kdrop.APPLY_NOT_CHANNELS_LAST = 0
     kblur.ROUTES.update(dict.fromkeys(kblur.ROUTES, 0))
 
 
 def _counts():
-    return {"fwd": kblur.LAUNCHES, "bwd": kblur.BWD_LAUNCHES, "mask": kdrop.LAUNCHES}
+    return {"fwd": kblur.LAUNCHES, "bwd": kblur.BWD_LAUNCHES, "mask": kdrop.LAUNCHES,
+            "apply": kdrop.APPLY_LAUNCHES, "apply_bwd": kdrop.APPLY_BWD_LAUNCHES}
+
+
+def _launches(fwd, bwd, sites):
+    """Expected counts: BlurPool forward and backward launches, and
+    ``sites`` DropBlock sites (a mask and an apply each way at each)."""
+    return {"fwd": fwd, "bwd": bwd, "mask": sites, "apply": sites, "apply_bwd": sites}
 
 
 def serve_phase():
@@ -465,7 +571,7 @@ def serve_phase():
                  seconds=seconds, first=lines[0])
             if launched != 3:
                 raise AssertionError(f"expected 3 BlurPool launches, got {launched}")
-        if kblur.BWD_LAUNCHES or kdrop.LAUNCHES:
+        if _counts() != _launches(9, 0, 0):
             raise AssertionError(f"serving launched training kernels: {_counts()}")
         return _counts()
 
@@ -584,6 +690,7 @@ def train_phase(smi):
                 "--train.log_every=1", f"--runtime.model_dir={tmp}"]
         metrics, counts, seconds, peak, records = _run_cli(argv)
     routes, g_not_cl = dict(kblur.ROUTES), kblur.BWD_G_NOT_CHANNELS_LAST
+    apply_not_cl = kdrop.APPLY_NOT_CHANNELS_LAST
     train = [r for r in records if r["tag"] == "train"]
     losses = [r["loss"] for r in train]
     assert [r["step"] for r in train] == list(range(1, TRAIN_STEPS + 1)), records
@@ -592,15 +699,14 @@ def train_phase(smi):
     walls = _step_walls(train)
     step_s = float(walls.mean())
     eval_batches = 4
-    want = {"fwd": 3 * TRAIN_STEPS + 3 * eval_batches, "bwd": 3 * TRAIN_STEPS,
-            "mask": 9 * TRAIN_STEPS}
+    want = _launches(3 * TRAIN_STEPS + 3 * eval_batches, 3 * TRAIN_STEPS, 9 * TRAIN_STEPS)
     emit("train", model="assemble_resnet50", batch=TIME_BATCH, dtype="bf16",
          steps=TRAIN_STEPS, first_loss=losses[0], last_loss=losses[-1],
          mean_step_ms=step_s * 1e3, step_ms_min=float(walls.min()) * 1e3,
          step_ms_max=float(walls.max()) * 1e3, train_img_per_s=TIME_BATCH / step_s,
          max_memory_allocated_gib=peak / 2 ** 30, launches=counts, expected=want,
-         routes=routes, bwd_g_not_channels_last=g_not_cl, eval=metrics, seconds=seconds,
-         card=smi)
+         routes=routes, bwd_g_not_channels_last=g_not_cl,
+         apply_not_channels_last=apply_not_cl, eval=metrics, seconds=seconds, card=smi)
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     if routes["fwd_thread"] or routes["bwd_thread"]:
@@ -685,7 +791,7 @@ def train_parity_phase():
     ok = (loss_rel <= tol["loss_rel"]
           and med(e_card) <= tol["median_vs_cpu_fp32"] * med(e_cpu)
           and max(e_card.values()) <= tol["worst_vs_cpu_fp32"] * max(e_cpu.values())
-          and launched == {"fwd": 3, "bwd": 3, "mask": 9})
+          and launched == _launches(3, 3, 9))
     emit("train_parity", batch=n, step=step, dtype="fp32", tf32=False,
          loss_card=m_card["loss"].item(), loss_cpu=m_cpu["loss"].item(),
          loss_fp64=m_64["loss"].item(), loss_rel_card_vs_fp64=loss_rel,
@@ -748,7 +854,7 @@ def checkpoint_phase(smi, tmp):
             if not (torch.equal(got[k], t) and got[k].stride() == strides[field][k]
                     and got[k].device == t.device):
                 bad.append(f"{field}/{k}")
-    ok = not bad and restored.step == 3 and counts == {"fwd": 9, "bwd": 9, "mask": 27}
+    ok = not bad and restored.step == 3 and counts == _launches(9, 9, 27)
     emit("checkpoint", model="assemble_resnet50", steps=3, batch=TIME_BATCH, dtype="bf16",
          loss=metrics["loss"].item(), tensors=n, differ=bad[:5],
          file_mb=os.path.getsize(mgr.path(3)) / 1e6, save_s=save_s, restore_s=restore_s,
@@ -775,7 +881,7 @@ def resume_phase(smi, model_dir):
     for start, end in ((0, first), (first, second)):
         metrics, counts, seconds, peak, records = _run_cli(_resume_argv(model_dir, end))
         n = end - start
-        want = {"fwd": 3 * n + eval_fwd, "bwd": 3 * n, "mask": 9 * n}
+        want = _launches(3 * n + eval_fwd, 3 * n, 9 * n)
         new = records[sum(len(r["records"]) for r in runs):]
         train = [r for r in new if r["tag"] == "train"]
         runs.append(dict(records=new, counts=counts, want=want, seconds=seconds,
@@ -840,7 +946,7 @@ def serve_ckpt_phase(model_dir, tmp):
                          mean_rgb=info.mean_rgb, stddev_rgb=info.stddev_rgb)
     want = _predict_lines(logits.cpu().numpy(), paths)
     ok = (got == want and "random init" not in err.getvalue()
-          and counts == {"fwd": 3, "bwd": 0, "mask": 0})
+          and counts == _launches(3, 0, 0))
     emit("serve_ckpt", images=len(paths), step=state.step, launches=counts,
          top5_equal=got == want, first=got[0], want_first=want[0], ok=ok)
     if not ok:
@@ -862,7 +968,7 @@ def kd_phase(smi, teacher_dir, model_dir):
     walls = _step_walls(train)
     step_s = float(walls.mean())
     micro = KD_STEPS * KD_ACCUM
-    want = {"fwd": micro * (3 + 3) + 3 * 4, "bwd": micro * 3, "mask": micro * 39}
+    want = _launches(micro * (3 + 3) + 3 * 4, micro * 3, micro * 39)
     ok = ([r["step"] for r in train] == list(range(1, KD_STEPS + 1))
           and all(np.isfinite(losses)) and counts == want
           and metrics["count"] == 4 * KD_BATCH)
@@ -877,13 +983,15 @@ def kd_phase(smi, teacher_dir, model_dir):
     return counts
 
 
-KERNELS = (  # (key, name, source, the TPU kernel it replaces)
-    ("fwd", "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
+KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
+    ("fwd", ("fwd",), "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
-    ("bwd", "blur_pool3_s2_bwd", "axcnn_torch/csrc/blurpool.cu",
+    ("bwd", ("bwd",), "blur_pool3_s2_bwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:123"),
-    ("mask", "dropblock_mask", "axcnn_torch/csrc/dropblock.cu",
+    ("mask", ("mask",), "dropblock_mask", "axcnn_torch/csrc/dropblock.cu",
      "axcnn/pallas/dropblock.py:100"),
+    ("apply", ("apply", "apply_bwd"), "dropblock_apply", "axcnn_torch/csrc/dropblock.cu",
+     "axcnn/pallas/dropblock.py:135"),
 )
 
 
@@ -903,15 +1011,16 @@ def main():
         paths["resume"] = resume_phase(smi, run_dir)
         paths["serve_ckpt"] = serve_ckpt_phase(run_dir, tmp)
         paths["kd"] = kd_phase(smi, run_dir, os.path.join(tmp, "kd"))
-    for key, name, *_ in KERNELS:
-        if not any(counts[key] for counts in paths.values()):
-            raise AssertionError(f"{name} was never launched on the main paths")
+    for _, keys, name, *_ in KERNELS:
+        for k in keys:
+            if not any(counts[k] for counts in paths.values()):
+                raise AssertionError(f"{name} ({k}) was never launched on the main paths")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": sum(counts[key] for counts in paths.values()),
-        "launches_by_path": {path: counts[key] for path, counts in paths.items()},
+        "launches": sum(counts[k] for counts in paths.values() for k in keys),
+        "launches_by_path": {path: {k: counts[k] for k in keys} for path, counts in paths.items()},
         "max_abs_err": errs[key], **times[key]}
-        for key, name, source, replaces in KERNELS]}), flush=True)
+        for key, keys, name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

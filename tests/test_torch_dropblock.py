@@ -1,0 +1,180 @@
+"""DropBlock's apply in the PyTorch port, held against the JAX reference on
+the CPU: the op's input gradient against ``jax.vjp`` of
+``axcnn.ops.dropblock.dropblock``, the apply's plain backward against
+autograd through its plain forward, the rescale in fp32, the CPU route, and
+the apply kernel's wrapper refusing what the kernel does not take before it
+loads the library. The kernel itself is checked on the card in
+tests/test_torch_kernels.py.
+
+Inputs come from numpy seeds; the reference's own uniforms are handed to
+the port (``jax.random`` cannot be reproduced in torch).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from axcnn.ops.dropblock import dropblock as j_dropblock
+from axcnn_torch.kernels import dropblock as kdrop
+from axcnn_torch.ops.dropblock import dropblock, dropblock_gamma
+
+# the sizes of tests/test_torch_train_ops.py's DropBlock cases: (N, H, W, C), block size
+DB_CASES = [((8, 14, 14, 16), 7), ((8, 7, 7, 32), 7), ((4, 15, 17, 8), 5)]
+
+
+def _nchw(x_nhwc):
+    return torch.from_numpy(np.ascontiguousarray(x_nhwc)).permute(0, 3, 1, 2)
+
+
+def _nhwc(t):
+    return t.detach().permute(0, 2, 3, 1).float().numpy()
+
+
+def _bits(t):
+    """The bit patterns of ``t``: equal bits hold NaNs and signed zeros too."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _key_and_uniforms(shape, seed):
+    """A key and the uniforms the reference's XLA DropBlock draws from it."""
+    key = jax.random.key(seed)
+    n, h, w, _ = shape
+    u = np.array(jax.random.uniform(key, (n, h, w, 1), jnp.float32))[..., 0]
+    return key, torch.from_numpy(u)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,bs", DB_CASES)
+def test_dropblock_gradient_matches_jax_vjp(shape, bs, dtype):
+    """Output and input gradient equal the reference's, given its uniforms.
+    Tolerance 0: each gradient element is g * scale or a zero whatever the
+    order of the two products, and bf16 rounds that one fp32 value once."""
+    kp = 0.5
+    key, u = _key_and_uniforms(shape, 32)
+    rng = np.random.default_rng(33)
+    x, g = rng.standard_normal(shape).astype(np.float32), rng.standard_normal(shape).astype(
+        np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want_y, vjp = jax.vjp(lambda a: j_dropblock(key, a, keep_prob=kp, block_size=bs, train=True),
+                          jnp.asarray(x, jdt))
+    (want_dx,) = vjp(jnp.asarray(g, jdt))
+    xt = _nchw(x).to(tdt).requires_grad_()
+    y = dropblock(xt, np.zeros(shape[0], np.int32), keep_prob=kp, block_size=bs, train=True,
+                  uniforms=u)
+    (dx,) = torch.autograd.grad(y, xt, _nchw(g).to(tdt))
+    assert y.dtype == dx.dtype == tdt
+    np.testing.assert_array_equal(_nhwc(y), np.asarray(want_y, np.float32))
+    np.testing.assert_array_equal(_nhwc(dx), np.asarray(want_dx, np.float32))
+    assert bool((dx == 0).any()) and bool((dx != 0).any())  # some dropped, some kept
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,bs", DB_CASES)
+def test_apply_bwd_reference_is_autograd_of_the_apply_reference(shape, bs, dtype):
+    """Bit for bit, with inf, -inf and NaN in the cotangent at a dropped and
+    at a kept pixel."""
+    n, h, w, c = shape
+    rng = np.random.default_rng(34)
+    x = _nchw(rng.standard_normal(shape).astype(np.float32)).to(dtype).requires_grad_()
+    u = rng.random((n, h, w)).astype(np.float32)
+    u[0, h // 2, w // 2] = 0.0  # a block centred in sample 0
+    mask, counts = kdrop.dropblock_mask_reference(
+        torch.zeros(n, dtype=torch.int32), 0.1, h, w, bs, uniforms=torch.from_numpy(u))
+    g = rng.standard_normal(shape).astype(np.float32)
+    for keep in (0.0, 1.0):
+        s, r, col = (mask == keep).nonzero()[0].tolist()
+        g[s, r, col, :3] = [np.inf, -np.inf, np.nan]
+    gt = _nchw(g).to(dtype)
+    (want,) = torch.autograd.grad(kdrop.dropblock_apply_reference(x, mask, counts), x, gt)
+    got = kdrop.dropblock_apply_bwd_reference(gt, mask, counts)
+    assert got.dtype == dtype and bool(want.isnan().any()) and bool(want.isinf().any())
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("shape", [(129, 1027, 13, 13), (251, 2049, 7, 7), (33, 1021, 29, 23)])
+def test_scale_reference_matches_the_reference_in_fp32(shape):
+    """``numel / (max(sum(counts), 1) * C)`` as the reference computes it,
+    for element counts above 2**24 that fp32 cannot hold, so their rounding
+    enters the scale. The count comes from the shape; nothing that size is
+    allocated."""
+    n, c, h, w = shape
+    numel = n * c * h * w
+    assert numel > 2 ** 24 and int(np.float32(numel)) != numel
+    counts = np.random.default_rng(35).integers(0, h * w + 1, n).astype(np.float32)
+    # axcnn/ops/dropblock.py:78-79, with the per-sample counts for the mask's sum
+    denom = jnp.maximum(jnp.sum(jnp.asarray(counts)), 1.0) * c
+    want = np.asarray((numel / denom).astype(jnp.float32))
+    got = kdrop.dropblock_scale_reference(torch.from_numpy(counts), numel, c)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert np.float32(got.item()).view(np.int32) == want.view(np.int32)
+    # all counts zero: the divisor is max(0, 1) * C
+    zero = kdrop.dropblock_scale_reference(torch.zeros(n), numel, c)
+    assert zero.item() == np.float32(np.float32(numel) / np.float32(c))
+
+
+def test_op_on_cpu_takes_the_plain_versions():
+    """A CPU tensor takes the plain mask, the plain apply and autograd
+    through it; no kernel is launched."""
+    n, h, w, c, bs, kp = 2, 14, 14, 8, 7, 0.8
+    rng = np.random.default_rng(36)
+    x = _nchw(rng.standard_normal((n, h, w, c)).astype(np.float32)).requires_grad_()
+    g = _nchw(rng.standard_normal((n, h, w, c)).astype(np.float32))
+    seeds = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int32)
+    before = (kdrop.LAUNCHES, kdrop.APPLY_LAUNCHES, kdrop.APPLY_BWD_LAUNCHES)
+    y = dropblock(x, seeds, keep_prob=kp, block_size=bs, train=True)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert (kdrop.LAUNCHES, kdrop.APPLY_LAUNCHES, kdrop.APPLY_BWD_LAUNCHES) == before
+    mask, counts = kdrop.dropblock_mask_reference(
+        torch.from_numpy(seeds), float(dropblock_gamma(kp, bs, h, w)), h, w, bs)
+    assert torch.equal(y, kdrop.dropblock_apply_reference(x, mask, counts))
+    assert torch.equal(dx, kdrop.dropblock_apply_bwd_reference(g, mask, counts))
+
+
+def _apply_args(n=2, c=8, h=6, w=6, dtype=torch.float32, mask_shape=None,
+                counts_shape=None, mask_dtype=torch.float32):
+    return (torch.zeros(n, c, h, w, dtype=dtype),
+            torch.ones(mask_shape or (n, h, w), dtype=mask_dtype),
+            torch.full(counts_shape or (n,), float(h * w)))
+
+
+def _too_many_pixels():
+    """(1, 1, 4097, 4097): N*H*W = 4097**2 > 2**24, as views of one element."""
+    return (torch.zeros(1, 1, 1, 1).expand(1, 1, 4097, 4097),
+            torch.ones(1, 1, 1).expand(1, 4097, 4097), torch.ones(1))
+
+
+REFUSALS = {  # case -> (the wrapper's arguments, the exception, its message)
+    "cpu_tensor": (_apply_args, ValueError, "CUDA tensors"),
+    "float64": (lambda: _apply_args(dtype=torch.float64), TypeError, "float32 or bfloat16"),
+    "float16": (lambda: _apply_args(dtype=torch.float16), TypeError, "float32 or bfloat16"),
+    "not_4d": (lambda: (torch.zeros(2, 8, 36),) + _apply_args()[1:], ValueError, "NCHW"),
+    "mask_shape": (lambda: _apply_args(mask_shape=(2, 6, 5)), ValueError, "mask must be"),
+    "mask_float64": (lambda: _apply_args(mask_dtype=torch.float64), ValueError, "mask must be"),
+    "counts_shape": (lambda: _apply_args(counts_shape=(3,)), ValueError, "counts must be"),
+    "too_many_pixels": (_too_many_pixels, ValueError, r"N\*H\*W <= 16777216"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_apply_wrapper_refuses_before_loading_the_library(case, monkeypatch):
+    from axcnn_torch.kernels import build
+
+    def no_load():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(build, "load_library", no_load)
+    make_args, exc, match = REFUSALS[case]
+    launches = (kdrop.APPLY_LAUNCHES, kdrop.APPLY_BWD_LAUNCHES, kdrop.APPLY_NOT_CHANNELS_LAST)
+    for backward in (False, True):
+        with pytest.raises(exc, match=match):
+            kdrop.dropblock_apply_cuda(*make_args(), backward=backward)
+    assert (kdrop.APPLY_LAUNCHES, kdrop.APPLY_BWD_LAUNCHES,
+            kdrop.APPLY_NOT_CHANNELS_LAST) == launches
+
+
+def test_apply_function_refuses_cpu_tensors():
+    x, mask, counts = _apply_args()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kdrop.DropBlockApply.apply(x.requires_grad_(), mask, counts)

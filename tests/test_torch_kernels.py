@@ -173,17 +173,52 @@ def _tma_legal(c, dtype):
     return c * torch.tensor([], dtype=dtype).element_size() % 16 == 0
 
 
-@pytest.mark.parametrize("name", ["axcnn_blur_pool3_s2", "axcnn_blur_pool3_s2_bwd"])
+ENTRIES = {  # C entry point -> (its source, the argtypes its wrapper sets)
+    "axcnn_blur_pool3_s2": ("blurpool.cu", kblur.ENTRY_ARGTYPES),
+    "axcnn_blur_pool3_s2_bwd": ("blurpool.cu", kblur.ENTRY_ARGTYPES),
+    "axcnn_dropblock_mask": ("dropblock.cu", kdrop.MASK_ARGTYPES),
+    "axcnn_dropblock_apply": ("dropblock.cu", kdrop.APPLY_ARGTYPES),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRIES))
 def test_entry_argtypes_match_the_c_signature(name):
-    """The ctypes binding passes as many arguments as the C entry point
-    takes (a mismatch would not fail at the call; ctypes cannot see C)."""
+    """The ctypes binding passes the C entry point's parameters one for one,
+    each of its C type (a mismatch would not fail at the call; ctypes cannot
+    see C)."""
+    import ctypes
     import pathlib
     import re
 
-    src = (pathlib.Path(kblur.__file__).parents[1] / "csrc" / "blurpool.cu").read_text()
+    c_types = {"void*": ctypes.c_void_p, "int*": ctypes.POINTER(ctypes.c_int),
+               "int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
+    source, argtypes = ENTRIES[name]
+    src = (pathlib.Path(kblur.__file__).parents[1] / "csrc" / source).read_text()
     params = re.search(r'extern "C" int %s\(([^)]*)\)' % name, src).group(1).split(",")
-    assert len(params) == len(kblur.ENTRY_ARGTYPES)
-    assert params[-1].strip().startswith("int*") and params[-2].strip().startswith("void*")
+    # "const void* seeds" -> "void*"; "long long n" -> "long long"
+    types = [re.fullmatch(r"\s*(?:const\s+)?(.*?)\s*\w+\s*", p).group(1) for p in params]
+    assert [c_types[t] for t in types] == list(argtypes)
+
+
+def test_entry_binds_each_c_function_once(monkeypatch):
+    """``build.entry`` loads the library and sets a function's argtypes and
+    int return once; later calls return the same bound function."""
+    import ctypes
+    import types
+
+    from axcnn_torch.kernels import build
+
+    loads = []
+
+    def fake_load():
+        loads.append(1)
+        return types.SimpleNamespace(axcnn_fake=lambda *a: 0)
+
+    monkeypatch.setattr(build, "load_library", fake_load)
+    monkeypatch.setattr(build, "_entries", {})
+    fn = build.entry("axcnn_fake", [ctypes.c_int])
+    assert build.entry("axcnn_fake", [ctypes.c_int]) is fn and len(loads) == 1
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
 
 
 @pytest.mark.cuda
@@ -302,14 +337,193 @@ def test_mask_kernel_matches_reference_on_card(h, w, bs, gamma):
 
 @pytest.mark.cuda
 def test_dropblock_op_on_card_matches_cpu():
-    """The op on the card (mask kernel) equals the op on the CPU (plain
-    version) bit for bit, from the same seeds."""
+    """The op on the card (mask and apply kernels) equals the op on the CPU
+    (plain versions) bit for bit, from the same seeds."""
     _cuda()
     x = _nchw((8, 14, 14, 64), 24)
     seeds = np.random.default_rng(25).integers(-2 ** 31, 2 ** 31, 8, dtype=np.int32)
     want = dropblock(x, seeds, keep_prob=0.8, block_size=7, train=True)
     got = dropblock(x.cuda(), seeds, keep_prob=0.8, block_size=7, train=True)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropblock_op_gradient_on_card_matches_cpu(dtype):
+    """Output and input gradient of the op on the card (mask kernel, apply
+    kernel both ways) equal the op's on the CPU (plain versions under
+    autograd) bit for bit, from the same seeds."""
+    _cuda()
+    shape = (8, 14, 14, 64)
+    x, g = _nchw(shape, 26, dtype=dtype), _nchw(shape, 27, dtype=dtype)
+    seeds = np.random.default_rng(28).integers(-2 ** 31, 2 ** 31, 8, dtype=np.int32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        xd = x.to(device).requires_grad_()
+        y = dropblock(xd, seeds, keep_prob=0.8, block_size=7, train=True)
+        (dx,) = torch.autograd.grad(y, xd, g.to(device))
+        out[device] = (y.detach().cpu(), dx.cpu())
+    assert bool((out["cpu"][0] == 0).any())  # something was dropped
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_dropblock_op_runs_only_its_kernels_on_card():
+    """Under ``torch.profiler`` the op's forward puts on the card only the
+    seeds' copy, the mask kernel and the apply kernel, and its backward only
+    the apply kernel."""
+    _cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from axcnn_torch.cli.profile_step import device_events
+
+    shape = (8, 14, 14, 64)
+    x = _nchw(shape, 29, "cuda", torch.bfloat16).requires_grad_()
+    g = _nchw(shape, 30, "cuda", torch.bfloat16)
+    seeds = np.random.default_rng(31).integers(-2 ** 31, 2 ** 31, 8, dtype=np.int32)
+
+    def fwd():
+        return dropblock(x, seeds, keep_prob=0.8, block_size=7, train=True)
+
+    torch.autograd.grad(fwd(), x, g)  # builds and loads the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_fwd:
+        y = fwd()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_bwd:
+        torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+
+    def kinds(prof):
+        names = [e.name for e in device_events(prof)]
+        keys = ("Memcpy HtoD", "dropblock_mask_kernel", "dropblock_apply_kernel")
+        assert all(any(k in n for k in keys) for n in names), names
+        return sorted(next(k for k in keys if k in n) for n in names)
+
+    assert kinds(prof_fwd) == ["Memcpy HtoD", "dropblock_apply_kernel", "dropblock_mask_kernel"]
+    assert kinds(prof_bwd) == ["dropblock_apply_kernel"]
+
+
+def test_profile_breakdown_counts_union_and_categories():
+    """``profile_step``'s per-step totals: busy time is the union of the
+    device events' intervals, each event falls in the first matching
+    category."""
+    import types
+
+    from axcnn_torch.cli.profile_step import breakdown, category
+
+    def ev(name, start, end):
+        return types.SimpleNamespace(name=name, time_range=types.SimpleNamespace(
+            start=start, end=end))
+
+    events = [ev("void (anonymous namespace)::dropblock_apply_kernel<float>", 0.0, 40.0),
+              ev("void at::native::elementwise_kernel<128, 2, at::native::Mul>", 30.0, 50.0),
+              ev("Memcpy HtoD (Pageable -> Device)", 100.0, 110.0),
+              ev("void blur3_s2_tma_kernel<__nv_bfloat16>", 200.0, 220.0)]
+    assert category("void at::native::vectorized_elementwise_kernel<4, copy>") == (
+        "other elementwise, copies and casts")
+    out = breakdown(events, steps=2, wall_s=0.001)
+    assert out["busy_ms"] == (50.0 + 10.0 + 20.0) / 1e3 / 2
+    assert out["device_events"] == 2.0 and out["wall_ms"] == 0.5
+    assert out["by_category_ms"] == {"hand-written kernels": 0.03,
+                                     "elementwise_kernel<128, 2>": 0.01,
+                                     "memcpy and memset": 0.005}
+
+
+# ---------------------------------------------------------------------------
+# DropBlock apply
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    """The bit patterns of ``t``: equal bits hold NaNs and signed zeros too."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _apply_inputs(shape_nhwc, seed, device, dtype, offset=0):
+    """A channels_last input with inf, -inf and NaN at a dropped and at a
+    kept pixel, and a hashed mask (drop rate 0.1, block size up to 7) with
+    its counts. ``offset`` elements into the storage (not 16-byte aligned)."""
+    n, h, w, c = shape_nhwc
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    seeds = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int32))
+    mask, counts = kdrop.dropblock_mask_reference(seeds, 0.1, h, w, min(7, h, w))
+    for keep in (0.0, 1.0):
+        hit = (mask[0] == keep).nonzero()
+        if len(hit):
+            r, col = hit[len(hit) // 2].tolist()
+            x[0, r, col, :3] = [np.inf, -np.inf, np.nan][:c]
+    flat = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), x.ravel()]))
+    xt = flat.to(device, dtype)[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+    return xt, mask.to(device), counts.to(device)
+
+
+# the R50 sites at batch 8; C = 8 (16 bytes in bf16), 6 and 4 (8 bytes in
+# bf16, 16 in fp32): the per-element route where C * itemsize is not a
+# multiple of 16 bytes
+APPLY_SHAPES = [(8, 14, 14, 1024), (8, 7, 7, 2048), (4, 15, 17, 8), (4, 15, 17, 6),
+                (4, 15, 17, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", APPLY_SHAPES)
+def test_apply_kernel_matches_plain_on_card(shape, dtype, backward):
+    _cuda()
+    x, mask, counts = _apply_inputs(shape, 40, "cuda", dtype)
+    counter = "APPLY_BWD_LAUNCHES" if backward else "APPLY_LAUNCHES"
+    before = getattr(kdrop, counter)
+    got = kdrop.dropblock_apply_cuda(x, mask, counts, backward=backward)
+    torch.cuda.synchronize()
+    assert getattr(kdrop, counter) == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    plain = kdrop.dropblock_apply_bwd_reference if backward else kdrop.dropblock_apply_reference
+    want = plain(x, mask, counts)
+    assert bool(want.isnan().any()) and bool(want.isinf().any())
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backward", [False, True])
+def test_apply_kernel_takes_a_misaligned_tensor_on_card(backward, dtype):
+    """A channels_last tensor one element into its storage is not 16-byte
+    aligned; the entry point takes it one element at a time."""
+    _cuda()
+    x, mask, counts = _apply_inputs((2, 14, 14, 64), 41, "cuda", dtype, offset=1)
+    assert x.data_ptr() % 16 and x.is_contiguous(memory_format=torch.channels_last)
+    got = kdrop.dropblock_apply_cuda(x, mask, counts, backward=backward)
+    plain = kdrop.dropblock_apply_bwd_reference if backward else kdrop.dropblock_apply_reference
+    assert torch.equal(_bits(got), _bits(plain(x, mask, counts)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_copies_a_gradient_that_is_not_channels_last_on_card(dtype):
+    _cuda()
+    x, mask, counts = _apply_inputs((4, 14, 14, 64), 42, "cuda", dtype)
+    g = x.contiguous()  # NCHW-contiguous
+    assert not g.is_contiguous(memory_format=torch.channels_last)
+    counted, launched = kdrop.APPLY_NOT_CHANNELS_LAST, kdrop.APPLY_BWD_LAUNCHES
+    got = kdrop.dropblock_apply_cuda(g, mask, counts, backward=True)
+    assert (kdrop.APPLY_NOT_CHANNELS_LAST, kdrop.APPLY_BWD_LAUNCHES) == (counted + 1,
+                                                                         launched + 1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(_bits(got), _bits(kdrop.dropblock_apply_bwd_reference(g, mask, counts)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_function_gradient_matches_autograd_of_plain_on_card(dtype):
+    _cuda()
+    x, mask, counts = _apply_inputs((4, 14, 14, 64), 43, "cuda", dtype)
+    g = _nchw((4, 14, 14, 64), 44, "cuda", dtype)
+    x1, x2 = x.detach().clone().requires_grad_(), x.detach().clone().requires_grad_()
+    (got,) = torch.autograd.grad(kdrop.DropBlockApply.apply(x1, mask, counts), x1, g)
+    (want,) = torch.autograd.grad(kdrop.dropblock_apply_reference(x2, mask, counts), x2, g)
+    assert torch.equal(_bits(got), _bits(want))
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +549,8 @@ def _kd_batch():
 
 
 def _counts():
-    return (kblur.LAUNCHES, kblur.BWD_LAUNCHES, kdrop.LAUNCHES)
+    return (kblur.LAUNCHES, kblur.BWD_LAUNCHES, kdrop.LAUNCHES, kdrop.APPLY_LAUNCHES,
+            kdrop.APPLY_BWD_LAUNCHES)
 
 
 @pytest.mark.cuda
@@ -353,7 +568,7 @@ def test_teacher_forward_on_card():
         want = _teacher("cpu")(x)
         before = _counts()
         got = _teacher("cuda")(x.cuda()).cpu()
-    assert np.subtract(_counts(), before).tolist() == [3, 0, 0]
+    assert np.subtract(_counts(), before).tolist() == [3, 0, 0, 0, 0]
     assert (got - want).norm() / want.norm() <= 1e-4
 
 
@@ -361,8 +576,8 @@ def test_teacher_forward_on_card():
 def test_accumulated_kd_step_on_card():
     """One KD step with grad_accum_steps=2 on the card: per micro-batch the
     student's 3 forward and 3 backward BlurPool launches, the teacher's 3
-    forward launches and 9 DropBlock masks; the loss agrees with the same
-    step on the CPU through the plain versions."""
+    forward launches, 9 DropBlock masks and 9 applies each way; the loss
+    agrees with the same step on the CPU through the plain versions."""
     _cuda()
     from axcnn_torch.core.dtypes import DEFAULT_POLICY, set_fp32_precision
     from axcnn_torch.models.resnet import ModelConfig
@@ -384,7 +599,8 @@ def test_accumulated_kd_step_on_card():
         losses[device] = metrics["loss"].item()
         if device == "cuda":
             torch.cuda.synchronize()
-            assert np.subtract(_counts(), before).tolist() == [2 * (3 + 3), 2 * 3, 2 * 9]
+            assert np.subtract(_counts(), before).tolist() == [2 * (3 + 3), 2 * 3,
+                                                               2 * 9, 2 * 9, 2 * 9]
             assert all(torch.isfinite(v).all() for v in state.velocity.values())
     assert np.isfinite(losses["cuda"])
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
