@@ -3,10 +3,15 @@
     python -m axcnn_torch.cli.profile_step --what=step       # the R50 step
     python -m axcnn_torch.cli.profile_step --what=dropblock  # its DropBlock sites
     python -m axcnn_torch.cli.profile_step --what=kd         # the R152 KD step
+    python -m axcnn_torch.cli.profile_step --what=remat      # the R50 step, remat=blocks
+    python -m axcnn_torch.cli.profile_step --what=dp --ranks=2  # the R50 step on 2 cards
 
 ``step``: ``assemble_resnet50`` at full width, 1001 classes, batch 128, bf16,
 random uint8 images on the card, the train step as ``make_train_step``
-builds it (mixup 0.2, label smoothing 0.1). ``dropblock``: the R50 step's
+builds it (mixup 0.2, label smoothing 0.1); ``remat``: the same step with
+``model.remat=blocks``; ``dp``: the same step data-parallel, one rank a
+card over NCCL, batch 128 a rank (rank 0 measures; every rank runs the
+same steps). ``dropblock``: the R50 step's
 nine DropBlock sites alone (6 at 14x14x1024 and 3 at 7x7x2048, batch 128,
 bf16, channels_last), each run forward and then backward through
 ``axcnn_torch.ops.dropblock.dropblock``; one repetition is one step's worth.
@@ -43,6 +48,7 @@ SEED = 0
 DROPBLOCK_SITES = ((14, 14, 1024, 6), (7, 7, 2048, 3))
 CATEGORIES = (  # (category, substrings of a device event's name); the first match wins
     ("hand-written kernels", ("blur3_s2", "dropblock_")),
+    ("NCCL collectives", ("nccl",)),
     ("elementwise_kernel<128, 2>", ("elementwise_kernel<128, 2,",)),
     ("other elementwise, copies and casts", ("elementwise_kernel", "elementwise")),
     ("reductions", ("reduce_kernel", "Reduce", "reduce")),
@@ -55,10 +61,13 @@ CATEGORIES = (  # (category, substrings of a device event's name); the first mat
 
 def device_events(prof) -> list:
     """The device events (kernels, copies, sets) of a ``torch.profiler``
-    window, as ``FunctionEvent``s."""
+    window, as ``FunctionEvent``s. The spans that annotations draw on the
+    device timeline (ProcessGroupNCCL's ``nccl:all_reduce`` over its kernel)
+    are left out: the kernels under them are counted already."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not (getattr(e, "is_user_annotation", False) or e.name.startswith("nccl:"))]
 
 
 def category(name: str) -> str:
@@ -134,7 +143,7 @@ def _wait_loss(metrics):
     metrics["loss"].item()  # the host waits for the step, as the loop's log does
 
 
-def _step_runner(kd: bool):
+def _step_runner(kd: bool, remat: bool = False, group=None):
     import dataclasses
 
     from axcnn_torch.core.dtypes import BF16_POLICY
@@ -143,7 +152,8 @@ def _step_runner(kd: bool):
     from axcnn_torch.train.train_step import create_train_state, make_train_step
     from axcnn_torch.utils.config import load_preset
 
-    r50 = dataclasses.replace(load_preset("assemble_resnet50").model, num_classes=1001)
+    r50 = dataclasses.replace(load_preset("assemble_resnet50").model, num_classes=1001,
+                              remat="blocks" if remat else "none")
     kw = dict(policy=BF16_POLICY, label_smoothing=0.1, mixup_alpha=0.2)
     batch_size = BATCH
     if kd:
@@ -159,7 +169,7 @@ def _step_runner(kd: bool):
     state = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
                                device="cuda", use_ema=True)
     step = make_train_step(cfg, lr_schedule=make_lr_schedule(
-        base_lr=0.05, total_steps=100, warmup_steps=0), total_steps=100, **kw)
+        base_lr=0.05, total_steps=100, warmup_steps=0), total_steps=100, group=group, **kw)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batch = {"images": torch.randint(0, 256, (batch_size, 224, 224, 3), generator=gen,
                                      device="cuda", dtype=torch.uint8),
@@ -194,9 +204,41 @@ def _dropblock_runner():
     return enqueue, lambda _: torch.cuda.synchronize()
 
 
+def _dp_rank(rank: int, world: int, coordinator: str, untraced: int, steps: int,
+             results) -> None:
+    """One rank of ``--what=dp`` on card ``rank``; rank 0 hands back its
+    measurement."""
+    from axcnn_torch.parallel import mesh
+
+    mesh.init_distributed(torch.device("cuda", rank), rank=rank, world_size=world,
+                          coordinator=coordinator)
+    try:
+        result = _measure(*_step_runner(kd=False, group=mesh.data_group()), untraced, steps)
+    finally:
+        mesh.shutdown()
+    if rank == 0:
+        results.put(result)
+
+
+def _measure_dp(ranks: int, untraced: int, steps: int) -> dict:
+    import torch.multiprocessing as mp
+
+    from axcnn_torch.cli.main_classification import _free_port
+
+    if torch.cuda.device_count() < ranks:
+        raise SystemExit(f"profile_step: --what=dp needs {ranks} cards, "
+                         f"{torch.cuda.device_count()} visible")
+    results = mp.get_context("spawn").SimpleQueue()
+    mp.start_processes(_dp_rank, nprocs=ranks, start_method="spawn",
+                       args=(ranks, f"127.0.0.1:{_free_port()}", untraced, steps, results))
+    return {"ranks": ranks, **results.get()}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--what", choices=("step", "dropblock", "kd"), default="step")
+    parser.add_argument("--what", choices=("step", "dropblock", "kd", "remat", "dp"),
+                        default="step")
+    parser.add_argument("--ranks", type=int, default=2, help="cards for --what=dp")
     parser.add_argument("--steps", type=int, default=3, help="steps in the traced window")
     parser.add_argument("--untraced", type=int, default=20, help="steps timed untraced")
     parser.add_argument("--label", default="", help="a name for the tree measured")
@@ -206,9 +248,12 @@ def main(argv=None) -> int:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
-    enqueue, wait = (_dropblock_runner() if args.what == "dropblock"
-                     else _step_runner(kd=args.what == "kd"))
-    result = _measure(enqueue, wait, args.untraced, args.steps)
+    if args.what == "dp":
+        result = _measure_dp(args.ranks, args.untraced, args.steps)
+    else:
+        enqueue, wait = (_dropblock_runner() if args.what == "dropblock"
+                         else _step_runner(kd=args.what == "kd", remat=args.what == "remat"))
+        result = _measure(enqueue, wait, args.untraced, args.steps)
     print(json.dumps({"profile": args.what, "label": args.label, "dtype": "bf16",
                       "card": smi.splitlines()[0], **result}), flush=True)
     return 0

@@ -46,3 +46,9 @@ class RngStream:
     def fold_step(self, step: int) -> "RngStream":
         """A stream unique to a training step."""
         return RngStream(_fold(self.key, int(step)))
+
+    def fold_shard(self, rank: int) -> "RngStream":
+        """A data-parallel rank's stream for its per-sample draws: the
+        ``"shard"`` key folded with the rank, as the reference's
+        ``fold_in(rng_global("shard"), axis_index)``."""
+        return RngStream(self("shard")).fold_step(rank)

@@ -1,8 +1,8 @@
 // DropBlock for NVIDIA Hopper (sm_90a): the keep-mask and the rescaled apply.
 //
-// dropblock_mask_kernel replaces the TPU kernel axcnn/pallas/dropblock.py:
-// _make_kernel / dropblock_mask_pallas (the pallas_call at line 100). Per
-// sample n:
+// dropblock_mask_kernel and dropblock_mask_tiled_kernel replace the TPU
+// kernel axcnn/pallas/dropblock.py: _make_kernel / dropblock_mask_pallas (the
+// pallas_call at line 100). Per sample n:
 //
 //   bits[p]  = fmix32(fmix32(seed[n]) ^ p)     p = pixel index r*W + c
 //   u[p]     = (bits[p] >> 8) * 2^-24          top 24 bits, as the TPU kernel
@@ -20,9 +20,17 @@
 //
 // What bounds the mask: nothing much. The maps are small (14x14 and 7x7 on
 // the assembled R50), so the cost is one launch plus writing N*H*W floats.
-// One CTA per sample; the H x W centre and row-max maps live in shared
-// memory as bytes (at most kMaxHW pixels each); the count is a block
-// reduction over integers, so it is exact.
+// One CTA per sample. A map of up to kWholeMapHW pixels (the presets')
+// takes dropblock_mask_kernel: its centre and row-max maps live whole
+// in shared memory as bytes, one hash per pixel. A larger map takes
+// dropblock_mask_tiled_kernel, which walks it in tiles of R rows by Wt
+// columns: a row band, and column tiles only where W + bs - 1 exceeds the
+// shared buffer. A tile's row-max map, with its bs - 1 columns of halo,
+// lives in shared memory (at most kRowhitBytes, whatever H*W); the rows of
+// halo are not stored: the hash is stateless, so each row-max recomputes
+// the bs centres above and below it. Either way the count is a block
+// reduction over integers, so it is exact, and the two kernels compute the
+// same mask.
 //
 // dropblock_apply_kernel replaces the apply that dropblock_pallas
 // (axcnn/pallas/dropblock.py:133-135) left to XLA, forward and backward:
@@ -42,10 +50,11 @@
 // pixel's mask value loaded once per vector, streaming loads and stores.
 // Each CTA forms the scale itself (one warp sums the N counts from L2 while
 // the CTA's first loads are in flight), so no eager op and no cross-CTA
-// reduction sits between the mask kernel and the apply. The sum is exact:
-// the counts are integers and N*H*W <= 2^24. Widths whose C * itemsize is
-// not a multiple of 16 bytes, or a tensor that is not 16-byte aligned, take
-// the same loop one element at a time.
+// reduction sits between the mask kernel and the apply. The counts are
+// integers; the warp sums them in 64-bit integers, exactly in any order, and
+// rounds the total to fp32 once, as the plain version does. Widths whose
+// C * itemsize is not a multiple of 16 bytes, or a tensor that is not
+// 16-byte aligned, take the same loop one element at a time.
 //
 // Plain C interface, loaded with ctypes; each entry returns cudaGetLastError().
 
@@ -55,8 +64,9 @@
 
 namespace {
 
-constexpr int kMaxHW = 16384;  // bytes per map in shared memory (2 maps)
 constexpr int kThreads = 256;
+constexpr int kWholeMapHW = 16384;       // whole-map kernel: two byte maps in shared memory
+constexpr int kRowhitBytes = 47 * 1024;  // tiled kernel: one tile's row-max map, halo included
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -67,13 +77,40 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
+struct MaskGeom {
+  int h, w, bs, half0, half1;
+  float gamma;
+  uint32_t key;
+};
+
+// the block centre at (r, c): drawn at rate gamma in the valid region, 0
+// elsewhere and outside the map
+__device__ __forceinline__ bool centre_at(const MaskGeom& g, int r, int c) {
+  if (r < g.half0 || r >= g.h - g.half1 || c < g.half0 || c >= g.w - g.half1) return false;
+  const uint32_t bits = fmix32(g.key ^ (uint32_t)(r * g.w + c));
+  return (float)(bits >> 8) * (1.0f / 16777216.0f) < g.gamma;
+}
+
+// counts[n] = the sum over the block of each thread's ``kept``
+__device__ __forceinline__ void store_count(int kept, float* __restrict__ counts, int n) {
+  __shared__ int warp_sums[kThreads / 32];
+  for (int off = 16; off > 0; off >>= 1) kept += __shfl_down_sync(0xffffffffu, kept, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = kept;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) total += warp_sums[i];
+    counts[n] = (float)total;
+  }
+}
+
+// h * w <= kWholeMapHW
 __global__ void dropblock_mask_kernel(const int32_t* __restrict__ seeds,
                                       float gamma, float* __restrict__ mask,
                                       float* __restrict__ counts, int h, int w,
                                       int bs) {
-  __shared__ unsigned char centre[kMaxHW];
-  __shared__ unsigned char rowhit[kMaxHW];
-  __shared__ int warp_sums[kThreads / 32];
+  __shared__ unsigned char centre[kWholeMapHW];
+  __shared__ unsigned char rowhit[kWholeMapHW];
   const int n = blockIdx.x;
   const int hw = h * w;
   const int half0 = (bs - 1) / 2, half1 = bs / 2;
@@ -111,20 +148,52 @@ __global__ void dropblock_mask_kernel(const int32_t* __restrict__ seeds,
     mask_n[p] = acc ? 0.0f : 1.0f;
     kept += acc ? 0 : 1;
   }
-  for (int off = 16; off > 0; off >>= 1) kept += __shfl_down_sync(0xffffffffu, kept, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = kept;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) total += warp_sums[i];
-    counts[n] = (float)total;
+  store_count(kept, counts, n);
+}
+
+// tiles: rows [r0, r0 + rows) by columns [c0, c0 + cols); the row-max map
+// holds columns c0 - half0 .. c0 + cols - 1 + half1
+__global__ void dropblock_mask_tiled_kernel(const int32_t* __restrict__ seeds,
+                                            float gamma, float* __restrict__ mask,
+                                            float* __restrict__ counts, int h, int w,
+                                            int bs, int tile_rows, int tile_cols) {
+  __shared__ unsigned char rowhit[kRowhitBytes];
+  const int n = blockIdx.x;
+  const MaskGeom g{h, w, bs, (bs - 1) / 2, bs / 2, gamma, fmix32((uint32_t)seeds[n])};
+  float* mask_n = mask + (long long)n * h * w;
+  int kept = 0;
+  for (int r0 = 0; r0 < h; r0 += tile_rows) {
+    const int rows = min(tile_rows, h - r0);
+    for (int c0 = 0; c0 < w; c0 += tile_cols) {
+      const int cols = min(tile_cols, w - c0);
+      const int ext = cols + bs - 1;
+      // rows: hit[r] = max over centre[r - d], d in -half1..half0
+      for (int p = threadIdx.x; p < rows * ext; p += blockDim.x) {
+        const int r = r0 + p / ext, c = c0 - g.half0 + p % ext;
+        unsigned char acc = 0;
+        if (c >= 0 && c < w)
+          for (int d = -g.half1; d <= g.half0; ++d) acc |= centre_at(g, r - d, c) ? 1 : 0;
+        rowhit[p] = acc;
+      }
+      __syncthreads();
+      // columns, then the keep-mask and this thread's share of the count
+      for (int p = threadIdx.x; p < rows * cols; p += blockDim.x) {
+        const int i = p / cols, j = p % cols;
+        unsigned char acc = 0;
+        // column c0 + j - d sits at j - d + half0 in the tile's row
+        for (int d = -g.half1; d <= g.half0; ++d) acc |= rowhit[i * ext + j - d + g.half0];
+        mask_n[(long long)(r0 + i) * w + c0 + j] = acc ? 0.0f : 1.0f;
+        kept += acc ? 0 : 1;
+      }
+      __syncthreads();
+    }
   }
+  store_count(kept, counts, n);
 }
 
 constexpr int kApplyThreads = 256;
 constexpr int kApplyUnroll = 4;     // independent 16-byte loads in flight per thread
 constexpr int kApplyCtasPerSm = 8;  // 8 x 256 threads: a full SM
-constexpr long long kMaxApplyPixels = 1LL << 24;  // N*H*W: the fp32 count sum stays exact
 
 struct ApplyArgs {
   const void* src;
@@ -192,14 +261,14 @@ __global__ void __launch_bounds__(kApplyThreads) dropblock_apply_kernel(ApplyArg
       m[u] = __ldg(mask + j / per_pixel);
     }
   }
-  // warp 0 forms the scale while the first loads are in flight; the partial
-  // sums are integers below 2^24, so any order gives the exact sum
+  // warp 0 forms the scale while the first loads are in flight: the counts
+  // are integers, summed exactly in 64 bits, then rounded to fp32 once
   if (threadIdx.x < 32) {
-    float sum = 0.0f;
-    for (int k = threadIdx.x; k < args.n; k += 32) sum += __ldg(args.counts + k);
+    long long sum = 0;
+    for (int k = threadIdx.x; k < args.n; k += 32) sum += (long long)__ldg(args.counts + k);
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     if (threadIdx.x == 0)
-      s_scale = __fdiv_rn(args.numel, __fmul_rn(fmaxf(sum, 1.0f), (float)args.c));
+      s_scale = __fdiv_rn(args.numel, __fmul_rn(fmaxf(__ll2float_rn(sum), 1.0f), (float)args.c));
   }
   __syncthreads();
   const float s = s_scale;
@@ -238,28 +307,40 @@ int launch_apply(const ApplyArgs& args, unsigned grid, bool narrow, cudaStream_t
 }  // namespace
 
 // seeds: (n,) int32 on the device; mask: (n, h, w) fp32; counts: (n,) fp32.
-// Requires h * w <= kMaxHW and 1 <= bs <= min(h, w).
+// Requires 1 <= bs <= min(h, w) and h * w < 2^31 (the pixel index is an int
+// and a 32-bit hash input).
 extern "C" int axcnn_dropblock_mask(const void* seeds, float gamma, void* mask,
                                     void* counts, long long n, long long h,
                                     long long w, long long bs, void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || h * w > kMaxHW || bs < 1 || bs > h ||
+  if (n <= 0 || h <= 0 || w <= 0 || h * w > 0x7fffffffLL || bs < 1 || bs > h ||
       bs > w || n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  dropblock_mask_kernel<<<(unsigned)n, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(seeds), gamma, static_cast<float*>(mask),
-      static_cast<float*>(counts), (int)h, (int)w, (int)bs);
+  const int32_t* sd = static_cast<const int32_t*>(seeds);
+  float* m = static_cast<float*>(mask);
+  float* cn = static_cast<float*>(counts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (h * w <= kWholeMapHW) {
+    dropblock_mask_kernel<<<(unsigned)n, kThreads, 0, st>>>(sd, gamma, m, cn, (int)h,
+                                                                 (int)w, (int)bs);
+    return (int)cudaGetLastError();
+  }
+  // the widest tile whose row with its halo fits, then as many rows as fit;
+  // bs <= min(h, w) <= 46340 < kRowhitBytes, so a tile is never empty
+  const long long ext = (w + bs - 1 < kRowhitBytes) ? w + bs - 1 : kRowhitBytes;
+  const long long rows = (kRowhitBytes / ext < h) ? kRowhitBytes / ext : h;
+  dropblock_mask_tiled_kernel<<<(unsigned)n, kThreads, 0, st>>>(
+      sd, gamma, m, cn, (int)h, (int)w, (int)bs, (int)rows, (int)(ext - (bs - 1)));
   return (int)cudaGetLastError();
 }
 
 // src, dst: dense NHWC (channels_last) fp32 (dtype 0) or bf16 (dtype 1);
 // mask: (n, h*w) fp32; counts: (n,) fp32; numel: n*h*w*c as fp32. backward
 // 0 computes (src * mask) * scale, 1 computes (src * scale) * mask.
-// Requires n*h*w <= 2^24.
+// Requires n < 2^31 and c < 2^31 (ints in the kernel).
 extern "C" int axcnn_dropblock_apply(const void* src, const void* mask, const void* counts,
                                      void* dst, int dtype, float numel, long long n,
                                      long long hw, long long c, int backward, void* stream) {
-  if (n <= 0 || hw <= 0 || c <= 0 || n * hw > kMaxApplyPixels || c > 0x7fffffffLL ||
+  if (n <= 0 || hw <= 0 || c <= 0 || n > 0x7fffffffLL || c > 0x7fffffffLL ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const long long item = dtype == 1 ? 2 : 4;

@@ -2,9 +2,8 @@
 
 The port's own copy of ``axcnn/data/pipeline.py``: ``LoaderState``,
 ``TFRecordImageLoader``, ``SyntheticLoader``, ``MultiProducerLoader`` and
-``EchoIterator``, unchanged. The reference's ``DevicePrefetch`` is left out;
-the training loop copies each batch to the card itself (ROADMAP Queue A
-item 10 gives it a torch counterpart).
+``EchoIterator``, unchanged; ``DevicePrefetch`` / ``device_prefetch`` in
+torch terms (pinned host memory, a side stream on the card).
 
 Parity target: the reference's tf.data ``input_fn`` (SURVEY.md §3.1):
   list shards → shuffle files → parallel interleave → shuffle records →
@@ -32,6 +31,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from axcnn_torch.data.datasets import DatasetInfo
 from axcnn_torch.data.preprocessing import preprocess_train, preprocess_eval
@@ -516,3 +516,109 @@ class EchoIterator:
             self._left = self._factor
         self._left -= 1
         return self._batch
+
+
+class DevicePrefetch:
+    """Background-thread device prefetch: keeps ``size`` batches in flight.
+
+    A producer thread pulls host batches (dicts of numpy arrays or CPU
+    tensors) from ``iterator`` and moves them to ``device``. On the card each
+    batch is copied from pinned host memory on a side stream; the consumer's
+    stream waits on the copy's event, and each tensor is ``record_stream``-ed
+    on it for the caching allocator. On the CPU the tensors are handed over
+    as they are.
+
+    Producer-thread failures are re-raised in the consumer (not swallowed):
+    a decode error must kill training / eval loudly, never truncate it.
+
+    ``state_fn`` (optional) snapshots the source loader's checkpoint state
+    right after each batch is pulled from ``iterator``; the snapshot for the
+    batch the consumer is currently holding is exposed as
+    ``.consumed_state``. This is what checkpoints must record: the loader's
+    own ``.state`` runs up to ``size``+1 batches AHEAD (the producer thread
+    advances it), and saving it would silently skip those batches on resume.
+
+    ``close()`` stops the producer; a consumer that stops early calls it.
+    """
+
+    _END = object()
+
+    def __init__(self, iterator, *, device, size: int = 2, state_fn=None):
+        if size < 1:
+            raise ValueError(f"data.prefetch must be >= 1, got {size}")
+        device = torch.device(device)
+        self._device = device
+        self.consumed_state = None
+        self._q: queue_mod.Queue = queue_mod.Queue(maxsize=size)
+        self._stop = threading.Event()
+        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+        def put(item):
+            # bounded put that honors stop: no thread left blocked on a full
+            # queue after the consumer has gone
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.5)
+                    return
+                except queue_mod.Full:
+                    continue
+
+        def producer():
+            try:
+                if stream is not None:
+                    torch.cuda.set_device(device)
+                for batch in iterator:
+                    state = state_fn() if state_fn is not None else None
+                    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+                    event = None
+                    if stream is not None:
+                        with torch.cuda.stream(stream):
+                            batch = {k: v.pin_memory().to(device, non_blocking=True)
+                                     for k, v in batch.items()}
+                            event = torch.cuda.Event()
+                            event.record(stream)
+                    put((batch, event, state))
+                    if self._stop.is_set():
+                        return
+            except BaseException as exc:  # noqa: BLE001 — forwarded, not dropped
+                put(exc)
+            else:
+                put(self._END)
+
+        self._thread = threading.Thread(target=producer, daemon=True,
+                                        name="device-prefetch")
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._END:
+            raise StopIteration
+        if isinstance(item, BaseException):
+            raise RuntimeError("data pipeline producer thread failed") from item
+        batch, event, state = item
+        if event is not None:
+            current = torch.cuda.current_stream(self._device)
+            current.wait_event(event)
+            for v in batch.values():
+                v.record_stream(current)
+        if state is not None:
+            self.consumed_state = state
+        return batch
+
+    def close(self):
+        """Stop the producer and wait for it (it notices within 0.5 s)."""
+        self._stop.set()
+        while True:  # unblock a put in progress
+            try:
+                self._q.get_nowait()
+            except queue_mod.Empty:
+                break
+        self._thread.join(timeout=5)
+
+
+def device_prefetch(iterator, *, device, size: int = 2, state_fn=None):
+    """See DevicePrefetch; function form kept as the call-site spelling."""
+    return DevicePrefetch(iterator, device=device, size=size, state_fn=state_fn)

@@ -36,8 +36,7 @@ LAUNCHES = 0
 APPLY_LAUNCHES = 0
 APPLY_BWD_LAUNCHES = 0
 APPLY_NOT_CHANNELS_LAST = 0
-MAX_HW = 16384  # kMaxHW of dropblock.cu: two H x W byte maps in shared memory
-MAX_APPLY_PIXELS = 1 << 24  # kMaxApplyPixels: N*H*W, so the fp32 count sum is exact
+MAX_INT32 = 2 ** 31 - 1  # the kernels index pixels (mask), samples and channels (apply) with ints
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry points' parameters, in order
@@ -76,9 +75,9 @@ def hash_uniforms(seeds: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 def check_mask_args(h: int, w: int, block_size: int) -> None:
-    if h * w > MAX_HW:
-        raise ValueError(f"the DropBlock mask kernel takes H*W <= {MAX_HW}, "
-                         f"got {h}x{w}")
+    if h * w > MAX_INT32:
+        raise ValueError(f"the DropBlock mask takes H*W <= {MAX_INT32} (the pixel index "
+                         f"is an int and a 32-bit hash input), got {h}x{w}")
     if not 1 <= block_size <= min(h, w):
         raise ValueError(f"block_size must be in [1, min(H, W)], got "
                          f"{block_size} for {h}x{w}")
@@ -107,8 +106,10 @@ def dropblock_mask_reference(seeds: torch.Tensor, gamma, h: int, w: int,
 
 def dropblock_scale_reference(counts: torch.Tensor, numel: int, c: int) -> torch.Tensor:
     """The rescale ``numel / (max(sum(counts), 1) * c)`` as a 0-d tensor, in
-    fp32 as the reference takes it (``numel`` rounded to fp32 first)."""
-    total_keep = torch.clamp_min(counts.sum(), 1.0) * c
+    fp32 as the reference takes it (``numel`` rounded to fp32 first). The
+    integer counts are summed exactly (in float64) and the sum rounded to
+    fp32 once: below 2**24 that is the reference's fp32 sum, bit for bit."""
+    total_keep = torch.clamp_min(counts.double().sum().float(), 1.0) * c
     numel = torch.full((), float(numel), dtype=torch.float32, device=counts.device)
     return numel / total_keep
 
@@ -171,9 +172,9 @@ def _check_apply_args(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor)
     if counts.dtype != torch.float32 or tuple(counts.shape) != (n,):
         raise ValueError(f"counts must be ({n},) float32, got {counts.dtype} "
                          f"{tuple(counts.shape)}")
-    if n * h * w > MAX_APPLY_PIXELS:
-        raise ValueError(f"the DropBlock apply kernel takes N*H*W <= {MAX_APPLY_PIXELS}, "
-                         f"got {n}x{h}x{w}")
+    if max(n, x.shape[1]) > MAX_INT32:
+        raise ValueError(f"the DropBlock apply kernel takes N and C <= {MAX_INT32} (ints in "
+                         f"the kernel), got N={n}, C={x.shape[1]}")
     for t in (x, mask, counts):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"dropblock_apply_cuda needs CUDA tensors on one device, got "

@@ -3,31 +3,42 @@
 ResNet-50/101/152 with the assembly knobs: ResNet-D stem and shortcut, SE,
 SK, BlurPool ``sconv|proj|max``, DropBlock after every block of
 ``dropblock_stages`` in training, zero-gamma and ``width_multiplier``. The
-train forward uses batch-statistic BN everywhere and updates the moving
-statistics in place. Module and parameter names follow the reference's
-param tree (``stem.conv0``, ``stage2.block0.sk.fc_z``, ``head``), so
+train forward uses batch-statistic BN everywhere (averaged over a process
+group when given: sync-BN) and updates the moving statistics in place.
+Module and parameter names follow the reference's param tree
+(``stem.conv0``, ``stage2.block0.sk.fc_z``, ``head``), so
 ``axcnn_torch.ckpt.convert`` maps one onto the other by rule.
+
+``remat="blocks"`` in training runs the reference's regions, the stem and
+each residual block, under ``torch.utils.checkpoint`` (non-reentrant):
+their activations are recomputed in the backward. DropBlock stays outside
+the regions, so it is not replayed; the replay leaves the BN moving
+statistics alone (``ops.norm.replaying``), so they are updated once.
+``remat="conv"`` / ``"conv_nocse"`` are XLA name policies with no torch
+counterpart, and refused in training with that reason.
 
 Not ported yet, and refused with ``NotImplementedError`` (ROADMAP.md):
 Big-Little stages (``bl_alpha``), ``scan_blocks`` (a JAX compile-time
-lever), the merged SK 5x5 conv, and ``remat`` in training. In eval,
-DropBlock is the identity and ``remat`` has no effect, as in the reference.
+lever) and the merged SK 5x5 conv. In eval, DropBlock is the identity and
+``remat`` has no effect, as in the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from axcnn_torch.core.dtypes import DEFAULT_POLICY, Policy
 from axcnn_torch.core.rng import RngStream
 from axcnn_torch.ops.blurpool import blur_pool
 from axcnn_torch.ops.dropblock import dropblock, dropblock_keep_prob, sample_seeds
 from axcnn_torch.ops.conv import Conv, Dense
-from axcnn_torch.ops.norm import BatchNorm
+from axcnn_torch.ops.norm import BatchNorm, replaying
 from axcnn_torch.ops.pooling import avg_pool_same, global_avg_pool, max_pool_same
 from axcnn_torch.ops.se import SE
 from axcnn_torch.ops.sk import SK
@@ -114,10 +125,10 @@ class Stem(nn.Module):
             self.add_module(f"conv{i}", Conv(k, cin, cout, stride=2 if i == 0 else 1))
             self.add_module(f"bn{i}", BatchNorm(cout, momentum=cfg.bn_momentum))
 
-    def forward(self, x, compute_dtype, train: bool = False):
+    def forward(self, x, compute_dtype, train: bool = False, group=None):
         for i in range(self.depth):
             x = getattr(self, f"conv{i}")(x, compute_dtype)
-            x = torch.relu(getattr(self, f"bn{i}")(x, train=train))
+            x = torch.relu(getattr(self, f"bn{i}")(x, train=train, group=group))
         if self.blur_max:
             return blur_pool(max_pool_same(x, window=3, stride=1))
         return max_pool_same(x, window=3, stride=2)
@@ -161,26 +172,26 @@ class Block(nn.Module):
         if cfg.use_se_block:
             self.se = SE(out_ch, ratio=cfg.se_ratio)
 
-    def _shortcut(self, x, cd, train):
+    def _shortcut(self, x, cd, train, group):
         if not hasattr(self, "proj_conv"):
             return x
         if self.short_pool == "avg":
             x = avg_pool_same(x, window=self.stride, stride=self.stride)
         elif self.short_pool == "blur":
             x = blur_pool(x, stride=self.stride)
-        return self.proj_bn(self.proj_conv(x, cd), train=train)
+        return self.proj_bn(self.proj_conv(x, cd), train=train, group=group)
 
-    def forward(self, x, compute_dtype, train: bool = False):
+    def forward(self, x, compute_dtype, train: bool = False, group=None):
         cd = compute_dtype
-        shortcut = self._shortcut(x, cd, train)
-        h = torch.relu(self.bn1(self.conv1(x, cd), train=train))
+        shortcut = self._shortcut(x, cd, train, group)
+        h = torch.relu(self.bn1(self.conv1(x, cd), train=train, group=group))
         if hasattr(self, "sk"):
-            h = self.sk(h, cd, train=train)
+            h = self.sk(h, cd, train=train, group=group)
         else:
-            h = torch.relu(self.bn2(self.conv2(h, cd), train=train))
+            h = torch.relu(self.bn2(self.conv2(h, cd), train=train, group=group))
         if self.blur_mid:
             h = blur_pool(h, stride=self.stride)
-        h = self.bn3(self.conv3(h, cd), train=train)
+        h = self.bn3(self.conv3(h, cd), train=train, group=group)
         if hasattr(self, "se"):
             h = self.se(h)
         return torch.relu(h + shortcut.to(h.dtype))
@@ -214,20 +225,25 @@ class ResNet(nn.Module):
 
     def forward(self, images, *, train: bool = False,
                 policy: Policy = DEFAULT_POLICY, rng: RngStream | None = None,
-                progress: float = 1.0, dropblock_uniforms: dict | None = None):
+                progress: float = 1.0, dropblock_uniforms: dict | None = None,
+                group=None):
         """NHWC float images -> fp32 logits (N, num_classes).
 
         ``train=True`` normalizes with batch statistics and updates the BN
-        moving statistics in place. ``progress`` in [0, 1] drives the
-        DropBlock keep-prob schedule; ``rng`` (the step's stream) seeds each
-        DropBlock site by its name, ``dropblock/stage{s}/block{b}``, and is
-        required when training with DropBlock. ``dropblock_uniforms`` maps
-        site names to (N, H, W) uniforms for the plain path (tests)."""
+        moving statistics in place; with a process ``group`` (sync-BN) the
+        statistics are those of the batch over every rank of it.
+        ``progress`` in [0, 1] drives the DropBlock keep-prob schedule;
+        ``rng`` (the step's stream) seeds each DropBlock site by its name,
+        ``dropblock/stage{s}/block{b}``, and is required when training with
+        DropBlock. ``dropblock_uniforms`` maps site names to (N, H, W)
+        uniforms for the plain path (tests)."""
         cfg = self.cfg
-        if train and cfg.remat != "none":
+        if train and cfg.remat in ("conv", "conv_nocse"):
             raise NotImplementedError(
-                f"remat={cfg.remat!r} in training is not ported to axcnn_torch "
-                "yet (ROADMAP.md Queue A item 8)")
+                f"remat={cfg.remat!r} is an XLA name policy (save only the tagged conv "
+                "outputs and BN statistics, recompute the rest) with no torch counterpart; "
+                "remat='blocks' is the port's memory lever (ROADMAP.md Queue A item 11)")
+        remat = train and cfg.remat == "blocks"
         use_db = train and cfg.use_dropblock
         if use_db and rng is None:
             raise ValueError("training with DropBlock requires rng")
@@ -236,11 +252,11 @@ class ResNet(nn.Module):
         cd = policy.compute_dtype
         # NHWC -> NCHW view: the memory stays NHWC, i.e. channels_last
         x = policy.cast_to_compute(images).permute(0, 3, 1, 2)
-        x = self.stem(x, cd, train)
+        x = _region(self.stem, x, cd, train, group, remat=remat)
         for s in range(4):
             sname = f"stage{s + 1}"
             for b, block in enumerate(getattr(self, sname).values()):
-                x = block(x, cd, train)
+                x = _region(block, x, cd, train, group, remat=remat)
                 if use_db and s + 1 in cfg.dropblock_stages:
                     site = f"dropblock/{sname}/block{b}"
                     x = dropblock(x, sample_seeds(rng.numpy(site), x.shape[0]),
@@ -250,3 +266,18 @@ class ResNet(nn.Module):
         # the head computes in fp32 at least (a float64 policy keeps float64)
         head_dtype = torch.promote_types(pooled.dtype, torch.float32)
         return self.head(pooled, compute_dtype=head_dtype).float()
+
+
+def _replay_contexts():
+    # (around the first forward, around the replay in the backward)
+    return contextlib.nullcontext(), replaying()
+
+
+def _region(module, x, *args, remat: bool):
+    """``module(x, *args)``; with ``remat``, under a non-reentrant
+    checkpoint whose replay runs inside ``replaying()``. Nothing in a region
+    draws from torch's generators, so their state is not saved."""
+    if not remat:
+        return module(x, *args)
+    return checkpoint(module, x, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_replay_contexts)

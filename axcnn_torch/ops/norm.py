@@ -9,12 +9,27 @@ not used: they update with momentum ``1 - m`` and the unbiased variance, and
 on bf16 inputs they would normalize in another precision. Either way scale
 and shift are folded in fp32 and the result is cast back to the input dtype,
 as in the reference.
+
+Data parallelism: given a process group, the train forward averages the
+per-rank ``[E[x], E[x^2]]`` over it (one differentiable all-reduce of a
+(2, C) tensor, whose backward averages the cotangent) before forming the
+variance, as the reference's ``pmean`` under ``sync_bn``; the variance is
+not an average of variances. ``nn.SyncBatchNorm`` is not used (hazard (a)).
+
+Remat: a checkpointed region replays its forward in the backward. Inside
+``replaying()`` the train forward leaves the moving statistics alone, so
+they are updated once per step, by the first forward.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 from torch import nn
+
+from axcnn_torch.parallel.mesh import all_reduce_mean
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.997
@@ -31,18 +46,36 @@ def bn_eval(x, gamma, beta, mean, var, eps: float = BN_EPS):
     return (x.float() * _channel_view(x, scale) + _channel_view(x, shift)).to(x.dtype)
 
 
+_REPLAY = threading.local()
+
+
+@contextlib.contextmanager
+def replaying():
+    """The forward inside is a checkpointed region's replay (in the calling
+    thread): the train forward leaves the moving statistics alone."""
+    before = getattr(_REPLAY, "on", False)
+    _REPLAY.on = True
+    try:
+        yield
+    finally:
+        _REPLAY.on = before
+
+
 def bn_train(x, gamma, beta, moving_mean, moving_var, *,
-             momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
+             momentum: float = BN_MOMENTUM, eps: float = BN_EPS, group=None):
     """Normalize channel dim 1 of ``x`` with its batch statistics (over every
-    other dim) and update ``moving_mean``/``moving_var`` in place."""
+    other dim, and over the ranks of ``group`` when given) and update
+    ``moving_mean``/``moving_var`` in place, outside ``replaying()``."""
     x32 = x.float()
     dims = (0,) + tuple(range(2, x.dim()))
-    mean = x32.mean(dim=dims)
-    mean2 = x32.square().mean(dim=dims)
+    mean, mean2 = x32.mean(dim=dims), x32.square().mean(dim=dims)
+    if group is not None:
+        mean, mean2 = all_reduce_mean(torch.stack([mean, mean2]), group)
     var = torch.clamp_min(mean2 - mean.square(), 0.0)
-    with torch.no_grad():
-        moving_mean.copy_(moving_mean * momentum + mean * (1.0 - momentum))
-        moving_var.copy_(moving_var * momentum + var * (1.0 - momentum))
+    if not getattr(_REPLAY, "on", False):
+        with torch.no_grad():
+            moving_mean.copy_(moving_mean * momentum + mean * (1.0 - momentum))
+            moving_var.copy_(moving_var * momentum + var * (1.0 - momentum))
     scale = gamma.float() * torch.rsqrt(var + eps)
     shift = beta.float() - mean * scale
     return (x32 * _channel_view(x, scale) + _channel_view(x, shift)).to(x.dtype)
@@ -69,9 +102,9 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x, *, train: bool = False):
+    def forward(self, x, *, train: bool = False, group=None):
         if train:
             return bn_train(x, self.weight, self.bias, self.running_mean,
-                            self.running_var, momentum=self.momentum)
+                            self.running_var, momentum=self.momentum, group=group)
         return bn_eval(x, self.weight, self.bias, self.running_mean,
                        self.running_var)

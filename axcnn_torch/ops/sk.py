@@ -34,14 +34,16 @@ class SK(nn.Module):
         self.bn_z = BatchNorm(d, momentum=bn_momentum)
         self.fc_select = Dense(d, NUM_BRANCHES * out_ch, std=(1.0 / d) ** 0.5)
 
-    def forward(self, x, compute_dtype=None, *, train: bool = False):
+    def forward(self, x, compute_dtype=None, *, train: bool = False, group=None):
+        """``group``: the process group train-mode BN averages its statistics
+        over (None: this rank's batch alone)."""
         branches = [
             torch.relu(getattr(self, f"bn{b}")(
-                getattr(self, f"conv{b}")(x, compute_dtype), train=train))
+                getattr(self, f"conv{b}")(x, compute_dtype), train=train, group=group))
             for b in range(NUM_BRANCHES)]
         u = branches[0] + branches[1]
         z = self.fc_z(global_avg_pool(u).float())  # (N, d)
-        z = torch.relu(self.bn_z(z, train=train))
+        z = torch.relu(self.bn_z(z, train=train, group=group))
         logits = self.fc_select(z).view(-1, NUM_BRANCHES, self.out_ch)
         attn = torch.softmax(logits, dim=1).to(u.dtype)  # (N, B, C)
         return (branches[0] * attn[:, 0, :, None, None]

@@ -1,4 +1,4 @@
-"""The training run loop on one device (port of ``axcnn/train/loop.py``).
+"""The training run loop (port of ``axcnn/train/loop.py``).
 
 The reference's step accounting, LR schedule (linear batch scaling, warmup
 in epochs), log cadence and eval cadence: the EMA-swapped eval runs every
@@ -6,19 +6,30 @@ in epochs), log cadence and eval cadence: the EMA-swapped eval runs every
 stops early. The host side is the port's own copy of the reference's:
 the loaders of ``axcnn_torch.data.pipeline``, ``axcnn_torch.utils.logging``'s
 ``MetricLogger`` (``<model_dir>/metrics.jsonl``) and ``Throughput``, and
-``axcnn_torch.utils.watchdog``. Each batch is copied to the device from pinned
-memory, ``non_blocking``.
+``axcnn_torch.utils.watchdog``. A producer thread keeps ``data.prefetch``
+batches in flight to the device (``device_prefetch``: pinned memory, a side
+stream), for training and for eval.
 
 As in the reference: checkpoints under ``<model_dir>/checkpoints`` every
 ``save_checkpoint_steps``, at each eval and at the end, and the run resumes
-from the latest one with the loader's position; ``eval_only``; SIGTERM
-finishes the step in flight, saves and returns; the hang watchdog;
+from the latest one with the position of the batch the loop consumed (the
+prefetch runs ahead of it); ``eval_only``; SIGTERM finishes the step in
+flight, saves and returns (one process only); the hang watchdog;
 ``profile_steps``; warm start from ``pretrained_checkpoint``; the KD teacher
 from ``kd_teacher_checkpoint``; gradient accumulation.
 
-Refused with ``NotImplementedError`` until ported (ROADMAP.md): more than
-one device, spatial partitioning, DCN slices, device AutoAugment, data
-echo, export and ImageNet-C.
+Data parallelism: inside a process group of several ranks
+(``axcnn_torch.parallel.mesh``; the CLI starts one rank per card), each rank
+builds the same state from the seed, checks that the ranks agree on it,
+reads its own shard of the input (``host_id=rank``, ``batch_size // world``)
+and runs the data-parallel step; the eval sums over the ranks, which first
+agree on their number of eval batches. Rank 0 alone logs and saves; every
+rank waits at a barrier after a save. The LR and the schedules stay
+functions of the global batch.
+
+Refused with ``NotImplementedError`` until ported (ROADMAP.md): spatial
+partitioning, device AutoAugment, data echo, export and ImageNet-C; and, by
+design, DCN slices (``REFUSED``).
 """
 
 from __future__ import annotations
@@ -34,8 +45,10 @@ import torch
 from axcnn_torch.ckpt.checkpoint import CheckpointManager, load_weights, model_from_payload
 from axcnn_torch.core.dtypes import policy_from_name, set_fp32_precision
 from axcnn_torch.data.datasets import DatasetInfo, get_dataset
-from axcnn_torch.data.pipeline import MultiProducerLoader, SyntheticLoader, TFRecordImageLoader
+from axcnn_torch.data.pipeline import (MultiProducerLoader, SyntheticLoader, TFRecordImageLoader,
+                                       device_prefetch)
 from axcnn_torch.models.resnet import ModelConfig
+from axcnn_torch.parallel import mesh
 from axcnn_torch.train.ema import ema_init
 from axcnn_torch.train.schedules import make_lr_schedule, scale_lr_for_batch
 from axcnn_torch.train.train_step import (
@@ -46,13 +59,19 @@ from axcnn_torch.utils.watchdog import HangWatchdog, exit_after
 
 # (what, its ROADMAP.md Queue A item, is it asked for) -- each refused until ported
 UNPORTED = (
-    ("runtime.num_devices > 1", 8, lambda c: c.runtime.num_devices > 1),
     ("runtime.spatial_partitions > 1", 11, lambda c: c.runtime.spatial_partitions > 1),
-    ("runtime.dcn_slices > 1", 8, lambda c: c.runtime.dcn_slices > 1),
     ("data.autoaugment_device", 10, lambda c: c.data.autoaugment_device),
     ("data.echo_factor > 1", 10, lambda c: c.data.echo_factor > 1),
     ("runtime.export_dir", 10, lambda c: bool(c.runtime.export_dir)),
     ("runtime.eval_imagenet_c", 10, lambda c: c.runtime.eval_imagenet_c),
+)
+# (what, why it is not ported, is it asked for) -- refused by design
+REFUSED = (
+    ("runtime.dcn_slices > 1",
+     "the hierarchical (dcn, data) mesh follows TPU slices joined by a data-centre "
+     "network; NCCL picks its own topology across a host's cards, and the H100 "
+     "machines have no DCN (ROADMAP.md Queue A item 11)",
+     lambda c: c.runtime.dcn_slices > 1),
 )
 
 
@@ -62,16 +81,19 @@ def check_ported(cfg: Config) -> None:
         raise NotImplementedError(
             f"not ported to axcnn_torch yet: {', '.join(asked)} (ROADMAP.md "
             "Queue A)")
+    for what, why, on in REFUSED:
+        if on(cfg):
+            raise NotImplementedError(f"axcnn_torch does not take {what}: {why}")
 
 
-def resolve_device(platform: str) -> torch.device:
-    """``""`` or ``gpu`` -> the CUDA device, and exit with a message when
-    there is none; ``cpu`` -> the host. Nothing falls back to the CPU."""
+def resolve_device(platform: str, local_rank: int = 0) -> torch.device:
+    """``""`` or ``gpu`` -> CUDA card ``local_rank``, and exit with a message
+    when there is none; ``cpu`` -> the host. Nothing falls back to the CPU."""
     if platform in ("", "gpu", "cuda"):
         if not torch.cuda.is_available():
             raise SystemExit("error: no CUDA device; pass --runtime.platform=cpu "
                              "to run on the host CPU")
-        return torch.device("cuda")
+        return torch.device("cuda", local_rank)
     if platform == "cpu":
         return torch.device("cpu")
     raise ValueError(f"runtime.platform must be '', 'gpu' or 'cpu', got {platform!r}")
@@ -91,8 +113,11 @@ def _dataset_info(cfg: Config) -> DatasetInfo:
     return get_dataset(cfg.data.dataset_name)
 
 
-def _make_loaders(cfg: Config, info: DatasetInfo):
-    bs = cfg.train.batch_size
+def _make_loaders(cfg: Config, info: DatasetInfo, rank: int = 0, world: int = 1):
+    """This rank's loaders: its share of the global batch from its shard
+    files (``host_id=rank``). The synthetic loader is the same on every
+    rank, as in the reference."""
+    bs = cfg.train.batch_size // world
     if cfg.data.use_synthetic_data:
         kw = dict(batch_size=bs, image_size=cfg.data.image_size,
                   num_classes=cfg.model.num_classes)
@@ -100,30 +125,19 @@ def _make_loaders(cfg: Config, info: DatasetInfo):
                 SyntheticLoader(seed=cfg.train.seed + 1, num_batches=4, **kw))
     common = dict(image_size=cfg.data.image_size, resize_min=cfg.data.resize_min,
                   dct_method=cfg.data.dct_method, num_workers=cfg.data.num_workers,
-                  use_native=cfg.data.loader == "cpp")
+                  use_native=cfg.data.loader == "cpp", host_id=rank, num_hosts=world)
     train_kw = dict(batch_size=bs, train=True, seed=cfg.train.seed,
                     autoaugment_type=cfg.data.autoaugment_type,
                     shuffle_buffer=cfg.data.shuffle_buffer, **common)
     if cfg.data.num_producers > 1:
         train_loader = MultiProducerLoader(
             cfg.data.data_dir, info, num_producers=cfg.data.num_producers,
-            **train_kw)
+            **train_kw)  # seed, host_id and num_hosts pass through
     else:
         train_loader = TFRecordImageLoader(cfg.data.data_dir, info, **train_kw)
     eval_loader = TFRecordImageLoader(cfg.data.data_dir, info, batch_size=bs,
                                       train=False, drop_remainder=False, **common)
     return train_loader, eval_loader
-
-
-def to_device(batch, device: torch.device, batch_size: int | None = None):
-    """Host numpy batch -> torch tensors on ``device`` (padded to
-    ``batch_size`` first when given), copied from pinned memory."""
-    out = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
-    if batch_size is not None:
-        out = pad_batch(out, batch_size)
-    if device.type == "cuda":
-        out = {k: v.pin_memory().to(device, non_blocking=True) for k, v in out.items()}
-    return out
 
 
 def _teacher_model_config(cfg: Config, meta: dict | None) -> ModelConfig:
@@ -201,19 +215,52 @@ def _warm_start(state: TrainState, cfg: Config) -> TrainState:
     return state
 
 
-def evaluate(eval_step, state, eval_loader, *, batch_size: int, device,
-             on_batch=None):
-    """Full eval pass: {'top1': %, 'top5': %, 'loss': mean, 'count': N}.
-    ``on_batch`` runs after each batch's metrics reach the host (the hang
-    watchdog's beat: a whole eval may outlast its deadline)."""
+def _eval_batches(eval_loader, batch_size: int, local: int | None, extra: int):
+    """The eval loader's batches as CPU tensors, each padded to
+    ``batch_size`` (labels -1), then ``extra`` all-padding batches: the
+    ranks' shortfall from the largest number of batches among them
+    (``local`` is this rank's), so that every rank calls the eval step's
+    all-reduce equally often, even over uneven shards."""
+    n, last = 0, None
+    for b in eval_loader:
+        last = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+        n += 1
+        yield pad_batch(last, batch_size)
+    if local is not None and n != local:
+        # a mismatch would desynchronize the per-batch all-reduce: fail here
+        raise RuntimeError(f"eval loader yielded {n} batches but num_batches() "
+                           f"promised {local}")
+    if extra:
+        shape = (tuple(last["images"].shape[1:]) if last is not None
+                 else (eval_loader.image_size, eval_loader.image_size, 3))
+        empty = {"images": torch.zeros((batch_size,) + shape, dtype=torch.uint8),
+                 "labels": torch.full((batch_size,), -1, dtype=torch.int32)}
+        for _ in range(extra):
+            yield empty
+
+
+def evaluate(eval_step, state, eval_loader, *, batch_size: int, device, prefetch: int = 2,
+             group=None, on_batch=None):
+    """Full eval pass: {'top1': %, 'top5': %, 'loss': mean, 'count': N},
+    over every rank's shard with a process ``group``. ``on_batch`` runs
+    after each batch's metrics reach the host (the hang watchdog's beat: a
+    whole eval may outlast its deadline)."""
     totals = {}
-    for batch in eval_loader:
-        m = eval_step(state, to_device(batch, device, batch_size))
-        m = {k: float(v) for k, v in m.items()}
-        if on_batch is not None:
-            on_batch()
-        for k, v in m.items():
-            totals[k] = totals.get(k, 0.0) + float(v)
+    local, extra = None, 0
+    if group is not None and hasattr(eval_loader, "num_batches"):
+        local = eval_loader.num_batches()
+        extra = mesh.all_reduce_max(local, device, group) - local
+    batches = device_prefetch(_eval_batches(eval_loader, batch_size, local, extra),
+                              device=device, size=prefetch)
+    try:
+        for batch in batches:
+            m = {k: float(v) for k, v in eval_step(state, batch).items()}
+            if on_batch is not None:
+                on_batch()
+            for k, v in m.items():
+                totals[k] = totals.get(k, 0.0) + v
+    finally:
+        batches.close()
     count = max(totals.get("count", 0.0), 1.0)
     return {"top1": totals.get("top1", 0.0) / count * 100.0,
             "top5": totals.get("top5", 0.0) / count * 100.0,
@@ -221,11 +268,22 @@ def evaluate(eval_step, state, eval_loader, *, batch_size: int, device,
             "count": count}
 
 
-def run(cfg: Config):
-    """Train (and periodically evaluate) per the config on one device;
-    returns the last eval's metrics (the eval's, with ``eval_only``)."""
+def run(cfg: Config, *, local_rank: int = 0):
+    """Train (and periodically evaluate) per the config; returns the last
+    eval's metrics (the eval's, with ``eval_only``). In a process group of
+    several ranks (``mesh.init_distributed``), this is one rank of a
+    data-parallel run on card ``local_rank``."""
     check_ported(cfg)
-    device = resolve_device(cfg.runtime.platform)
+    device = resolve_device(cfg.runtime.platform, local_rank)
+    group, rank, world = mesh.data_group(), mesh.rank(), mesh.world_size()
+    if cfg.runtime.num_devices not in (0, world):
+        raise ValueError(
+            f"runtime.num_devices={cfg.runtime.num_devices} but this process group has "
+            f"{world} rank(s): start the run through axcnn_torch.cli.main_classification, "
+            "which starts one rank per card")
+    if cfg.train.batch_size % world:
+        raise ValueError(f"global batch {cfg.train.batch_size} not divisible by "
+                         f"{world} data-parallel ranks")
     info = _dataset_info(cfg)
     model = cfg.model
     if model.num_classes != info.num_classes:
@@ -235,7 +293,9 @@ def run(cfg: Config):
                  train=cfg.train, runtime=cfg.runtime)
     policy = policy_from_name(cfg.train.dtype)
     set_fp32_precision(policy)
-    logger = MetricLogger(cfg.runtime.model_dir, tensorboard=cfg.runtime.tensorboard)
+    lead = rank == 0  # rank 0 alone logs, saves and profiles
+    logger = MetricLogger(cfg.runtime.model_dir if lead else None, quiet=not lead,
+                          tensorboard=cfg.runtime.tensorboard and lead)
 
     if cfg.train.train_steps > 0:
         total_steps = cfg.train.train_steps
@@ -252,28 +312,30 @@ def run(cfg: Config):
     train_step = make_train_step(
         cfg.model, lr_schedule=lr_schedule, total_steps=total_steps, policy=policy,
         label_smoothing=cfg.train.label_smoothing, mixup_alpha=cfg.data.mixup_alpha,
-        mixup_symmetric=cfg.data.mixup_symmetric,
+        mixup_symmetric=cfg.data.mixup_symmetric, mixup_per_shard=cfg.data.mixup_per_shard,
         weight_decay=cfg.train.weight_decay, momentum=cfg.train.momentum,
         use_ema=cfg.train.use_ema, ema_decay=cfg.train.ema_decay,
         teacher=_load_teacher(cfg, device), kd_temp=cfg.train.kd_temp,
         kd_alpha=cfg.train.kd_alpha, grad_accum_steps=cfg.train.grad_accum_steps,
-        **norm)
+        group=group, **norm)
     eval_step = make_eval_step(cfg.model, policy=policy, use_ema=cfg.train.use_ema,
-                               **norm)
+                               group=group, **norm)
     state = create_train_state(cfg.model,
                                generator=torch.Generator().manual_seed(cfg.train.seed),
                                device=device, use_ema=cfg.train.use_ema)
     state = _warm_start(state, cfg)
-    train_loader, eval_loader = _make_loaders(cfg, info)
+    train_loader, eval_loader = _make_loaders(cfg, info, rank, world)
 
     ckpt = CheckpointManager(os.path.join(cfg.runtime.model_dir, "checkpoints"),
                              max_to_keep=cfg.runtime.keep_checkpoint_max,
-                             model_config=dataclasses.asdict(cfg.model))
+                             model_config=dataclasses.asdict(cfg.model) if lead else None)
     restored = ckpt.restore(state)
     if restored is not None:
         state, loader_state, _ = restored
         train_loader.state = loader_state
         logger.log("restore", state.step, epoch=loader_state.epoch)
+    mesh.check_replicas_agree([*state.model.parameters(), *state.model.buffers()],
+                              "the train state", group)
 
     def make_watchdog(step_of):
         """The hang watchdog: on its deadline, log ``hang_detected`` from a
@@ -288,7 +350,8 @@ def run(cfg: Config):
 
         return HangWatchdog(cfg.runtime.hang_watchdog_s, on_hang=on_hang).start()
 
-    eval_kw = dict(batch_size=cfg.train.batch_size, device=device)
+    eval_kw = dict(batch_size=cfg.train.batch_size // world, device=device,
+                   prefetch=cfg.data.prefetch, group=group)
     if cfg.runtime.eval_only:
         eval_step_no = state.step
         watchdog = make_watchdog(lambda: eval_step_no)
@@ -306,18 +369,21 @@ def run(cfg: Config):
     throughput = Throughput(cfg.train.batch_size)
     eval_metrics = {}
     step = state.step
-    # no prefetch thread: the loader advances its state before each yield, so
-    # after next() train_loader.state is the position the loop has consumed
-    train_iter = iter(train_loader)
+    # the prefetch runs up to data.prefetch + 1 batches ahead of the loop, so
+    # a save records its consumed_state, not train_loader.state
+    train_iter = device_prefetch(iter(train_loader), device=device, size=cfg.data.prefetch,
+                                 state_fn=lambda: train_loader.state)
     # SIGTERM (the grace signal before a kill): finish the step in flight,
-    # save the consumed position, return
+    # save the consumed position, return. One process only: with several
+    # ranks only the signalled one would stop, and the others would wait at
+    # its next collective
     preempted = threading.Event()
     prev_sigterm = None
-    if threading.current_thread() is threading.main_thread():
+    if world == 1 and threading.current_thread() is threading.main_thread():
         prev_sigterm = signal.signal(signal.SIGTERM, lambda *_: preempted.set())
     profile_dir = os.path.join(cfg.runtime.model_dir, "profile")
     profiler = None
-    profiled = False
+    profiled = not lead
     pending_save = pending_force = False
     watchdog = make_watchdog(lambda: step)
 
@@ -330,7 +396,7 @@ def run(cfg: Config):
             # trace steps 1..profile_steps: step 0 pays the one-time costs
             if cfg.runtime.profile_steps and not profiled and profiler is None and step > 0:
                 profiler = _start_profiler(device)
-            batch = to_device(next(train_iter), device)
+            batch = next(train_iter)
             beat()  # the loader produced
             state, metrics = train_step(state, batch, root_seed)
             beat()  # the step was enqueued
@@ -359,8 +425,10 @@ def run(cfg: Config):
                                 and eval_metrics["top1"] >= cfg.train.stop_threshold)
             preempt = preempted.is_set()
             if pending_save or pending_force or preempt:
-                ckpt.save(state, loader_state=train_loader.state,
-                          rng_seed=cfg.train.seed, force=pending_force or preempt)
+                if lead:
+                    ckpt.save(state, loader_state=train_iter.consumed_state,
+                              rng_seed=cfg.train.seed, force=pending_force or preempt)
+                mesh.barrier(device, group)  # the checkpoint is whole for every rank
                 beat()  # a save is a long, legitimate pause
                 pending_save = pending_force = False
                 if preempt:
@@ -370,6 +438,7 @@ def run(cfg: Config):
                 logger.log("early_stop", step, top1=eval_metrics["top1"])
                 break
     finally:
+        train_iter.close()
         if profiler is not None:
             profiler.stop()
         if watchdog is not None:

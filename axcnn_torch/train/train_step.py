@@ -1,12 +1,23 @@
 """Training and evaluation steps (port of ``axcnn/train/train_step.py``).
 
-``make_train_step`` for one device, with the KD teacher and gradient
-accumulation, without device AutoAugment (ROADMAP.md). In the reference's
+``make_train_step`` with the KD teacher, gradient accumulation and data
+parallelism, without device AutoAugment (ROADMAP.md). In the reference's
 order: normalize, mixup, ``progress = step / total``, forward (train-mode
 BN, DropBlock) and loss (+ KD), backward, momentum SGD with masked weight
 decay, EMA. The state is updated in place: parameters, velocity, EMA and
 the BN moving statistics.
 ``make_eval_step`` evaluates with the EMA swap (BASELINE config 3).
+
+Data parallelism (a process ``group``, one rank per card, each with the
+whole state and its shard of the batch) follows
+``axcnn/train/train_step.py:130-230``: per-sample draws (DropBlock) come
+from the step's stream folded with the rank, mixup's lambda from the
+stream before the fold (one lambda for the global batch) unless
+``mixup_per_shard``; BN averages its statistics over the ranks
+(``sync_bn``); after the backward (after the last micro-batch) the
+gradients, the loss, the BN moving statistics and the metrics
+``train_top1`` and ``mixup_lam`` are averaged over the ranks, in one
+all-reduce for each dtype among them. DropBlock's scale stays each shard's.
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from axcnn_torch.core.dtypes import DEFAULT_POLICY, Policy
@@ -22,6 +34,7 @@ from axcnn_torch.core.rng import RngStream
 from axcnn_torch.data.mixup import draw_lambda, mixup_batch
 from axcnn_torch.data.preprocessing import normalize_device
 from axcnn_torch.models.resnet import ModelConfig, ResNet
+from axcnn_torch.parallel.mesh import all_reduce_mean_, all_reduce_sum_
 from axcnn_torch.train.ema import ema_init, ema_update
 from axcnn_torch.train.losses import decay_mask, kd_loss, softmax_ce_loss
 from axcnn_torch.train.optimizer import momentum_init, momentum_update
@@ -64,7 +77,8 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
                     use_ema: bool = True, ema_decay: float = 0.9999,
                     teacher: ResNet | None = None, kd_temp: float = 1.0,
                     kd_alpha: float = 1.0, mean_rgb=None, stddev_rgb=None,
-                    grad_accum_steps: int = 1):
+                    grad_accum_steps: int = 1, group=None, sync_bn: bool = True,
+                    mixup_per_shard: bool = False):
     """Builds ``train_step(state, batch, root_seed) -> (state, metrics)``.
 
     ``batch`` = {'images': uint8 NHWC, 'labels': int N}, on the state's
@@ -86,26 +100,31 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
     ``lam=`` and ``dropblock_uniforms=`` (a dict by site name) replace the
     step's own random draws, one entry per micro-batch when ``A > 1``; they
     let a CPU test hand in the reference's.
+
+    ``group`` (a process group of several ranks; None: one process) makes
+    it the data-parallel step of the module docstring; ``batch`` is then
+    this rank's shard. With it, ``mixup_lam`` is a 0-d device tensor too.
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
     A = grad_accum_steps
+    bn_group = group if sync_bn else None
     mask = None
 
-    def micro_step(model, images_u8, labels, rng, progress, lam, uniforms):
+    def micro_step(model, images_u8, labels, rng, mix_rng, progress, lam, uniforms):
         """Forward and backward of one (micro-)batch; the gradients add up in
         ``.grad``. Returns (loss, top-1, lambda)."""
         images = normalize_device(images_u8, mean_rgb, stddev_rgb)
         labels_b = None
         if mixup_alpha > 0:
             if lam is None:
-                lam = draw_lambda(rng.numpy("mixup"), mixup_alpha,
+                lam = draw_lambda(mix_rng.numpy("mixup"), mixup_alpha,
                                   symmetric=mixup_symmetric)
             images, labels_a, labels_b = mixup_batch(images, labels, lam)
         else:
             labels_a, lam = labels, np.float32(1.0)
         logits = model(images, train=True, policy=policy, rng=rng,
-                       progress=progress, dropblock_uniforms=uniforms)
+                       progress=progress, dropblock_uniforms=uniforms, group=bn_group)
         loss = softmax_ce_loss(logits, labels_a, labels_b, float(lam),
                                label_smoothing=label_smoothing)
         if teacher is not None:
@@ -126,32 +145,37 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
         if mask is None:
             mask = decay_mask(model)
         step = state.step
-        rng = RngStream(root_seed).fold_step(step)
+        # the global stream is the same on every rank; the per-sample draws
+        # come from the rank's fold of it
+        rng_global = RngStream(root_seed).fold_step(step)
+        rng = rng_global if group is None else rng_global.fold_shard(dist.get_rank(group))
+        mix_rng = rng if mixup_per_shard else rng_global
         progress = np.float32(step) / np.float32(max(total_steps, 1))
         images, labels = batch["images"], batch["labels"]
         if A == 1:
-            micros = [(images, labels, rng, lam, dropblock_uniforms)]
+            micros = [(images, labels, rng, mix_rng, lam, dropblock_uniforms)]
         else:
             n = labels.shape[0]
             if n % A:
                 raise ValueError(f"batch {n} not divisible by grad_accum_steps {A}")
             m = n // A
-            accum = RngStream(rng("accum"))
+            accum, mix_accum = RngStream(rng("accum")), RngStream(mix_rng("accum"))
             lams = [None] * A if lam is None else list(lam)
             unis = [None] * A if dropblock_uniforms is None else list(dropblock_uniforms)
             if len(lams) != A or len(unis) != A:
                 raise ValueError(f"lam and dropblock_uniforms take {A} entries, "
                                  "one per micro-batch")
             micros = [(images[i * m:(i + 1) * m], labels[i * m:(i + 1) * m],
-                       accum.fold_step(i), lams[i], unis[i]) for i in range(A)]
+                       accum.fold_step(i), mix_accum.fold_step(i), lams[i], unis[i])
+                      for i in range(A)]
 
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         loss = top1 = None
         lam_sum = np.float32(0.0)
-        for images_i, labels_i, rng_i, lam_i, uni_i in micros:
-            loss_i, top1_i, lam_i = micro_step(model, images_i, labels_i, rng_i,
+        for images_i, labels_i, rng_i, mix_i, lam_i, uni_i in micros:
+            loss_i, top1_i, lam_i = micro_step(model, images_i, labels_i, rng_i, mix_i,
                                                progress, lam_i, uni_i)
             loss = loss_i if loss is None else loss + loss_i
             top1 = top1_i if top1 is None else top1 + top1_i
@@ -160,6 +184,10 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
         if A > 1:
             torch._foreach_div_(list(grads.values()), float(A))
             loss, top1 = loss / A, top1 / A
+        lam_mean = lam_sum / np.float32(A)
+        if group is not None:
+            lam_mean = torch.tensor(lam_mean, device=loss.device)
+            all_reduce_mean_([*grads.values(), *model.buffers(), loss, top1, lam_mean], group)
 
         lr = float(lr_schedule(step))
         momentum_update(params, grads, state.velocity, lr=lr, momentum=momentum,
@@ -171,7 +199,7 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
 
         metrics = {"loss": loss, "lr": lr, "train_top1": top1}
         if mixup_alpha > 0:
-            metrics["mixup_lam"] = float(lam_sum / np.float32(A))
+            metrics["mixup_lam"] = lam_mean if group is not None else float(lam_mean)
         state.step = step + 1
         return state, metrics
 
@@ -202,10 +230,12 @@ def topk_correct(logits, labels, ks=(1, 5)):
 
 
 def make_eval_step(cfg: ModelConfig, *, policy: Policy = DEFAULT_POLICY,
-                   use_ema: bool = False, mean_rgb=None, stddev_rgb=None):
+                   use_ema: bool = False, mean_rgb=None, stddev_rgb=None, group=None):
     """Builds ``eval_step(state, batch) -> metrics`` (sums + count, so the
     caller aggregates exactly over uneven final batches). ``cfg`` is the
-    model config the state was built from."""
+    model config the state was built from. With a process ``group`` the
+    sums are over every rank's batch (one all-reduce), so every rank must
+    call it equally often."""
 
     def eval_step(state: TrainState, batch):
         if state.model.cfg != cfg:
@@ -221,6 +251,7 @@ def make_eval_step(cfg: ModelConfig, *, policy: Policy = DEFAULT_POLICY,
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -logp.gather(1, labels.clamp(min=0)[:, None])[:, 0]
         metrics["loss_sum"] = (nll * valid).sum()
+        all_reduce_sum_(metrics.values(), group)
         return metrics
 
     return eval_step

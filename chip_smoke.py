@@ -21,7 +21,10 @@ points and checks them:
    dropped and a kept pixel, bit for bit (NaNs included), at the R50 sites
    at batch 128, at C = 8, 6 and 4 (the per-element route where C * itemsize
    is not a multiple of 16 bytes) and at a misaligned storage offset, and
-   its autograd Function against autograd through the plain apply;
+   its autograd Function against autograd through the plain apply; the
+   DropBlock op (mask, apply and its gradient) at sites past the kernels'
+   old limits: 2x160x160x64 bf16 (H*W = 25,600) and 400x245x245x4 fp32
+   (N*H*W and the kept count past 2^24);
 4. kernel_time: each kernel, its plain version and (BlurPool) the cuDNN call
    for the same function, and (BlurPool, the apply) a device copy of the
    same bytes, at batch 128, bf16, beside its bound (bytes over the card's
@@ -60,7 +63,24 @@ points and checks them:
     micro-batches of 128, bf16, 3 steps; finite losses, the launches per
     step (per micro-batch: the student's 3 forward and 3 backward BlurPool
     launches, the teacher's 3 forward launches, 39 DropBlock masks and 39
-    applies each way), step time, images/s and peak memory.
+    applies each way), step time, images/s and peak memory;
+14. dp: two ranks on card 0, joined over Gloo (NCCL takes one rank per
+    card: the test's topology, not a route of the program), each with 64
+    images of a b128 batch. One fp32 step (TF32 off, DropBlock at keep-prob
+    1.0, mixup off) of the two ranks against one single-process b128 step
+    from the same state, each held to the float64 CPU step as
+    ``train_parity`` holds the card; then one step with DropBlock and mixup
+    active: finite losses, the ranks' parameters equal element for
+    element, the kernels' launches on each rank;
+15. remat: one b128 bf16 step with ``model.remat=blocks`` beside one
+    without, from the same state and batch: the BN moving statistics alike
+    (printed), BlurPool's forward launched 6 times (3 by the replay), the
+    DropBlock kernels 9 times each way; then the training CLI with
+    ``--model.remat=blocks`` at full width, b128, bf16, 5 steps: finite
+    losses, the launches per step, peak memory beside the run without;
+16. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
+    card, NCCL), global b256, bf16, 10 steps: finite losses, img/s per card
+    and in total. On a machine with one card it prints ``"ran": false``.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the result line.
@@ -105,8 +125,14 @@ MASK_TIME_SHAPES = MASK_SHAPES[:2]
 APPLY_TIME_SHAPES = [(TIME_BATCH, 14, 14, 1024), (TIME_BATCH, 7, 7, 2048)]
 APPLY_CHECK_SHAPES = APPLY_TIME_SHAPES + [(4, 15, 17, 8), (4, 15, 17, 6), (4, 15, 17, 4)]
 APPLY_MISALIGNED_SHAPE = (2, 14, 14, 64)
+# the DropBlock op past the kernels' old limits (H*W <= 16,384, N*H*W <= 2^24):
+# (NHWC, dtype, block size)
+BIG_SITES = [((2, 160, 160, 64), torch.bfloat16, 7), ((400, 245, 245, 4), torch.float32, 7)]
 GAMMAS = (0.0, 0.02, 0.1)
 TRAIN_STEPS = 20
+REMAT_STEPS = 5
+DP_RANKS, DP_LOCAL_BATCH = 2, 64
+DP_NCCL_BATCH, DP_NCCL_STEPS = 256, 10
 RESUME_STEPS = (5, 10)  # the first run's steps, then the resumed run's end
 KD_BATCH, KD_ACCUM, KD_STEPS = 1024, 8, 3
 L2_FLUSH_BYTES = 256 << 20  # timing inputs cycle through at least this much (H100 L2: 50 MB)
@@ -342,7 +368,37 @@ def kernel_check_phase():
                                           x2, g)
             torch.cuda.synchronize()
             _check_equal("DropBlockApply.backward", shape, dtype, got, want, bits=True)
+    for shape, dtype, bs in BIG_SITES:
+        errs["mask"], errs["apply"] = _check_big_site(shape, dtype, bs, gen, errs)
     return errs
+
+
+def _check_big_site(shape, dtype, bs, gen, errs):
+    """The DropBlock op (mask kernel, apply kernel, its backward) at a site
+    past the kernels' old limits against the plain mask and autograd through
+    the plain apply, bit for bit; returns the largest mask and apply errors."""
+    from axcnn_torch.ops.dropblock import dropblock, dropblock_gamma
+
+    n, h, w, c = shape
+    x = _nchw_input(shape, dtype, gen).detach().requires_grad_()
+    g = _nchw_input(shape, dtype, gen)
+    seeds = _seeds(n, gen)
+    kp = 0.9
+    gamma = float(dropblock_gamma(kp, bs, h, w))
+    y = dropblock(x, seeds, keep_prob=kp, block_size=bs, train=True)
+    (dx,) = torch.autograd.grad(y, x, g)
+    mask, counts = kdrop.dropblock_mask_cuda(seeds, gamma, h, w, bs)
+    want_m, want_c = kdrop.dropblock_mask_reference(seeds, gamma, h, w, bs)
+    x2 = x.detach().clone().requires_grad_()
+    y2 = kdrop.dropblock_apply_reference(x2, want_m, want_c)
+    (dx2,) = torch.autograd.grad(y2, x2, g)
+    torch.cuda.synchronize()
+    case = f"{dtype}, bs {bs}, kept {int(want_c.sum().item())}"
+    m = max(errs["mask"], _check_equal("dropblock_mask", shape, case, mask, want_m),
+            _check_equal("dropblock_mask.counts", shape, case, counts, want_c))
+    a = max(errs["apply"], _check_equal("dropblock_op_fwd", shape, case, y, y2, bits=True),
+            _check_equal("dropblock_op_bwd", shape, case, dx, dx2, bits=True))
+    return m, a
 
 
 def _time_set(fns, xs, inputs=None):
@@ -687,7 +743,7 @@ def train_phase(smi):
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--config=assemble_resnet50", "--data.use_synthetic_data",
                 f"--train.train_steps={TRAIN_STEPS}", f"--train.batch_size={TIME_BATCH}",
-                "--train.log_every=1", f"--runtime.model_dir={tmp}"]
+                "--train.log_every=1", "--runtime.num_devices=1", f"--runtime.model_dir={tmp}"]
         metrics, counts, seconds, peak, records = _run_cli(argv)
     routes, g_not_cl = dict(kblur.ROUTES), kblur.BWD_G_NOT_CHANNELS_LAST
     apply_not_cl = kdrop.APPLY_NOT_CHANNELS_LAST
@@ -711,7 +767,7 @@ def train_phase(smi):
         raise AssertionError(f"kernel launches {counts}, expected {want}")
     if routes["fwd_thread"] or routes["bwd_thread"]:
         raise AssertionError(f"the train path left the TMA route: {routes}")
-    return counts
+    return counts, {"img_per_s": TIME_BATCH / step_s, "peak_gib": peak / 2 ** 30}
 
 
 def _state_copy(state, device):
@@ -869,7 +925,7 @@ def _resume_argv(model_dir, steps):
             f"--train.train_steps={steps}", f"--train.batch_size={TIME_BATCH}",
             "--train.log_every=1", f"--runtime.save_checkpoint_steps={RESUME_STEPS[0]}",
             "--runtime.hang_watchdog_s=300", "--runtime.profile_steps=2",
-            f"--runtime.model_dir={model_dir}"]
+            "--runtime.num_devices=1", f"--runtime.model_dir={model_dir}"]
 
 
 def resume_phase(smi, model_dir):
@@ -961,7 +1017,7 @@ def kd_phase(smi, teacher_dir, model_dir):
             f"--train.batch_size={KD_BATCH}", f"--train.grad_accum_steps={KD_ACCUM}",
             f"--train.train_steps={KD_STEPS}", "--train.log_every=1",
             f"--train.kd_teacher_checkpoint={teacher_dir}/checkpoints",
-            f"--runtime.model_dir={model_dir}"]
+            "--runtime.num_devices=1", f"--runtime.model_dir={model_dir}"]
     metrics, counts, seconds, peak, records = _run_cli(argv)
     train = [r for r in records if r["tag"] == "train"]
     losses = [r["loss"] for r in train]
@@ -981,6 +1037,239 @@ def kd_phase(smi, teacher_dir, model_dir):
     if not ok:
         raise AssertionError(f"KD phase failed: launches {counts}, expected {want}")
     return counts
+
+
+def _dp_steps(cfg, total, mixup_alpha, **kw):
+    """The fp32 step of ``dp`` and ``train_parity``'s kind: label smoothing,
+    the LR of a b128 run; ``kw`` passes the policy or the process group."""
+    from axcnn_torch.train.schedules import make_lr_schedule
+    from axcnn_torch.train.train_step import make_train_step
+
+    return make_train_step(
+        cfg, lr_schedule=make_lr_schedule(base_lr=0.05, total_steps=total, warmup_steps=0),
+        total_steps=total, label_smoothing=0.1, mixup_alpha=mixup_alpha, **kw)
+
+
+def _dp_rank(rank, world, coordinator, workdir):
+    """One rank of ``dp``, in its own process on card 0, over Gloo: the
+    parity step on its half of the batch, then one step with DropBlock and
+    mixup active; rank 0 saves the parameters after the first."""
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, set_fp32_precision
+    from axcnn_torch.parallel import mesh
+    from axcnn_torch.train.train_step import create_train_state
+
+    set_fp32_precision(DEFAULT_POLICY)
+    device = torch.device("cuda", 0)
+    mesh.init_distributed(device, rank=rank, world_size=world, coordinator=coordinator,
+                          backend="gloo")
+    try:
+        payload = torch.load(os.path.join(workdir, "dp_in.pt"), weights_only=False)
+        cfg = _assembled_cfg()
+        state = create_train_state(cfg, generator=torch.Generator(), device=device)
+        state.model.load_state_dict(payload["model"])
+        state.velocity = {k: v.to(device) for k, v in payload["velocity"].items()}
+        state.ema = {k: v.to(device) for k, v in payload["ema"].items()}
+        group = mesh.data_group()
+        part = slice(rank * DP_LOCAL_BATCH, (rank + 1) * DP_LOCAL_BATCH)
+        batch = {k: v[part].to(device) for k, v in payload["batch"].items()}
+        # step 0 of 2: keep-prob 1.0, so DropBlock's kernels launch and drop nothing
+        state, m1 = _dp_steps(cfg, 2, 0.0, group=group)(state, batch, SEED + 1)
+        if rank == 0:
+            torch.save({k: p.detach().cpu() for k, p in state.model.named_parameters()},
+                       os.path.join(workdir, "dp_params.pt"))
+        # step 1 of 2: keep-prob 0.95 and mixup
+        _zero_counts()
+        state, m2 = _dp_steps(cfg, 2, 0.2, group=group)(state, batch, SEED + 1)
+        torch.cuda.synchronize()
+        counts = _counts()
+        flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+        hi, lo = flat.clone(), flat.clone()
+        torch.distributed.all_reduce(hi, op=torch.distributed.ReduceOp.MAX)
+        torch.distributed.all_reduce(lo, op=torch.distributed.ReduceOp.MIN)
+        differ = int((hi != lo).sum())
+    finally:
+        mesh.shutdown()
+    with open(os.path.join(workdir, f"dp_rank{rank}.json"), "w") as f:
+        json.dump({"loss_parity_step": m1["loss"].item(), "loss_active_step": m2["loss"].item(),
+                   "mixup_lam": float(m2["mixup_lam"]), "params_differ_across_ranks": differ,
+                   "params": flat.numel(), "launches": counts}, f)
+
+
+def dp_phase(smi, tmp):
+    """Two Gloo ranks on card 0 against one process, each held to the
+    float64 CPU step (``train_parity``'s measure): the ranks' step must be as
+    near the float64 step as the single-process card step is."""
+    import torch.multiprocessing as mp
+
+    from axcnn_torch.cli.main_classification import _free_port
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, Policy, set_fp32_precision
+    from axcnn_torch.train.train_step import create_train_state
+
+    set_fp32_precision(DEFAULT_POLICY)
+    n = DP_RANKS * DP_LOCAL_BATCH
+    cfg = _assembled_cfg()
+    cpu = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
+                             device="cpu", use_ema=True)
+    _perturb_bn(cpu.model, SEED)
+    rng = np.random.default_rng(SEED + 3)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, 1001, n).astype(np.int64))}
+    old = {k: p.detach().clone() for k, p in cpu.model.named_parameters()}
+    torch.save({"model": cpu.model.state_dict(), "velocity": cpu.velocity, "ema": cpu.ema,
+                "batch": batch}, os.path.join(tmp, "dp_in.pt"))
+
+    card = _state_copy(cpu, "cuda")
+    card, m_card = _dp_steps(cfg, 2, 0.0)(card, {k: v.cuda() for k, v in batch.items()},
+                                          SEED + 1)
+    single = {k: p.detach().cpu() for k, p in card.model.named_parameters()}
+    del card
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mp.start_processes(_dp_rank, nprocs=DP_RANKS, start_method="spawn",
+                       args=(DP_RANKS, f"127.0.0.1:{_free_port()}", tmp))
+    dp_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    dp = torch.load(os.path.join(tmp, "dp_params.pt"))
+
+    # the float64 step on the CPU; remat keeps its activations to one block
+    t0 = time.perf_counter()
+    cfg64 = dataclasses.replace(cfg, remat="blocks")
+    cpu64 = create_train_state(cfg64, generator=torch.Generator(), device="cpu")
+    cpu64.model.load_state_dict(cpu.model.state_dict())
+    cpu64.model.double()
+    cpu64.velocity = {k: v.double() for k, v in cpu.velocity.items()}
+    cpu64.ema = {k: v.double() for k, v in cpu.ema.items()}
+    to_float = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        cpu64, m_64 = _dp_steps(cfg64, 2, 0.0, policy=Policy(torch.float64, torch.float64))(
+            cpu64, batch, SEED + 1)
+    finally:
+        torch.Tensor.float = to_float
+    fp64_s = time.perf_counter() - t0
+    ref = {k: p.detach() for k, p in cpu64.model.named_parameters()}
+
+    e_dp, e_single = _update_errors(old, dp, ref), _update_errors(old, single, ref)
+    med = lambda e: float(np.median(list(e.values())))  # noqa: E731
+    loss64 = m_64["loss"].item()
+    loss_rel = abs(ranks[0]["loss_parity_step"] - loss64) / abs(loss64)
+    tol = dict(loss_rel=1e-4, median_vs_single=3.0, worst_vs_single=3.0)
+    want = _launches(3, 3, 9)
+    ok = (loss_rel <= tol["loss_rel"]
+          and med(e_dp) <= tol["median_vs_single"] * med(e_single)
+          and max(e_dp.values()) <= tol["worst_vs_single"] * max(e_single.values())
+          and all(np.isfinite([r["loss_parity_step"], r["loss_active_step"]]).all()
+                  for r in ranks)
+          and all(r["params_differ_across_ranks"] == 0 for r in ranks)
+          and all(r["launches"] == want for r in ranks))
+    emit("dp", ranks=DP_RANKS, backend="gloo", card="0 (both ranks)", batch_per_rank=DP_LOCAL_BATCH,
+         dtype="fp32", tf32=False, loss_dp=ranks[0]["loss_parity_step"],
+         loss_single=m_card["loss"].item(), loss_fp64=loss64, loss_rel_dp_vs_fp64=loss_rel,
+         dp_vs_fp64={"median": med(e_dp), "worst": max(e_dp.values()),
+                     "worst_leaf": max(e_dp, key=e_dp.get)},
+         single_vs_fp64={"median": med(e_single), "worst": max(e_single.values())},
+         active_step=[{k: r[k] for k in ("loss_active_step", "mixup_lam",
+                                         "params_differ_across_ranks", "params")}
+                      for r in ranks],
+         launches_per_rank=[r["launches"] for r in ranks], expected=want, tolerance=tol,
+         ranks_seconds=dp_s, fp64_cpu_seconds=fp64_s, nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError("dp phase failed")
+    return ranks[0]["launches"]
+
+
+def remat_phase(smi, tmp, without):
+    """``model.remat=blocks``: one step beside one without from the same
+    state and batch (BN moving statistics, launches), then the CLI for 5
+    steps (losses, launches, peak memory beside the train phase's)."""
+    from axcnn_torch.core.dtypes import BF16_POLICY
+    from axcnn_torch.train.train_step import create_train_state
+
+    cfg = _assembled_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"images": torch.randint(0, 256, (TIME_BATCH, 224, 224, 3), generator=gen,
+                                     device="cuda", dtype=torch.uint8),
+             "labels": torch.randint(0, 1001, (TIME_BATCH,), generator=gen, device="cuda")}
+    stats, counts = {}, {}
+    for remat in ("none", "blocks"):
+        c = dataclasses.replace(cfg, remat=remat)
+        state = create_train_state(c, generator=torch.Generator().manual_seed(SEED),
+                                   device="cuda")
+        state.step = 1  # step 1 of 2: keep-prob 0.95, DropBlock drops
+        start = {k: b.clone() for k, b in state.model.named_buffers()}
+        _zero_counts()
+        state, _ = _dp_steps(c, 2, 0.2, policy=BF16_POLICY)(state, batch, SEED + 1)
+        torch.cuda.synchronize()
+        counts[remat] = _counts()
+        stats[remat] = ({k: b.clone() for k, b in state.model.named_buffers()}, start)
+        del state
+    (plain, start), (rem, _) = stats["none"], stats["blocks"]
+    same = sum(torch.equal(plain[k], rem[k]) for k in plain)
+    diff = max((plain[k] - rem[k]).abs().max().item() for k in plain)
+    # how far each statistic moved from its start, remat over plain: 1 for
+    # one update; a second update would move it about twice as far
+    moved = [((rem[k] - start[k]).abs().sum() / (plain[k] - start[k]).abs().sum()).item()
+             for k in plain if not torch.equal(plain[k], start[k])]
+    step_want = _launches(6, 3, 9)
+
+    argv = ["--config=assemble_resnet50", "--data.use_synthetic_data", "--model.remat=blocks",
+            f"--train.train_steps={REMAT_STEPS}", f"--train.batch_size={TIME_BATCH}",
+            "--train.log_every=1", "--runtime.num_devices=1",
+            f"--runtime.model_dir={os.path.join(tmp, 'remat')}"]
+    metrics, cli_counts, seconds, peak, records = _run_cli(argv)
+    train = [r for r in records if r["tag"] == "train"]
+    losses = [r["loss"] for r in train]
+    walls = _step_walls(train)
+    cli_want = _launches(6 * REMAT_STEPS + 3 * 4, 3 * REMAT_STEPS, 9 * REMAT_STEPS)
+    ok = (counts["blocks"] == step_want and counts["none"] == _launches(3, 3, 9)
+          and max(abs(r - 1.0) for r in moved) < 0.25
+          and [r["step"] for r in train] == list(range(1, REMAT_STEPS + 1))
+          and all(np.isfinite(losses)) and cli_counts == cli_want)
+    emit("remat", model="assemble_resnet50", remat="blocks", batch=TIME_BATCH, dtype="bf16",
+         bn_stats_bit_equal=f"{same}/{len(plain)}", bn_stats_max_abs_diff=diff,
+         bn_moved_remat_over_plain={"min": min(moved), "max": max(moved)},
+         launches_one_step=counts, expected_one_step=step_want, losses=losses,
+         mean_step_ms=float(walls.mean()) * 1e3, step_ms_min=float(walls.min()) * 1e3,
+         train_img_per_s=TIME_BATCH / float(walls.mean()),
+         max_memory_allocated_gib=peak / 2 ** 30,
+         without_remat={"max_memory_allocated_gib": without["peak_gib"],
+                        "train_img_per_s": without["img_per_s"]},
+         launches=cli_counts, expected=cli_want, seconds=seconds, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("remat phase failed")
+    return cli_counts
+
+
+def dp_nccl_phase(smi, tmp, single):
+    """The training CLI on two cards, one rank each over NCCL."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("dp_nccl", ran=False, reason=f"{cards} card")
+        return
+    argv = ["--config=assemble_resnet50", "--data.use_synthetic_data",
+            f"--train.train_steps={DP_NCCL_STEPS}", f"--train.batch_size={DP_NCCL_BATCH}",
+            "--train.log_every=1", "--runtime.num_devices=2",
+            f"--runtime.model_dir={os.path.join(tmp, 'dp_nccl')}"]
+    metrics, _, seconds, _, records = _run_cli(argv)
+    train = [r for r in records if r["tag"] == "train"]
+    losses = [r["loss"] for r in train]
+    walls = _step_walls(train)
+    total = DP_NCCL_BATCH / float(walls.mean())
+    ok = ([r["step"] for r in train] == list(range(1, DP_NCCL_STEPS + 1))
+          and all(np.isfinite(losses)) and metrics["count"] == 4 * DP_NCCL_BATCH)
+    emit("dp_nccl", ran=True, ranks=2, backend="nccl", cards=cards, batch=DP_NCCL_BATCH,
+         batch_per_card=DP_NCCL_BATCH // 2, dtype="bf16", steps=DP_NCCL_STEPS, losses=losses,
+         mean_step_ms=float(walls.mean()) * 1e3, step_ms_min=float(walls.min()) * 1e3,
+         step_ms=[w * 1e3 for w in walls], img_per_s_total=total, img_per_s_per_card=total / 2,
+         single_card_img_per_s=single["img_per_s"],
+         per_card_over_single=total / 2 / single["img_per_s"], eval=metrics, seconds=seconds,
+         card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("dp_nccl phase failed")
 
 
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
@@ -1003,7 +1292,7 @@ def main():
     paths = {"serve": serve_phase()}
     parity_phase()
     throughput_phase(smi)
-    paths["train"] = train_phase(smi)
+    paths["train"], single = train_phase(smi)
     train_parity_phase()
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "resume")
@@ -1011,6 +1300,9 @@ def main():
         paths["resume"] = resume_phase(smi, run_dir)
         paths["serve_ckpt"] = serve_ckpt_phase(run_dir, tmp)
         paths["kd"] = kd_phase(smi, run_dir, os.path.join(tmp, "kd"))
+        paths["dp"] = dp_phase(smi, tmp)
+        paths["remat"] = remat_phase(smi, tmp, single)
+        dp_nccl_phase(smi, tmp, single)
     for _, keys, name, *_ in KERNELS:
         for k in keys:
             if not any(counts[k] for counts in paths.values()):

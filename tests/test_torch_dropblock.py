@@ -20,8 +20,11 @@ from axcnn.ops.dropblock import dropblock as j_dropblock
 from axcnn_torch.kernels import dropblock as kdrop
 from axcnn_torch.ops.dropblock import dropblock, dropblock_gamma
 
-# the sizes of tests/test_torch_train_ops.py's DropBlock cases: (N, H, W, C), block size
-DB_CASES = [((8, 14, 14, 16), 7), ((8, 7, 7, 32), 7), ((4, 15, 17, 8), 5)]
+# the sizes of tests/test_torch_train_ops.py's DropBlock cases, and a map of
+# 160x160 = 25,600 pixels, past the 16,384 the mask kernel once took: (N, H,
+# W, C), block size
+DB_CASES = [((8, 14, 14, 16), 7), ((8, 7, 7, 32), 7), ((4, 15, 17, 8), 5),
+            ((2, 160, 160, 8), 7)]
 
 
 def _nchw(x_nhwc):
@@ -114,6 +117,22 @@ def test_scale_reference_matches_the_reference_in_fp32(shape):
     assert zero.item() == np.float32(np.float32(numel) / np.float32(c))
 
 
+def test_scale_reference_sums_the_counts_exactly():
+    """Counts whose total passes 2**24: an fp32 running sum loses the odd
+    counts there; the plain version sums them exactly and rounds the total
+    to fp32 once, as the apply kernel does in 64-bit integers."""
+    counts = torch.full((8,), 2.0 ** 22 + 1)  # total 2**25 + 8
+    total = 8 * (2 ** 22 + 1)
+    running = np.float32(0)
+    for v in counts.numpy():
+        running = np.float32(running + v)
+    assert running != np.float32(total)
+    numel, c = 10 ** 9, 3
+    want = np.float32(np.float32(numel) / (np.float32(total) * np.float32(c)))
+    got = kdrop.dropblock_scale_reference(counts, numel, c)
+    assert np.float32(got.item()).view(np.int32) == want.view(np.int32)
+
+
 def test_op_on_cpu_takes_the_plain_versions():
     """A CPU tensor takes the plain mask, the plain apply and autograd
     through it; no kernel is launched."""
@@ -140,9 +159,11 @@ def _apply_args(n=2, c=8, h=6, w=6, dtype=torch.float32, mask_shape=None,
 
 
 def _too_many_pixels():
-    """(1, 1, 4097, 4097): N*H*W = 4097**2 > 2**24, as views of one element."""
-    return (torch.zeros(1, 1, 1, 1).expand(1, 1, 4097, 4097),
-            torch.ones(1, 1, 1).expand(1, 4097, 4097), torch.ones(1))
+    """N = 2**31 one-pixel samples, more than the kernel's int sample index
+    takes, as views of one element."""
+    n = 2 ** 31
+    return (torch.zeros(1, 1, 1, 1).expand(n, 1, 1, 1), torch.ones(1, 1, 1).expand(n, 1, 1),
+            torch.ones(1).expand(n))
 
 
 REFUSALS = {  # case -> (the wrapper's arguments, the exception, its message)
@@ -153,7 +174,7 @@ REFUSALS = {  # case -> (the wrapper's arguments, the exception, its message)
     "mask_shape": (lambda: _apply_args(mask_shape=(2, 6, 5)), ValueError, "mask must be"),
     "mask_float64": (lambda: _apply_args(mask_dtype=torch.float64), ValueError, "mask must be"),
     "counts_shape": (lambda: _apply_args(counts_shape=(3,)), ValueError, "counts must be"),
-    "too_many_pixels": (_too_many_pixels, ValueError, r"N\*H\*W <= 16777216"),
+    "too_many_pixels": (_too_many_pixels, ValueError, r"N and C <= 2147483647"),
 }
 
 

@@ -312,14 +312,18 @@ def test_dropblock_routes_cpu_tensors_to_reference():
 def test_dropblock_mask_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="CUDA seeds"):
         kdrop.dropblock_mask_cuda(torch.zeros(2, dtype=torch.int32), 0.1, 14, 14, 7)
-    with pytest.raises(ValueError, match="H\\*W"):
-        kdrop.check_mask_args(200, 200, 7)
+    # any map the pixel index can address: 200x200 (past the old 16,384-pixel
+    # shared-memory bound) is taken; 46341^2 > 2^31 - 1 is not
+    kdrop.check_mask_args(200, 200, 7)
+    with pytest.raises(ValueError, match="H\\*W <= 2147483647"):
+        kdrop.check_mask_args(46341, 46341, 7)
     with pytest.raises(ValueError, match="block_size"):
         kdrop.check_mask_args(5, 5, 7)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,bs", [(14, 14, 7), (7, 7, 7), (15, 17, 5)])
+@pytest.mark.parametrize("h,w,bs", [(14, 14, 7), (7, 7, 7), (15, 17, 5), (160, 160, 7),
+                                    (3, 50000, 3)])
 @pytest.mark.parametrize("gamma", [0.0, 0.02, 0.1])
 def test_mask_kernel_matches_reference_on_card(h, w, bs, gamma):
     _cuda()
@@ -411,11 +415,13 @@ def test_profile_breakdown_counts_union_and_categories():
     category."""
     import types
 
-    from axcnn_torch.cli.profile_step import breakdown, category
+    from torch.autograd import DeviceType
+
+    from axcnn_torch.cli.profile_step import breakdown, category, device_events
 
     def ev(name, start, end):
-        return types.SimpleNamespace(name=name, time_range=types.SimpleNamespace(
-            start=start, end=end))
+        return types.SimpleNamespace(name=name, device_type=DeviceType.CUDA,
+                                     time_range=types.SimpleNamespace(start=start, end=end))
 
     events = [ev("void (anonymous namespace)::dropblock_apply_kernel<float>", 0.0, 40.0),
               ev("void at::native::elementwise_kernel<128, 2, at::native::Mul>", 30.0, 50.0),
@@ -423,6 +429,12 @@ def test_profile_breakdown_counts_union_and_categories():
               ev("void blur3_s2_tma_kernel<__nv_bfloat16>", 200.0, 220.0)]
     assert category("void at::native::vectorized_elementwise_kernel<4, copy>") == (
         "other elementwise, copies and casts")
+    # an NCCL all-reduce is a collective, not a reduction; the span that
+    # ProcessGroupNCCL's annotation draws over it is not a second event
+    nccl = ev("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)", 60, 70)
+    assert category(nccl.name) == "NCCL collectives"
+    prof = types.SimpleNamespace(events=lambda: [nccl, ev("nccl:all_reduce", 60, 70)])
+    assert device_events(prof) == [nccl]
     out = breakdown(events, steps=2, wall_s=0.001)
     assert out["busy_ms"] == (50.0 + 10.0 + 20.0) / 1e3 / 2
     assert out["device_events"] == 2.0 and out["wall_ms"] == 0.5

@@ -4,10 +4,12 @@ and warm start.
 
 The runs use the assembled preset at width 0.125, 64x64, batch 8, fp32, on
 user-built TFRecords of 24 training JPEGs (3 batches an epoch, so a 4-step
-run crosses an epoch) through the port's host loader. A run of 4 steps
-that saves every 2 is interrupted by deleting its step-4 checkpoint; the
-same command then restores step 2, the loader's position with it, and
-must end bit for bit where the uninterrupted run ended.
+run crosses an epoch) through the port's host loader, prefetched 2 batches
+ahead (``data.prefetch``, every preset's depth). A run of 4 steps that
+saves every 2 is interrupted by deleting its step-4 checkpoint; the same
+command then restores step 2, the loader's position with it (the consumed
+batch's, not the prefetch's run-ahead), and must end bit for bit where the
+uninterrupted run ended, at the same or another prefetch depth.
 """
 
 import dataclasses
@@ -116,12 +118,23 @@ def test_resume_is_bit_exact(first_run, data_args, tmp_path):
     command restores step 2 and the loader's position and ends where the
     uninterrupted run ended: every parameter, BN buffer, velocity and EMA
     tensor, and the losses logged at steps 3-4."""
+    _check_resume(first_run, data_args, tmp_path, "--runtime.hang_watchdog_s=120",
+                  "--runtime.profile_steps=2")
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_resume_is_bit_exact_at_another_prefetch_depth(first_run, data_args, tmp_path, depth):
+    """The saved position is the consumed batch's, whatever the depth the
+    saving run prefetched at: a resume at another depth ends alike."""
+    _check_resume(first_run, data_args, tmp_path, f"--data.prefetch={depth}")
+
+
+def _check_resume(first_run, data_args, tmp_path, *extra):
     model_dir = str(tmp_path / "resumed")
     shutil.copytree(first_run[0], model_dir, ignore=shutil.ignore_patterns("profile"))
     os.remove(os.path.join(model_dir, "checkpoints", "4.pt"))
     n_before = len(_records(model_dir))
-    tcli.main(_run_argv(data_args, model_dir, "--runtime.hang_watchdog_s=120",
-                        "--runtime.profile_steps=2"))
+    tcli.main(_run_argv(data_args, model_dir, *extra))
     new = _records(model_dir)[n_before:]
     assert new[0]["tag"] == "restore" and new[0]["step"] == 2 and new[0]["epoch"] == 0
     first = {r["step"]: r for r in _records(first_run[0]) if r["tag"] == "train"}

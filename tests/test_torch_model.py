@@ -194,11 +194,13 @@ def test_unported_features_refused():
                dict(anti_alias_type="sconv", anti_alias_filter_size=5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ResNet(ModelConfig(**kw, **SMALL))
-    # remat is a memory lever of training; the eval forward ignores it
-    with torch.device("meta"):
-        model = ResNet(ModelConfig(remat="blocks", **SMALL))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 32, 32, 3, device="meta"), train=True)
+    # remat is a memory lever of training; the eval forward ignores it. The
+    # XLA name policies have no torch counterpart ('blocks' trains)
+    for remat in ("conv", "conv_nocse"):
+        with torch.device("meta"):
+            model = ResNet(ModelConfig(remat=remat, **SMALL))
+        with pytest.raises(NotImplementedError, match="XLA name policy.*ROADMAP"):
+            model(torch.zeros(1, 32, 32, 3, device="meta"), train=True)
     # training with DropBlock needs the step's random stream, as in the reference
     with torch.device("meta"):
         model = ResNet(ModelConfig(use_dropblock=True, **SMALL))

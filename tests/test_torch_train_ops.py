@@ -262,9 +262,11 @@ def test_dropblock_is_identity_in_eval():
 
 
 def test_dropblock_refuses_maps_over_the_kernel_bound():
+    """The bound is the 32-bit pixel index, checked before anything is
+    allocated."""
     with pytest.raises(ValueError, match="H\\*W"):
         kdrop.dropblock_mask_reference(torch.zeros(1, dtype=torch.int32), 0.1,
-                                       200, 200, 7)
+                                       46341, 46341, 7)
 
 
 # ---------------------------------------------------------------------------
