@@ -56,8 +56,38 @@
 // C * itemsize is not a multiple of 16 bytes, or a tensor that is not
 // 16-byte aligned, take the same loop one element at a time.
 //
+// dropblock_fused_kernel draws the mask and applies it forward in one
+// cooperative launch (cudaLaunchCooperativeKernel), for maps whose two byte
+// maps fit shared memory (h * w <= kWholeMapHW, the presets' 14x14 and 7x7
+// far inside). The mask kernel's work is tiny (a few hundred hashes a
+// sample); what it cost was its own launch, and the apply's launch waiting
+// on it. The fused grid is the apply's persistent grid, sized to what can be
+// resident at once (the runtime refuses a cooperative grid that cannot be,
+// so the grid-wide barrier cannot deadlock):
+//
+//   phase 0  each thread issues its first kApplyUnroll streaming loads of x,
+//            which do not depend on the mask: they are in flight across
+//            phase 1 and the barrier (a CTA that draws a mask issues them
+//            after drawing it: its seed loads and mask stores would
+//            otherwise queue behind the grid's first loads, 13 MB at the
+//            presets' sites);
+//   phase 1  CTA b draws samples b, b + grid, ... exactly as
+//            dropblock_mask_kernel does (the same device function, on byte
+//            maps in dynamic shared memory), writing the mask and counts;
+//   barrier  cooperative_groups::this_grid().sync();
+//   phase 2  the forward apply, reading the mask and counts written in this
+//            launch through L2 (__ldcg): the non-coherent path (__ldg) is
+//            only for data written before the launch.
+//
+// So its mask, counts and output are bit-identical to the two launches'.
+// What bounds it: the apply's bytes, and before its first store the mask
+// phase's serial latency and the barrier, which on an H100 cost about what
+// the saved launch did. Larger maps take the mask kernel (whole-map or
+// tiled), then the apply.
+//
 // Plain C interface, loaded with ctypes; each entry returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,18 +134,13 @@ __device__ __forceinline__ void store_count(int kept, float* __restrict__ counts
   }
 }
 
-// h * w <= kWholeMapHW
-__global__ void dropblock_mask_kernel(const int32_t* __restrict__ seeds,
-                                      float gamma, float* __restrict__ mask,
-                                      float* __restrict__ counts, int h, int w,
-                                      int bs) {
-  __shared__ unsigned char centre[kWholeMapHW];
-  __shared__ unsigned char rowhit[kWholeMapHW];
-  const int n = blockIdx.x;
+// one sample's keep-mask, its whole map in shared memory: ``centre`` and
+// ``rowhit`` hold h * w bytes each; writes mask_n and counts[n]
+__device__ __forceinline__ void mask_whole_map(uint32_t key, float gamma, float* mask_n,
+                                               float* counts, int n, int h, int w, int bs,
+                                               unsigned char* centre, unsigned char* rowhit) {
   const int hw = h * w;
   const int half0 = (bs - 1) / 2, half1 = bs / 2;
-  const uint32_t key = fmix32((uint32_t)seeds[n]);
-
   for (int p = threadIdx.x; p < hw; p += blockDim.x) {
     const int r = p / w, c = p % w;
     const uint32_t bits = fmix32(key ^ (uint32_t)p);
@@ -137,7 +162,6 @@ __global__ void dropblock_mask_kernel(const int32_t* __restrict__ seeds,
   __syncthreads();
   // columns, then the keep-mask and this thread's share of the count
   int kept = 0;
-  float* mask_n = mask + (long long)n * hw;
   for (int p = threadIdx.x; p < hw; p += blockDim.x) {
     const int r = p / w, c = p % w;
     unsigned char acc = 0;
@@ -149,6 +173,18 @@ __global__ void dropblock_mask_kernel(const int32_t* __restrict__ seeds,
     kept += acc ? 0 : 1;
   }
   store_count(kept, counts, n);
+}
+
+// h * w <= kWholeMapHW
+__global__ void dropblock_mask_kernel(const int32_t* __restrict__ seeds,
+                                      float gamma, float* __restrict__ mask,
+                                      float* __restrict__ counts, int h, int w,
+                                      int bs) {
+  __shared__ unsigned char centre[kWholeMapHW];
+  __shared__ unsigned char rowhit[kWholeMapHW];
+  const int n = blockIdx.x;
+  mask_whole_map(fmix32((uint32_t)seeds[n]), gamma, mask + (long long)n * h * w, counts, n, h,
+                 w, bs, centre, rowhit);
 }
 
 // tiles: rows [r0, r0 + rows) by columns [c0, c0 + cols); the row-max map
@@ -240,39 +276,39 @@ template <typename T, bool kVec> struct UnitOf { using type = T; };
 template <> struct UnitOf<float, true> { using type = float4; };
 template <> struct UnitOf<__nv_bfloat16, true> { using type = uint4; };
 
-template <typename T, bool kVec, typename Index>
-__global__ void __launch_bounds__(kApplyThreads) dropblock_apply_kernel(ApplyArgs args) {
-  using Unit = typename UnitOf<T, kVec>::type;
-  const Unit* __restrict__ in = static_cast<const Unit*>(args.src);
-  Unit* __restrict__ out = static_cast<Unit*>(args.dst);
-  const float* __restrict__ mask = args.mask;
-  const Index units = (Index)args.units, per_pixel = (Index)args.per_pixel;
-  const Index stride = (Index)gridDim.x * kApplyThreads;
-  __shared__ float s_scale;
-  Unit v[kApplyUnroll];
-  float m[kApplyUnroll];
-  Index i = (Index)blockIdx.x * kApplyThreads + threadIdx.x;
+// a mask or count value: written before this launch, through the
+// non-coherent cache; written by this launch (the fused kernel), through L2
+template <bool kSameLaunch>
+__device__ __forceinline__ float load_mask(const float* p) {
+  return kSameLaunch ? __ldcg(p) : __ldg(p);
+}
 
-#pragma unroll
-  for (int u = 0; u < kApplyUnroll; ++u) {
-    const Index j = i + u * stride;
-    if (j < units) {
-      v[u] = __ldcs(in + j);
-      m[u] = __ldg(mask + j / per_pixel);
-    }
-  }
-  // warp 0 forms the scale while the first loads are in flight: the counts
-  // are integers, summed exactly in 64 bits, then rounded to fp32 once
+// the scale every thread of the CTA applies: warp 0 sums the counts (they
+// are integers, summed exactly in 64 bits), then rounds to fp32 once
+template <bool kSameLaunch>
+__device__ __forceinline__ float cta_scale(const ApplyArgs& args) {
+  __shared__ float s_scale;
   if (threadIdx.x < 32) {
     long long sum = 0;
-    for (int k = threadIdx.x; k < args.n; k += 32) sum += (long long)__ldg(args.counts + k);
+    for (int k = threadIdx.x; k < args.n; k += 32)
+      sum += (long long)load_mask<kSameLaunch>(args.counts + k);
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     if (threadIdx.x == 0)
       s_scale = __fdiv_rn(args.numel, __fmul_rn(fmaxf(__ll2float_rn(sum), 1.0f), (float)args.c));
   }
   __syncthreads();
-  const float s = s_scale;
+  return s_scale;
+}
 
+// the grid-stride loop from unit i on, its first round's units and mask
+// values already loaded into v and m
+template <bool kSameLaunch, typename Unit, typename Index>
+__device__ __forceinline__ void apply_stream(const ApplyArgs& args, Unit (&v)[kApplyUnroll],
+                                             float (&m)[kApplyUnroll], Index i, float s) {
+  const Unit* __restrict__ in = static_cast<const Unit*>(args.src);
+  Unit* __restrict__ out = static_cast<Unit*>(args.dst);
+  const Index units = (Index)args.units, per_pixel = (Index)args.per_pixel;
+  const Index stride = (Index)gridDim.x * kApplyThreads;
   for (; i < units; i += kApplyUnroll * stride) {
 #pragma unroll
     for (int u = 0; u < kApplyUnroll; ++u) {
@@ -289,10 +325,88 @@ __global__ void __launch_bounds__(kApplyThreads) dropblock_apply_kernel(ApplyArg
       const Index j = next + u * stride;
       if (j < units) {
         v[u] = __ldcs(in + j);
-        m[u] = __ldg(mask + j / per_pixel);
+        m[u] = load_mask<kSameLaunch>(args.mask + j / per_pixel);
       }
     }
   }
+}
+
+// v[u] = in[i + u * stride] for the units below ``units``
+template <typename Unit, typename Index>
+__device__ __forceinline__ void load_units(const Unit* __restrict__ in, Unit (&v)[kApplyUnroll],
+                                           Index i, Index stride, Index units) {
+#pragma unroll
+  for (int u = 0; u < kApplyUnroll; ++u) {
+    const Index j = i + u * stride;
+    if (j < units) v[u] = __ldcs(in + j);
+  }
+}
+
+template <typename T, bool kVec, typename Index>
+__global__ void __launch_bounds__(kApplyThreads) dropblock_apply_kernel(ApplyArgs args) {
+  using Unit = typename UnitOf<T, kVec>::type;
+  const Unit* __restrict__ in = static_cast<const Unit*>(args.src);
+  const Index units = (Index)args.units, per_pixel = (Index)args.per_pixel;
+  const Index stride = (Index)gridDim.x * kApplyThreads;
+  Unit v[kApplyUnroll];
+  float m[kApplyUnroll];
+  const Index i = (Index)blockIdx.x * kApplyThreads + threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < kApplyUnroll; ++u) {
+    const Index j = i + u * stride;
+    if (j < units) {
+      v[u] = __ldcs(in + j);
+      m[u] = __ldg(args.mask + j / per_pixel);
+    }
+  }
+  // warp 0 forms the scale while the first loads are in flight
+  const float s = cta_scale<false>(args);
+  apply_stream<false>(args, v, m, i, s);
+}
+
+struct FusedArgs {
+  ApplyArgs apply;  // its mask and counts are written by phase 1
+  const int32_t* seeds;
+  float gamma;
+  int h, w, bs;
+};
+
+// forward only; h * w <= kWholeMapHW; dynamic shared memory 2 * h * w bytes
+template <typename T, bool kVec, typename Index>
+__global__ void __launch_bounds__(kApplyThreads) dropblock_fused_kernel(FusedArgs args) {
+  using Unit = typename UnitOf<T, kVec>::type;
+  extern __shared__ unsigned char maps[];  // centre, then rowhit
+  const ApplyArgs& ap = args.apply;
+  const Unit* __restrict__ in = static_cast<const Unit*>(ap.src);
+  const Index units = (Index)ap.units, per_pixel = (Index)ap.per_pixel;
+  const Index stride = (Index)gridDim.x * kApplyThreads;
+  Unit v[kApplyUnroll];
+  float m[kApplyUnroll];
+  const Index i = (Index)blockIdx.x * kApplyThreads + threadIdx.x;
+  // phase 0: the first loads of x, in flight across the mask and the barrier;
+  // a CTA that draws a mask issues its own after drawing, so that its seed
+  // loads and mask stores do not queue behind the grid's loads (on an H100
+  // this order took less time a launch than every CTA loading first)
+  const bool draws = blockIdx.x < (unsigned)ap.n;
+  if (!draws) load_units<Unit>(in, v, i, stride, units);
+  // phase 1: the mask, one sample at a time per CTA
+  const int hw = args.h * args.w;
+  float* mask = const_cast<float*>(ap.mask);
+  float* counts = const_cast<float*>(ap.counts);
+  for (int n = blockIdx.x; n < ap.n; n += gridDim.x)
+    mask_whole_map(fmix32((uint32_t)args.seeds[n]), args.gamma, mask + (long long)n * hw,
+                   counts, n, args.h, args.w, args.bs, maps, maps + hw);
+  if (draws) load_units<Unit>(in, v, i, stride, units);
+  // every sample's mask and count is written and visible to the whole grid
+  cooperative_groups::this_grid().sync();
+  // phase 2: the forward apply
+#pragma unroll
+  for (int u = 0; u < kApplyUnroll; ++u) {
+    const Index j = i + u * stride;
+    if (j < units) m[u] = __ldcg(ap.mask + j / per_pixel);
+  }
+  const float s = cta_scale<true>(ap);
+  apply_stream<true>(ap, v, m, i, s);
 }
 
 template <typename T, bool kVec>
@@ -302,6 +416,58 @@ int launch_apply(const ApplyArgs& args, unsigned grid, bool narrow, cudaStream_t
   else
     dropblock_apply_kernel<T, kVec, unsigned long long><<<grid, kApplyThreads, 0, stream>>>(args);
   return (int)cudaGetLastError();
+}
+
+// the device's SM count, or a negative CUDA error code
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err == cudaSuccess ? sms : -(int)err;
+}
+
+// the apply's unit: 16 bytes of channels where C * itemsize and both
+// pointers allow, else one element
+bool vector_units(const void* src, const void* dst, long long c, long long item) {
+  return c * item % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+}
+
+// 32-bit indices when no index the loop forms (below units + 2 * grid *
+// per_cta: the next round's loads) reaches 2^32
+bool narrow_index(long long units, long long grid) {
+  return units + 2 * grid * (long long)kApplyThreads * kApplyUnroll <= 0xffffffffLL;
+}
+
+// a cooperative launch of grid min(want, sms * min(kApplyCtasPerSm, the
+// CTAs of this kernel an SM holds with ``smem`` bytes)), the occupancy
+// asked of the runtime on every call
+template <typename T, bool kVec, typename Index>
+int launch_fused_as(FusedArgs args, long long want, int sms, size_t smem, cudaStream_t stream) {
+  const void* kernel = reinterpret_cast<const void*>(&dropblock_fused_kernel<T, kVec, Index>);
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                  kApplyThreads, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
+  if (err == cudaSuccess) {
+    const long long cap = (long long)sms * (per_sm < kApplyCtasPerSm ? per_sm : kApplyCtasPerSm);
+    const dim3 grid((unsigned)(want < cap ? want : cap));
+    void* params[] = {&args};
+    err = cudaLaunchCooperativeKernel(kernel, grid, dim3(kApplyThreads), params, smem, stream);
+  }
+  // a refused launch leaves its error as the last one: clear it so that no
+  // later launch reports it
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
+template <typename T, bool kVec>
+int launch_fused(const FusedArgs& args, long long want, int sms, size_t smem,
+                 cudaStream_t stream) {
+  // the index width from the largest grid the launch may take
+  if (narrow_index(args.apply.units, (long long)sms * kApplyCtasPerSm))
+    return launch_fused_as<T, kVec, uint32_t>(args, want, sms, smem, stream);
+  return launch_fused_as<T, kVec, unsigned long long>(args, want, sms, smem, stream);
 }
 
 }  // namespace
@@ -344,25 +510,57 @@ extern "C" int axcnn_dropblock_apply(const void* src, const void* mask, const vo
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const long long item = dtype == 1 ? 2 : 4;
-  const bool vec = c * item % 16 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  const bool vec = vector_units(src, dst, c, item);
   const long long per_pixel = vec ? c * item / 16 : c;
   const ApplyArgs args{src, static_cast<const float*>(mask), static_cast<const float*>(counts),
                        dst, numel, (int)n, (int)c, n * hw * per_pixel, per_pixel, backward != 0};
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms < 0) return -sms;
   const long long per_cta = (long long)kApplyThreads * kApplyUnroll;
   long long grid = (args.units + per_cta - 1) / per_cta;
   if (grid > (long long)sms * kApplyCtasPerSm) grid = (long long)sms * kApplyCtasPerSm;
-  // 32-bit indices when no index the loop forms (below units + 2 * grid *
-  // per_cta: the next round's loads) reaches 2^32
-  const bool narrow = args.units + 2 * grid * per_cta <= 0xffffffffLL;
+  const bool narrow = narrow_index(args.units, grid);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return vec ? launch_apply<__nv_bfloat16, true>(args, (unsigned)grid, narrow, st)
                : launch_apply<__nv_bfloat16, false>(args, (unsigned)grid, narrow, st);
   return vec ? launch_apply<float, true>(args, (unsigned)grid, narrow, st)
              : launch_apply<float, false>(args, (unsigned)grid, narrow, st);
+}
+
+// The forward apply of a fresh mask in one cooperative launch: src, dst
+// dense NHWC fp32 (dtype 0) or bf16 (dtype 1), (n, h, w, c); seeds (n,)
+// int32; writes mask (n, h, w) fp32 and counts (n,) fp32 as
+// axcnn_dropblock_mask does, and dst = (src * mask) * scale as
+// axcnn_dropblock_apply does. numel: n*h*w*c as fp32. Requires
+// h * w <= kWholeMapHW, 1 <= bs <= min(h, w), n and c < 2^31. A launch the
+// runtime refuses (cudaErrorCooperativeLaunchTooLarge or any other) returns
+// its code; nothing else is tried.
+extern "C" int axcnn_dropblock_fused(const void* src, const void* seeds, float gamma, void* dst,
+                                     void* mask, void* counts, int dtype, float numel,
+                                     long long n, long long h, long long w, long long c,
+                                     long long bs, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || c < 0 || h * w > kWholeMapHW || bs < 1 || bs > h ||
+      bs > w || n > 0x7fffffffLL || c > 0x7fffffffLL || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const long long item = dtype == 1 ? 2 : 4;
+  const bool vec = vector_units(src, dst, c, item);
+  const long long per_pixel = vec ? c * item / 16 : c;
+  const FusedArgs args{{src, static_cast<const float*>(mask), static_cast<const float*>(counts),
+                        dst, numel, (int)n, (int)c, n * h * w * per_pixel, per_pixel, false},
+                       static_cast<const int32_t*>(seeds), gamma, (int)h, (int)w, (int)bs};
+  const int sms = sm_count();
+  if (sms < 0) return -sms;
+  // one CTA a sample for the mask, or one a kApplyUnroll rounds of units,
+  // whichever is more; the launch caps it at what can be resident
+  const long long per_cta = (long long)kApplyThreads * kApplyUnroll;
+  const long long units_grid = (args.apply.units + per_cta - 1) / per_cta;
+  const long long want = units_grid > n ? units_grid : n;
+  const size_t smem = (size_t)(2 * h * w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return vec ? launch_fused<__nv_bfloat16, true>(args, want, sms, smem, st)
+               : launch_fused<__nv_bfloat16, false>(args, want, sms, smem, st);
+  return vec ? launch_fused<float, true>(args, want, sms, smem, st)
+             : launch_fused<float, false>(args, want, sms, smem, st);
 }

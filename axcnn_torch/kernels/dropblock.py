@@ -1,5 +1,5 @@
 """DropBlock: the CUDA kernels' wrappers, their plain versions, and the
-``torch.autograd.Function`` of the apply.
+``torch.autograd.Function``s of the apply and of the fused kernel.
 
 The kernels (``axcnn_torch/csrc/dropblock.cu``) replace the TPU kernel
 ``axcnn/pallas/dropblock.py:dropblock_mask_pallas`` and the apply that
@@ -10,17 +10,22 @@ the (N,) fp32 per-sample keep counts. A pixel's uniform comes from the top
 applied twice; block centres are drawn in the valid region and expanded by a
 separable ``bs``-tap max, as in the reference. The apply kernel rescales a
 channels_last activation by the mask and ``numel / (max(sum(counts), 1) * C)``,
-forward ``(x * m) * s`` and backward ``(g * s) * m``, in fp32, cast once.
+forward ``(x * m) * s`` and backward ``(g * s) * m``, in fp32, cast once. The
+fused kernel does both forward in one cooperative launch: it draws the mask
+and counts as the mask kernel does, waits at a grid-wide barrier, then
+applies them as the apply kernel does, for the maps ``fused_route`` takes.
 
 ``dropblock_mask_reference`` computes the same hash with torch integer ops,
 so kernel and plain version agree bit for bit. Given ``uniforms`` it uses
 those instead: the hook through which the CPU tests hand in the reference's
 own random draws. ``dropblock_apply_reference`` and
 ``dropblock_apply_bwd_reference`` are the apply's plain versions (the second
-is autograd through the first). ``LAUNCHES`` counts the mask kernel's
-launches, ``APPLY_LAUNCHES`` and ``APPLY_BWD_LAUNCHES`` the apply kernel's by
-direction, and ``APPLY_NOT_CHANNELS_LAST`` the apply calls whose tensor was
-not channels_last-contiguous and so was copied first.
+is autograd through the first); ``dropblock_fused_reference``, the two plain
+versions in turn, is the fused kernel's. ``LAUNCHES`` counts the mask
+kernel's launches, ``APPLY_LAUNCHES`` and ``APPLY_BWD_LAUNCHES`` the apply
+kernel's by direction, ``FUSED_LAUNCHES`` the fused kernel's, and
+``APPLY_NOT_CHANNELS_LAST`` the apply and fused calls whose tensor was not
+channels_last-contiguous and so was copied first.
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ LAUNCHES = 0
 APPLY_LAUNCHES = 0
 APPLY_BWD_LAUNCHES = 0
 APPLY_NOT_CHANNELS_LAST = 0
+FUSED_LAUNCHES = 0
+# the fused kernel holds a sample's two byte maps, 2 * H * W bytes, in shared
+# memory: the maps of the whole-map mask kernel (kWholeMapHW in dropblock.cu)
+FUSED_MAX_HW = 16384
 MAX_INT32 = 2 ** 31 - 1  # the kernels index pixels (mask), samples and channels (apply) with ints
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +54,9 @@ MASK_ARGTYPES = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void
 # (src, mask, counts, dst, dtype, numel, n, hw, c, backward, stream)
 APPLY_ARGTYPES = [*[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_float,
                   *[ctypes.c_longlong] * 3, ctypes.c_int, ctypes.c_void_p]
+# (src, seeds, gamma, dst, mask, counts, dtype, numel, n, h, w, c, bs, stream)
+FUSED_ARGTYPES = [*[ctypes.c_void_p] * 2, ctypes.c_float, *[ctypes.c_void_p] * 3, ctypes.c_int,
+                  ctypes.c_float, *[ctypes.c_longlong] * 5, ctypes.c_void_p]
 
 _M32 = 0xFFFFFFFF
 
@@ -131,6 +143,25 @@ def dropblock_apply_bwd_reference(g: torch.Tensor, mask: torch.Tensor,
     return (g.float() * scale * mask[:, None]).to(g.dtype)
 
 
+def dropblock_fused_reference(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size: int,
+                              uniforms: torch.Tensor | None = None):
+    """The fused kernel's plain version: the plain mask, then the plain
+    apply; ``(y, mask, counts)``."""
+    _, _, h, w = x.shape
+    mask, counts = dropblock_mask_reference(seeds, gamma, h, w, block_size, uniforms)
+    return dropblock_apply_reference(x, mask, counts), mask, counts
+
+
+def fused_route(h: int, w: int) -> bool:
+    """Whether a site of H x W pixels takes the fused kernel on the card:
+    ``H * W <= FUSED_MAX_HW`` (16,384 pixels), so a sample's two byte maps
+    fit shared memory. The presets' 14x14 and 7x7 maps are far inside. A
+    larger map takes two launches: the mask kernel (its tiled form), then
+    the apply kernel. The route follows from the shape alone, before any
+    launch; it is never a fallback on failure."""
+    return h * w <= FUSED_MAX_HW
+
+
 def dropblock_mask_cuda(seeds: torch.Tensor, gamma, h: int, w: int,
                         block_size: int):
     """Launch the mask kernel; raise on anything it does not take. It
@@ -158,13 +189,24 @@ def dropblock_mask_cuda(seeds: torch.Tensor, gamma, h: int, w: int,
     return mask, counts
 
 
+def _check_activation(x: torch.Tensor, fn: str) -> None:
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn} takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{fn} takes NCHW, got shape {tuple(x.shape)}")
+
+
+def _check_int_sizes(x: torch.Tensor, kernel: str) -> None:
+    n, c = x.shape[:2]
+    if max(n, c) > MAX_INT32:
+        raise ValueError(f"the DropBlock {kernel} kernel takes N and C <= {MAX_INT32} (ints in "
+                         f"the kernel), got N={n}, C={c}")
+
+
 def _check_apply_args(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor) -> None:
     """Raise on what the apply kernel does not take: type, shape and size
     first, then the device."""
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"dropblock_apply_cuda takes float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 4:
-        raise ValueError(f"dropblock_apply_cuda takes NCHW, got shape {tuple(x.shape)}")
+    _check_activation(x, "dropblock_apply_cuda")
     n, _, h, w = x.shape
     if mask.dtype != torch.float32 or tuple(mask.shape) != (n, h, w):
         raise ValueError(f"mask must be ({n}, {h}, {w}) float32, got {mask.dtype} "
@@ -172,13 +214,20 @@ def _check_apply_args(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor)
     if counts.dtype != torch.float32 or tuple(counts.shape) != (n,):
         raise ValueError(f"counts must be ({n},) float32, got {counts.dtype} "
                          f"{tuple(counts.shape)}")
-    if max(n, x.shape[1]) > MAX_INT32:
-        raise ValueError(f"the DropBlock apply kernel takes N and C <= {MAX_INT32} (ints in "
-                         f"the kernel), got N={n}, C={x.shape[1]}")
+    _check_int_sizes(x, "apply")
     for t in (x, mask, counts):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"dropblock_apply_cuda needs CUDA tensors on one device, got "
                              f"{x.device}, {mask.device}, {counts.device}")
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in channels_last, copied (and counted) where it is not."""
+    global APPLY_NOT_CHANNELS_LAST
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return x
+    APPLY_NOT_CHANNELS_LAST += 1
+    return x.contiguous(memory_format=torch.channels_last)
 
 
 def dropblock_apply_cuda(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor, *,
@@ -189,11 +238,9 @@ def dropblock_apply_cuda(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tens
     that layout first. The result is channels_last. Launches on the current
     stream of the calling thread, which for autograd is its backward
     thread."""
-    global APPLY_LAUNCHES, APPLY_BWD_LAUNCHES, APPLY_NOT_CHANNELS_LAST
+    global APPLY_LAUNCHES, APPLY_BWD_LAUNCHES
     _check_apply_args(x, mask, counts)
-    if not x.is_contiguous(memory_format=torch.channels_last):
-        APPLY_NOT_CHANNELS_LAST += 1
-        x = x.contiguous(memory_format=torch.channels_last)
+    x = _channels_last(x)
     mask, counts = mask.contiguous(), counts.contiguous()
     y = torch.empty_like(x, memory_format=torch.channels_last)
     if x.numel() == 0:
@@ -212,6 +259,47 @@ def dropblock_apply_cuda(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tens
     return y
 
 
+def dropblock_fused_cuda(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size: int):
+    """Launch the fused kernel: draw the keep-mask of ``seeds`` at rate
+    ``gamma`` and apply it forward, ``(x * m) * s``, in one cooperative
+    launch. Returns ``(y, mask, counts)``, bit for bit what the mask kernel
+    and then the apply kernel give; ``y`` is channels_last. Takes the maps
+    of ``fused_route`` (H * W <= FUSED_MAX_HW) and raises on a larger one:
+    the caller chooses the route from the shape. A tensor that is not
+    channels_last-contiguous is counted in ``APPLY_NOT_CHANNELS_LAST`` and
+    copied first, as the apply does. Raises on anything the kernel does not
+    take (type, shape and size first, then the device) and on a launch the
+    runtime refuses; nothing else is tried."""
+    global FUSED_LAUNCHES
+    _check_activation(x, "dropblock_fused_cuda")
+    n, c, h, w = x.shape
+    if seeds.dtype != torch.int32 or tuple(seeds.shape) != (n,):
+        raise TypeError(f"seeds must be ({n},) int32, got {seeds.dtype} {tuple(seeds.shape)}")
+    check_mask_args(h, w, block_size)
+    if not fused_route(h, w):
+        raise ValueError(f"the fused DropBlock kernel takes H*W <= {FUSED_MAX_HW}, got {h}x{w}: "
+                         "a larger map takes the mask kernel, then the apply kernel")
+    _check_int_sizes(x, "fused")
+    if x.device.type != "cuda" or seeds.device != x.device:
+        raise ValueError(f"dropblock_fused_cuda needs CUDA tensors on one device, got "
+                         f"{x.device}, {seeds.device}")
+    x, seeds = _channels_last(x), seeds.contiguous()
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    mask = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
+    counts = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return y, mask, counts
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = entry("axcnn_dropblock_fused", FUSED_ARGTYPES)(
+        x.data_ptr(), seeds.data_ptr(), float(gamma), y.data_ptr(), mask.data_ptr(),
+        counts.data_ptr(), _DTYPE_CODES[x.dtype], float(x.numel()), n, h, w, c, block_size,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"axcnn_dropblock_fused failed: CUDA error {err}")
+    FUSED_LAUNCHES += 1
+    return y, mask, counts
+
+
 class DropBlockApply(torch.autograd.Function):
     """The apply kernel with itself, in backward order, as its gradient (the
     apply of ``dropblock_pallas``, which XLA differentiated). Only the mask
@@ -226,3 +314,20 @@ class DropBlockApply(torch.autograd.Function):
     def backward(ctx, g):
         mask, counts = ctx.saved_tensors
         return dropblock_apply_cuda(g, mask, counts, backward=True), None, None
+
+
+class DropBlockFused(torch.autograd.Function):
+    """The fused kernel forward (mask and apply in one launch), the apply
+    kernel in backward order as its gradient. Only the mask and the counts
+    are saved; the scale is formed again in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, seeds, gamma, block_size):
+        y, mask, counts = dropblock_fused_cuda(x, seeds, gamma, block_size)
+        ctx.save_for_backward(mask, counts)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, counts = ctx.saved_tensors
+        return dropblock_apply_cuda(g, mask, counts, backward=True), None, None, None

@@ -11,11 +11,13 @@ default). The drop rate, block size and rescale are the reference's:
 with gamma and the keep-prob schedule computed on the host in fp32, in the
 reference's order of operations. The device decides the route: a CPU tensor
 takes the plain versions (``dropblock_mask_reference``, then
-``dropblock_apply_reference`` under autograd); a CUDA tensor takes the mask
-kernel, then the apply kernel through ``DropBlockApply``, whose backward is
-the apply kernel in backward order. On the card a site's device work is the
-seeds' copy, the mask kernel and one apply launch each way. In eval
-DropBlock is the identity.
+``dropblock_apply_reference`` under autograd). A CUDA tensor whose map
+``fused_route`` takes (H*W <= 16,384 pixels: every preset's site) takes the
+fused kernel through ``DropBlockFused``: one cooperative launch draws the
+mask and applies it; a larger map takes the mask kernel, then the apply
+kernel through ``DropBlockApply``. Either way the backward is the apply
+kernel in backward order. On the card a preset's site's device work is the
+seeds' copy and one launch each way. In eval DropBlock is the identity.
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from axcnn_torch.kernels.dropblock import (DropBlockApply, dropblock_apply_reference,
-                                           dropblock_mask_cuda, dropblock_mask_reference)
+from axcnn_torch.kernels.dropblock import (DropBlockApply, DropBlockFused,
+                                           dropblock_apply_reference, dropblock_mask_cuda,
+                                           dropblock_mask_reference, fused_route)
 
 
 def dropblock_keep_prob(progress, final_keep_prob: float) -> np.float32:
@@ -61,5 +64,7 @@ def dropblock(x, seeds, *, keep_prob, block_size: int = 7, train: bool,
         return dropblock_apply_reference(x, mask, counts)
     if uniforms is not None:
         raise ValueError("uniforms are taken on the plain (CPU) path only")
+    if fused_route(h, w):
+        return DropBlockFused.apply(x, seeds, gamma, bs)
     mask, counts = dropblock_mask_cuda(seeds, gamma, h, w, bs)
     return DropBlockApply.apply(x, mask, counts)

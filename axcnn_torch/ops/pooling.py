@@ -42,6 +42,36 @@ def avg_pool_same(x, *, window=2, stride=2):
     return (summed / counts).to(x.dtype)
 
 
+class _GlobalAvgPool(torch.autograd.Function):
+    """``x.float().mean((2, 3)).to(x.dtype)`` whose backward writes the
+    gradient in the input's memory format. Autograd's own backward of the
+    mean is NCHW-dense whatever the input's layout, so a channels_last
+    consumer (the DropBlock apply before the head) had to copy it. The
+    gradient is autograd's bit for bit: the cotangent cast to the mean's
+    type, divided by H*W with the same op, cast back, broadcast."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x32 = x.float()
+        ctx.shape, ctx.dtype, ctx.acc = x.shape, x.dtype, x32.dtype
+        ctx.memory_format = (torch.channels_last
+                             if x.is_contiguous(memory_format=torch.channels_last)
+                             else torch.contiguous_format)
+        return x32.mean(dim=(2, 3)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, c, h, w = ctx.shape
+        dx = torch.empty(ctx.shape, dtype=ctx.dtype, device=g.device,
+                         memory_format=ctx.memory_format)
+        return dx.copy_((g.to(ctx.acc) / (h * w)).to(ctx.dtype)[:, :, None, None]
+                        .expand(n, c, h, w))
+
+
 def global_avg_pool(x):
-    """Mean over H, W in fp32, cast back to the input dtype: (N, C)."""
+    """Mean over H, W in fp32, cast back to the input dtype: (N, C). Its
+    gradient keeps the input's memory format. Where no gradient is recorded
+    (serving, eval) it is the plain mean, without the Function's host cost."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GlobalAvgPool.apply(x)
     return x.float().mean(dim=(2, 3)).to(x.dtype)

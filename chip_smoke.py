@@ -22,49 +22,60 @@ points and checks them:
    at batch 128, at C = 8, 6 and 4 (the per-element route where C * itemsize
    is not a multiple of 16 bytes) and at a misaligned storage offset, and
    its autograd Function against autograd through the plain apply; the
-   DropBlock op (mask, apply and its gradient) at sites past the kernels'
-   old limits: 2x160x160x64 bf16 (H*W = 25,600) and 400x245x245x4 fp32
-   (N*H*W and the kept count past 2^24);
-4. kernel_time: each kernel, its plain version and (BlurPool) the cuDNN call
+   fused DropBlock kernel (mask and forward apply in one cooperative launch)
+   against the plain mask then the plain apply, bit for bit (NaNs included),
+   at the R50 sites at batch 128, at N = 1, at N = 1,500 (past the
+   cooperative grid), at C = 6 and at a misaligned offset, fp32 and bf16,
+   its mask and counts against the mask kernel's, and its autograd Function
+   against autograd through the plain versions;
+4. big_sites: the DropBlock op (mask, apply and its gradient) at sites past
+   the fused kernel's line and the kernels' old limits: 2x160x160x64 bf16
+   (H*W = 25,600) and 400x245x245x4 fp32 (N*H*W and the kept count past
+   2^24), bit for bit; the path on which the standalone mask kernel and the
+   forward apply launch (2 + 2 + 2 launches);
+5. kernel_time: each kernel, its plain version and (BlurPool) the cuDNN call
    for the same function, and (BlurPool, the apply) a device copy of the
    same bytes, at batch 128, bf16, beside its bound (bytes over the card's
    memory rate or operations over its fp32 rate), the BlurPool kernels and
    the apply on inputs rotated through 256 MB so they read device memory;
-   each of these kernels' output on the timed input is held bit for bit
-   against its plain version's;
-5. serve: ``axcnn_torch.cli.predict.main`` with --config=assemble_resnet50
+   the fused kernel beside the mask kernel then the apply (the two
+   launches it replaces) and the apply alone, in the same run; each of
+   these kernels' output on the timed input is held bit for bit against its
+   plain version's;
+6. serve: ``axcnn_torch.cli.predict.main`` with --config=assemble_resnet50
    (full width, 1001 classes, 224x224, bf16) on 1, 8 and 32 generated JPEGs;
    every request must print a well-formed top-5 line per image and launch
    the forward kernel exactly 3 times (the stride-2 block of stages 2-4);
-6. parity: a seeded full-width assembled R50 with perturbed BN, on the card
+7. parity: a seeded full-width assembled R50 with perturbed BN, on the card
    through the kernel against the CPU through the plain version;
-7. throughput: served images/s at batch 128 in bf16;
-8. train: ``axcnn_torch.cli.main_classification.main`` with the assembled
+8. throughput: served images/s at batch 128 in bf16;
+9. train: ``axcnn_torch.cli.main_classification.main`` with the assembled
    preset at full width, batch 128, bf16, on synthetic data; every logged
-   loss finite, the kernels launched 3 + 3 + 9 + 9 + 9 times per step
-   (BlurPool forward and backward, DropBlock mask, apply forward and
-   backward; plus the end-of-run eval's forwards), all BlurPool launches on
-   the TMA route; step time, images/s, peak memory, and the calls whose
-   tensor was not channels_last (BlurPool backward, DropBlock apply);
-9. train_parity: one full-width train step in fp32 (TF32 off), batch 4,
+   loss finite, the kernels launched 3 + 3 + 9 + 9 times per step
+   (BlurPool forward and backward, the fused DropBlock kernel, the apply
+   backward; no standalone mask or forward apply; plus the end-of-run eval's
+   forwards), all BlurPool launches on the TMA route, no DropBlock tensor
+   copied into channels_last; step time, images/s, peak memory, and the
+   calls whose tensor was not channels_last (BlurPool backward, DropBlock);
+10. train_parity: one full-width train step in fp32 (TF32 off), batch 4,
    with DropBlock and mixup active, on the card through the kernels against
    the CPU through the plain versions, from the same state and seeds;
-10. checkpoint: a full-width assembled R50 state after 3 b128 bf16 steps is
+11. checkpoint: a full-width assembled R50 state after 3 b128 bf16 steps is
     saved and restored into a fresh state; every tensor must come back bit
     for bit with the fresh state's strides; save and restore seconds, MB;
-11. resume: the training CLI at full width, b128, bf16, 5 steps with a
+12. resume: the training CLI at full width, b128, bf16, 5 steps with a
     checkpoint at step 5, the hang watchdog armed and steps 1-2 profiled,
     then the same command to 10 steps: it must log ``restore`` at step 5,
-    only finite losses, 3 + 3 + 9 + 9 + 9 launches per step, and a trace;
-12. serve_ckpt: ``predict`` on what the resumed run saved; its top-5 lines
+    only finite losses, 3 + 3 + 9 + 9 launches per step, and a trace;
+13. serve_ckpt: ``predict`` on what the resumed run saved; its top-5 lines
     must equal those of the restored state's own EMA ``eval_logits``;
-13. kd: the training CLI with ``--config=assemble_resnet152_kd`` at full
+14. kd: the training CLI with ``--config=assemble_resnet152_kd`` at full
     width, the resumed R50 run as the teacher, global batch 1024 as 8
     micro-batches of 128, bf16, 3 steps; finite losses, the launches per
     step (per micro-batch: the student's 3 forward and 3 backward BlurPool
-    launches, the teacher's 3 forward launches, 39 DropBlock masks and 39
-    applies each way), step time, images/s and peak memory;
-14. dp: two ranks on card 0, joined over Gloo (NCCL takes one rank per
+    launches, the teacher's 3 forward launches, 39 fused DropBlock launches
+    and 39 apply backwards), step time, images/s and peak memory;
+15. dp: two ranks on card 0, joined over Gloo (NCCL takes one rank per
     card: the test's topology, not a route of the program), each with 64
     images of a b128 batch. One fp32 step (TF32 off, DropBlock at keep-prob
     1.0, mixup off) of the two ranks against one single-process b128 step
@@ -72,13 +83,14 @@ points and checks them:
     ``train_parity`` holds the card; then one step with DropBlock and mixup
     active: finite losses, the ranks' parameters equal element for
     element, the kernels' launches on each rank;
-15. remat: one b128 bf16 step with ``model.remat=blocks`` beside one
+16. remat: one b128 bf16 step with ``model.remat=blocks`` beside one
     without, from the same state and batch: the BN moving statistics alike
     (printed), BlurPool's forward launched 6 times (3 by the replay), the
-    DropBlock kernels 9 times each way; then the training CLI with
-    ``--model.remat=blocks`` at full width, b128, bf16, 5 steps: finite
-    losses, the launches per step, peak memory beside the run without;
-16. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
+    DropBlock kernels 9 times each way (fused, apply backward); then the
+    training CLI with ``--model.remat=blocks`` at full width, b128, bf16, 5
+    steps: finite losses, the launches per step, peak memory beside the run
+    without;
+17. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
     card, NCCL), global b256, bf16, 10 steps: finite losses, img/s per card
     and in total. On a machine with one card it prints ``"ran": false``.
 
@@ -125,6 +137,11 @@ MASK_TIME_SHAPES = MASK_SHAPES[:2]
 APPLY_TIME_SHAPES = [(TIME_BATCH, 14, 14, 1024), (TIME_BATCH, 7, 7, 2048)]
 APPLY_CHECK_SHAPES = APPLY_TIME_SHAPES + [(4, 15, 17, 8), (4, 15, 17, 6), (4, 15, 17, 4)]
 APPLY_MISALIGNED_SHAPE = (2, 14, 14, 64)
+APPLY_GAMMA = 0.1
+# the fused kernel, NHWC: the R50 sites at batch 128; N = 1; N past the
+# cooperative grid (7x7x8: one CTA's units cover many samples); C = 6, the
+# per-element route
+FUSED_CHECK_SHAPES = APPLY_TIME_SHAPES + [(1, 14, 14, 1024), (1500, 7, 7, 8), (4, 15, 17, 6)]
 # the DropBlock op past the kernels' old limits (H*W <= 16,384, N*H*W <= 2^24):
 # (NHWC, dtype, block size)
 BIG_SITES = [((2, 160, 160, 64), torch.bfloat16, 7), ((400, 245, 245, 4), torch.float32, 7)]
@@ -255,18 +272,20 @@ def _seeds(n, gen):
 
 def _apply_inputs(shape, dtype, gen, offset=0, specials=True):
     """A channels_last NCHW input (NHWC ``shape``), with inf, -inf and NaN at
-    a dropped and at a kept pixel unless ``specials`` is false, and the mask
-    kernel's mask (drop rate 0.1) and counts for it."""
+    a dropped and at a kept pixel unless ``specials`` is false, its seeds,
+    and the mask kernel's mask (drop rate APPLY_GAMMA, block size up to 7)
+    and counts for them."""
     n, h, w, c = shape
     x = _nchw_input(shape, dtype, gen, offset)
-    mask, counts = kdrop.dropblock_mask_cuda(_seeds(n, gen), 0.1, h, w, min(7, h, w))
+    seeds = _seeds(n, gen)
+    mask, counts = kdrop.dropblock_mask_cuda(seeds, APPLY_GAMMA, h, w, min(7, h, w))
     for keep in (0.0, 1.0):
         hit = (mask == keep).nonzero() if specials else []
         if len(hit):
             s, r, col = hit[0].tolist()
             x[s, :3, r, col] = torch.tensor([float("inf"), -float("inf"), float("nan")],
                                             device="cuda")[:c].to(dtype)
-    return x, mask, counts
+    return x, seeds, mask, counts
 
 
 def _apply_fns(mask, counts, backward):
@@ -284,7 +303,7 @@ def _apply_fns(mask, counts, backward):
 def kernel_check_phase():
     """Each kernel against its plain version; returns max abs error by kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {"fwd": 0.0, "bwd": 0.0, "mask": 0.0, "apply": 0.0}
+    errs = {"fwd": 0.0, "bwd": 0.0, "mask": 0.0, "apply": 0.0, "fused": 0.0}
     routes = set()
 
     def check_route(kind, before, shape, dtype, want):
@@ -348,7 +367,7 @@ def kernel_check_phase():
                  expected=_expected_drop_fraction(h, w, bs, gamma))
     for shape, offset in [(s, 0) for s in APPLY_CHECK_SHAPES] + [(APPLY_MISALIGNED_SHAPE, 1)]:
         for dtype in (torch.float32, torch.bfloat16):
-            x, mask, counts = _apply_inputs(shape, dtype, gen, offset)
+            x, _, mask, counts = _apply_inputs(shape, dtype, gen, offset)
             case = f"{dtype}, offset {offset}" if offset else dtype
             for backward in (False, True):
                 kernel, plain = _apply_fns(mask, counts, backward)
@@ -368,37 +387,86 @@ def kernel_check_phase():
                                           x2, g)
             torch.cuda.synchronize()
             _check_equal("DropBlockApply.backward", shape, dtype, got, want, bits=True)
-    for shape, dtype, bs in BIG_SITES:
-        errs["mask"], errs["apply"] = _check_big_site(shape, dtype, bs, gen, errs)
+    for shape, offset in [(s, 0) for s in FUSED_CHECK_SHAPES] + [(APPLY_MISALIGNED_SHAPE, 1)]:
+        n, h, w, c = shape
+        bs = min(7, h, w)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, seeds, mask, counts = _apply_inputs(shape, dtype, gen, offset)
+            case = f"{dtype}, offset {offset}" if offset else dtype
+            y, got_m, got_c = kdrop.dropblock_fused_cuda(x, seeds, APPLY_GAMMA, bs)
+            torch.cuda.synchronize()
+            assert y.is_contiguous(memory_format=torch.channels_last)
+            want_y, want_m, want_c = kdrop.dropblock_fused_reference(x, seeds, APPLY_GAMMA, bs)
+            errs["fused"] = max(errs["fused"], _check_equal(
+                "dropblock_fused", shape, case, y, want_y, bits=True))
+            # the mask and counts equal the mask kernel's and the plain mask's
+            for name, got, kernel, plain in (("mask", got_m, mask, want_m),
+                                             ("counts", got_c, counts, want_c)):
+                _check_equal(f"dropblock_fused.{name}", shape, f"{case}, vs mask kernel", got,
+                             kernel)
+                _check_equal(f"dropblock_fused.{name}", shape, f"{case}, vs plain", got, plain)
+            if shape != APPLY_TIME_SHAPES[0]:
+                continue
+            # the autograd Function against autograd through the plain versions
+            g = _nchw_input(shape, dtype, gen)
+            x1, x2 = x.detach().clone().requires_grad_(), x.detach().clone().requires_grad_()
+            (got,) = torch.autograd.grad(
+                kdrop.DropBlockFused.apply(x1, seeds, APPLY_GAMMA, bs), x1, g)
+            (want,) = torch.autograd.grad(
+                kdrop.dropblock_fused_reference(x2, seeds, APPLY_GAMMA, bs)[0], x2, g)
+            torch.cuda.synchronize()
+            _check_equal("DropBlockFused.backward", shape, dtype, got, want, bits=True)
     return errs
 
 
-def _check_big_site(shape, dtype, bs, gen, errs):
-    """The DropBlock op (mask kernel, apply kernel, its backward) at a site
-    past the kernels' old limits against the plain mask and autograd through
-    the plain apply, bit for bit; returns the largest mask and apply errors."""
+def big_sites_phase(errs):
+    """The DropBlock op past the fused kernel's line (H*W > 16,384: the mask
+    kernel, its tiled form, then the apply kernel each way) and past the
+    kernels' old limits, at BIG_SITES: the path on which the standalone mask
+    and forward apply launch. The counts are zeroed before the op's runs and
+    read after them, before the comparisons' own launches. Each site bit for
+    bit against the plain mask and autograd through the plain apply; errs
+    takes the largest mask and apply errors. Returns the path's counts."""
     from axcnn_torch.ops.dropblock import dropblock, dropblock_gamma
 
-    n, h, w, c = shape
-    x = _nchw_input(shape, dtype, gen).detach().requires_grad_()
-    g = _nchw_input(shape, dtype, gen)
-    seeds = _seeds(n, gen)
-    kp = 0.9
-    gamma = float(dropblock_gamma(kp, bs, h, w))
-    y = dropblock(x, seeds, keep_prob=kp, block_size=bs, train=True)
-    (dx,) = torch.autograd.grad(y, x, g)
-    mask, counts = kdrop.dropblock_mask_cuda(seeds, gamma, h, w, bs)
-    want_m, want_c = kdrop.dropblock_mask_reference(seeds, gamma, h, w, bs)
-    x2 = x.detach().clone().requires_grad_()
-    y2 = kdrop.dropblock_apply_reference(x2, want_m, want_c)
-    (dx2,) = torch.autograd.grad(y2, x2, g)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    kp, runs = 0.9, []
+    _zero_counts()
+    for shape, dtype, bs in BIG_SITES:
+        n, h, w, c = shape
+        assert not kdrop.fused_route(h, w), shape
+        x = _nchw_input(shape, dtype, gen).detach().requires_grad_()
+        g = _nchw_input(shape, dtype, gen)
+        seeds = _seeds(n, gen)
+        y = dropblock(x, seeds, keep_prob=kp, block_size=bs, train=True)
+        (dx,) = torch.autograd.grad(y, x, g)
+        runs.append((shape, dtype, bs, x, g, seeds, y, dx))
     torch.cuda.synchronize()
-    case = f"{dtype}, bs {bs}, kept {int(want_c.sum().item())}"
-    m = max(errs["mask"], _check_equal("dropblock_mask", shape, case, mask, want_m),
-            _check_equal("dropblock_mask.counts", shape, case, counts, want_c))
-    a = max(errs["apply"], _check_equal("dropblock_op_fwd", shape, case, y, y2, bits=True),
-            _check_equal("dropblock_op_bwd", shape, case, dx, dx2, bits=True))
-    return m, a
+    counts = _counts()
+    want = {"fwd": 0, "bwd": 0, "mask": len(BIG_SITES), "apply": len(BIG_SITES),
+            "apply_bwd": len(BIG_SITES), "fused": 0}
+    for shape, dtype, bs, x, g, seeds, y, dx in runs:
+        n, h, w, c = shape
+        gamma = float(dropblock_gamma(kp, bs, h, w))
+        mask, counts_k = kdrop.dropblock_mask_cuda(seeds, gamma, h, w, bs)
+        want_m, want_c = kdrop.dropblock_mask_reference(seeds, gamma, h, w, bs)
+        x2 = x.detach().clone().requires_grad_()
+        y2 = kdrop.dropblock_apply_reference(x2, want_m, want_c)
+        (dx2,) = torch.autograd.grad(y2, x2, g)
+        torch.cuda.synchronize()
+        case = f"{dtype}, bs {bs}, kept {int(want_c.sum().item())}"
+        errs["mask"] = max(errs["mask"],
+                           _check_equal("dropblock_mask", shape, case, mask, want_m),
+                           _check_equal("dropblock_mask.counts", shape, case, counts_k, want_c))
+        errs["apply"] = max(errs["apply"],
+                            _check_equal("dropblock_op_fwd", shape, case, y, y2, bits=True),
+                            _check_equal("dropblock_op_bwd", shape, case, dx, dx2, bits=True))
+        del x2, y2, dx2
+    emit("big_sites", sites=[list(s) for s, *_ in BIG_SITES], launches=counts, expected=want,
+         ok=counts == want)
+    if counts != want:
+        raise AssertionError(f"big sites launched {counts}, expected {want}")
+    return counts
 
 
 def _time_set(fns, xs, inputs=None):
@@ -459,7 +527,8 @@ def kernel_time_phase(errs):
     must equal its plain version's; ``errs`` takes the largest error."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set(),
-                  "library_ms": 0.0} for k in ("fwd", "bwd", "mask", "apply")}
+                  "library_ms": 0.0} for k in ("fwd", "bwd", "mask", "apply", "fused")}
+    totals["fused"]["pair_ms"] = 0.0
 
     def add(kind, k, p, bound, bound_by, lib):
         tot = totals[kind]
@@ -530,7 +599,7 @@ def kernel_time_phase(errs):
         add("mask", k, p, bound, bound_by, None)
     for shape in APPLY_TIME_SHAPES:
         n, h, w, c = shape
-        x, mask, counts = _apply_inputs(shape, torch.bfloat16, gen, specials=False)
+        x, _, mask, counts = _apply_inputs(shape, torch.bfloat16, gen, specials=False)
         xs = _rotating(x)
         elems = x.numel()
         # bf16 in and out once each, the fp32 mask and counts read once; two
@@ -557,6 +626,43 @@ def kernel_time_phase(errs):
                  rotating_inputs=len(xs), kernel_gb_per_s=nbytes / (k * 1e-3) / 1e9)
             add("apply", k, p, bound, bound_by, None)
         del xs, srcs
+    for shape in APPLY_TIME_SHAPES:
+        n, h, w, c = shape
+        bs = 7
+        x, seeds, mask, counts = _apply_inputs(shape, torch.bfloat16, gen, specials=False)
+        xs = _rotating(x)
+        elems = x.numel()
+        # bf16 in and out once each, the seeds read, the fp32 mask and counts
+        # written once; two fp32 multiplies per element and the mask's ops
+        nbytes = 2 * elems * x.element_size() + n * 4 + n * h * w * 4 + n * 4
+        ops = 2 * elems + n * h * w * (14 + 2 * bs)
+        bound, bound_by = _bound_us(nbytes, ops)
+        fns = {
+            "plain": lambda t: kdrop.dropblock_fused_reference(t, seeds, APPLY_GAMMA, bs),
+            "kernel": lambda t: kdrop.dropblock_fused_cuda(t, seeds, APPLY_GAMMA, bs),
+            # the two launches the fused kernel replaces, and the apply alone
+            "pair": lambda t: kdrop.dropblock_apply_cuda(
+                t, *kdrop.dropblock_mask_cuda(seeds, APPLY_GAMMA, h, w, bs)),
+            "apply": lambda t: kdrop.dropblock_apply_cuda(t, mask, counts)}
+        got, want = fns["kernel"](xs[0])[0], fns["plain"](xs[0])[0]
+        errs["fused"] = max(errs["fused"], _check_equal(
+            "dropblock_fused", shape, "bf16, timed input", got, want, bits=True))
+        del got, want
+        t = _time_set(fns, xs)
+        k, p, pair, alone = (t[n][0] for n in ("kernel", "plain", "pair", "apply"))
+        emit("kernel_time", kernel="fused", shape_nhwc=list(shape), dtype="bf16", bs=bs,
+             gamma=APPLY_GAMMA, kernel_us=k * 1e3, plain_us=p * 1e3, library_us=None,
+             mask_then_apply_us=pair * 1e3, apply_alone_us=alone * 1e3, bound_us=bound,
+             bound_by=bound_by, pct_of_bound=100 * bound / (k * 1e3),
+             pair_pct_of_bound=100 * bound / (pair * 1e3),
+             kernel_runs_us=[v * 1e3 for v in t["kernel"][1]],
+             plain_runs_us=[v * 1e3 for v in t["plain"][1]],
+             mask_then_apply_runs_us=[v * 1e3 for v in t["pair"][1]],
+             apply_alone_runs_us=[v * 1e3 for v in t["apply"][1]], bytes=nbytes, ops=ops,
+             rotating_inputs=len(xs), kernel_gb_per_s=nbytes / (k * 1e-3) / 1e9)
+        add("fused", k, p, bound, bound_by, None)
+        totals["fused"]["pair_ms"] += pair
+        del xs
     for tot in totals.values():
         tot["bound_by"] = "/".join(sorted(tot["bound_by"]))
     return totals
@@ -577,20 +683,23 @@ def _write_jpegs(directory, count):
 
 def _zero_counts():
     kblur.LAUNCHES = kblur.BWD_LAUNCHES = kdrop.LAUNCHES = 0
-    kdrop.APPLY_LAUNCHES = kdrop.APPLY_BWD_LAUNCHES = 0
+    kdrop.APPLY_LAUNCHES = kdrop.APPLY_BWD_LAUNCHES = kdrop.FUSED_LAUNCHES = 0
     kblur.BWD_G_NOT_CHANNELS_LAST = kdrop.APPLY_NOT_CHANNELS_LAST = 0
     kblur.ROUTES.update(dict.fromkeys(kblur.ROUTES, 0))
 
 
 def _counts():
     return {"fwd": kblur.LAUNCHES, "bwd": kblur.BWD_LAUNCHES, "mask": kdrop.LAUNCHES,
-            "apply": kdrop.APPLY_LAUNCHES, "apply_bwd": kdrop.APPLY_BWD_LAUNCHES}
+            "apply": kdrop.APPLY_LAUNCHES, "apply_bwd": kdrop.APPLY_BWD_LAUNCHES,
+            "fused": kdrop.FUSED_LAUNCHES}
 
 
 def _launches(fwd, bwd, sites):
     """Expected counts: BlurPool forward and backward launches, and
-    ``sites`` DropBlock sites (a mask and an apply each way at each)."""
-    return {"fwd": fwd, "bwd": bwd, "mask": sites, "apply": sites, "apply_bwd": sites}
+    ``sites`` DropBlock sites of the presets' maps (14x14, 7x7), each the
+    fused kernel forward and the apply backward; the standalone mask and
+    forward apply launch only past the fused line (``big_sites``)."""
+    return {"fwd": fwd, "bwd": bwd, "mask": 0, "apply": 0, "apply_bwd": sites, "fused": sites}
 
 
 def serve_phase():
@@ -765,6 +874,8 @@ def train_phase(smi):
          apply_not_channels_last=apply_not_cl, eval=metrics, seconds=seconds, card=smi)
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, expected {want}")
+    if apply_not_cl:
+        raise AssertionError(f"{apply_not_cl} DropBlock tensors were copied into channels_last")
     if routes["fwd_thread"] or routes["bwd_thread"]:
         raise AssertionError(f"the train path left the TMA route: {routes}")
     return counts, {"img_per_s": TIME_BATCH / step_s, "peak_gib": peak / 2 ** 30}
@@ -1281,6 +1392,8 @@ KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces
      "axcnn/pallas/dropblock.py:100"),
     ("apply", ("apply", "apply_bwd"), "dropblock_apply", "axcnn_torch/csrc/dropblock.cu",
      "axcnn/pallas/dropblock.py:135"),
+    ("fused", ("fused",), "dropblock_fused", "axcnn_torch/csrc/dropblock.cu",
+     "axcnn/pallas/dropblock.py:100"),
 )
 
 
@@ -1288,8 +1401,9 @@ def main():
     smi = device_phase()
     build_phase()
     errs = kernel_check_phase()
+    paths = {"big_sites": big_sites_phase(errs)}
     times = kernel_time_phase(errs)
-    paths = {"serve": serve_phase()}
+    paths["serve"] = serve_phase()
     parity_phase()
     throughput_phase(smi)
     paths["train"], single = train_phase(smi)
@@ -1306,7 +1420,7 @@ def main():
     for _, keys, name, *_ in KERNELS:
         for k in keys:
             if not any(counts[k] for counts in paths.values()):
-                raise AssertionError(f"{name} ({k}) was never launched on the main paths")
+                raise AssertionError(f"{name} ({k}) was never launched on the paths")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(counts[k] for counts in paths.values() for k in keys),

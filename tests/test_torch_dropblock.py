@@ -1,10 +1,12 @@
 """DropBlock's apply in the PyTorch port, held against the JAX reference on
 the CPU: the op's input gradient against ``jax.vjp`` of
 ``axcnn.ops.dropblock.dropblock``, the apply's plain backward against
-autograd through its plain forward, the rescale in fp32, the CPU route, and
-the apply kernel's wrapper refusing what the kernel does not take before it
-loads the library. The kernel itself is checked on the card in
-tests/test_torch_kernels.py.
+autograd through its plain forward, the fused kernel's plain version (the
+plain mask, then the plain apply) against the reference, the rescale in
+fp32, the CPU route, the card's route by map size (fused kernel or two
+launches), and the apply and fused kernels' wrappers refusing what the
+kernels do not take before they load the library. The kernels themselves
+are checked on the card in tests/test_torch_kernels.py.
 
 Inputs come from numpy seeds; the reference's own uniforms are handed to
 the port (``jax.random`` cannot be reproduced in torch).
@@ -18,6 +20,7 @@ import torch
 
 from axcnn.ops.dropblock import dropblock as j_dropblock
 from axcnn_torch.kernels import dropblock as kdrop
+from axcnn_torch.ops import dropblock as op_dropblock
 from axcnn_torch.ops.dropblock import dropblock, dropblock_gamma
 
 # the sizes of tests/test_torch_train_ops.py's DropBlock cases, and a map of
@@ -135,16 +138,17 @@ def test_scale_reference_sums_the_counts_exactly():
 
 def test_op_on_cpu_takes_the_plain_versions():
     """A CPU tensor takes the plain mask, the plain apply and autograd
-    through it; no kernel is launched."""
+    through it; no kernel is launched, fused or not."""
     n, h, w, c, bs, kp = 2, 14, 14, 8, 7, 0.8
     rng = np.random.default_rng(36)
     x = _nchw(rng.standard_normal((n, h, w, c)).astype(np.float32)).requires_grad_()
     g = _nchw(rng.standard_normal((n, h, w, c)).astype(np.float32))
     seeds = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int32)
-    before = (kdrop.LAUNCHES, kdrop.APPLY_LAUNCHES, kdrop.APPLY_BWD_LAUNCHES)
+    counters = ("LAUNCHES", "APPLY_LAUNCHES", "APPLY_BWD_LAUNCHES", "FUSED_LAUNCHES")
+    before = [getattr(kdrop, k) for k in counters]
     y = dropblock(x, seeds, keep_prob=kp, block_size=bs, train=True)
     (dx,) = torch.autograd.grad(y, x, g)
-    assert (kdrop.LAUNCHES, kdrop.APPLY_LAUNCHES, kdrop.APPLY_BWD_LAUNCHES) == before
+    assert [getattr(kdrop, k) for k in counters] == before
     mask, counts = kdrop.dropblock_mask_reference(
         torch.from_numpy(seeds), float(dropblock_gamma(kp, bs, h, w)), h, w, bs)
     assert torch.equal(y, kdrop.dropblock_apply_reference(x, mask, counts))
@@ -199,3 +203,148 @@ def test_apply_function_refuses_cpu_tensors():
     x, mask, counts = _apply_args()
     with pytest.raises(ValueError, match="CUDA tensors"):
         kdrop.DropBlockApply.apply(x.requires_grad_(), mask, counts)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,bs", DB_CASES[:3])
+def test_plain_fused_composition_matches_jax_vjp(shape, bs, dtype):
+    """The fused kernel's plain version (the plain mask, then the plain
+    apply), given the reference's uniforms, against
+    ``axcnn.ops.dropblock.dropblock`` and its ``jax.vjp`` at the maps the
+    fused route takes. Tolerance 0, as for the op."""
+    kp = 0.5
+    n, h, w, _ = shape
+    assert kdrop.fused_route(h, w)
+    key, u = _key_and_uniforms(shape, 37)
+    rng = np.random.default_rng(38)
+    x, g = rng.standard_normal(shape).astype(np.float32), rng.standard_normal(shape).astype(
+        np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want_y, vjp = jax.vjp(lambda a: j_dropblock(key, a, keep_prob=kp, block_size=bs, train=True),
+                          jnp.asarray(x, jdt))
+    (want_dx,) = vjp(jnp.asarray(g, jdt))
+    bs = min(bs, h, w)
+    gamma = float(dropblock_gamma(kp, bs, h, w))
+    xt = _nchw(x).to(tdt).requires_grad_()
+    y, mask, counts = kdrop.dropblock_fused_reference(
+        xt, torch.zeros(n, dtype=torch.int32), gamma, bs, uniforms=u)
+    (dx,) = torch.autograd.grad(y, xt, _nchw(g).to(tdt))
+    assert mask.shape == (n, h, w) and torch.equal(counts, mask.sum(dim=(1, 2)))
+    np.testing.assert_array_equal(_nhwc(y), np.asarray(want_y, np.float32))
+    np.testing.assert_array_equal(_nhwc(dx), np.asarray(want_dx, np.float32))
+    assert bool((dx == 0).any()) and bool((dx != 0).any())
+
+
+# (H, W) -> whether the card takes the fused kernel: the presets' 14x14 and
+# 7x7, the line itself (16,384 pixels), and maps past it
+ROUTES = [((14, 14), True), ((7, 7), True), ((1, 1), True), ((128, 128), True),
+          ((1, 16384), True), ((128, 129), False), ((160, 160), False), ((245, 245), False)]
+
+
+@pytest.mark.parametrize("hw,fused", ROUTES)
+def test_fused_route_by_map_size(hw, fused):
+    assert kdrop.fused_route(*hw) is fused
+
+
+def test_fused_line_is_the_kernel_source_line():
+    """FUSED_MAX_HW is the source's kWholeMapHW, the bound the fused entry
+    point enforces (a sample's two byte maps in shared memory)."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(kdrop.__file__).parents[1] / "csrc" / "dropblock.cu").read_text()
+    assert int(re.search(r"constexpr int kWholeMapHW = (\d+);", src).group(1)) == kdrop.FUSED_MAX_HW
+    entry = src[src.index('extern "C" int axcnn_dropblock_fused'):]
+    assert "h * w > kWholeMapHW" in entry[:entry.index("return")]
+
+
+class _Recorder:
+    """Stands in for a kernel wrapper or an autograd Function: records each
+    call's arguments (a tensor as its device and dtype) and returns the
+    input, or ``result``."""
+
+    def __init__(self, name, calls, result=None):
+        self.name, self.calls, self.result = name, calls, result
+
+    def _record(self, args):
+        self.calls.append((self.name, tuple((a.device.type, a.dtype) if torch.is_tensor(a)
+                                            else a for a in args)))
+
+    def apply(self, *args):
+        self._record(args)
+        return args[0]
+
+    def __call__(self, *args):
+        self._record(args)
+        return self.result
+
+
+@pytest.mark.parametrize("hw,fused", ROUTES[:2] + ROUTES[5:7])
+def test_op_routes_card_tensors_by_map_size(hw, fused, monkeypatch):
+    """A tensor off the CPU takes the fused Function at maps within the line
+    and the mask kernel, then the apply Function, past it; with the same
+    gamma and block size either way. (A meta tensor stands in for a CUDA
+    one: the route is chosen before anything launches.)"""
+    h, w = hw
+    calls = []
+    monkeypatch.setattr(op_dropblock, "DropBlockFused", _Recorder("fused", calls))
+    monkeypatch.setattr(op_dropblock, "DropBlockApply", _Recorder("apply", calls))
+    monkeypatch.setattr(op_dropblock, "dropblock_mask_cuda",
+                        _Recorder("mask", calls, result=("mask", "counts")))
+    x = torch.empty(2, 8, h, w, device="meta")
+    y = dropblock(x, np.array([5, 6], np.int32), keep_prob=0.9, block_size=7, train=True)
+    bs = min(7, h, w)
+    gamma = float(dropblock_gamma(0.9, bs, h, w))
+    assert y is x
+    xt, seeds = ("meta", torch.float32), ("meta", torch.int32)
+    if fused:
+        assert calls == [("fused", (xt, seeds, gamma, bs))]
+    else:
+        assert calls == [("mask", (seeds, gamma, h, w, bs)), ("apply", (xt, "mask", "counts"))]
+
+
+def _fused_args(n=2, c=8, h=6, w=6, dtype=torch.float32, seeds_dtype=torch.int32,
+                seeds_n=None):
+    return (torch.zeros(n, c, h, w, dtype=dtype),
+            torch.zeros(n if seeds_n is None else seeds_n, dtype=seeds_dtype), 0.1, 3)
+
+
+def _too_many_samples():
+    """N = 2**31 one-pixel samples, as views of one element."""
+    n = 2 ** 31
+    return (torch.zeros(1, 1, 1, 1).expand(n, 1, 1, 1),
+            torch.zeros(1, dtype=torch.int32).expand(n), 0.1, 1)
+
+
+FUSED_REFUSALS = {  # case -> (the wrapper's arguments, the exception, its message)
+    "cpu_tensor": (_fused_args, ValueError, "CUDA tensors"),
+    "float64": (lambda: _fused_args(dtype=torch.float64), TypeError, "float32 or bfloat16"),
+    "float16": (lambda: _fused_args(dtype=torch.float16), TypeError, "float32 or bfloat16"),
+    "not_4d": (lambda: (torch.zeros(2, 8, 36),) + _fused_args()[1:], ValueError, "NCHW"),
+    "seeds_int64": (lambda: _fused_args(seeds_dtype=torch.int64), TypeError, "seeds must be"),
+    "seeds_count": (lambda: _fused_args(seeds_n=3), TypeError, "seeds must be"),
+    "block_size": (lambda: _fused_args()[:3] + (7,), ValueError, "block_size"),
+    "past_the_line": (lambda: _fused_args(h=160, w=160), ValueError, "H\\*W <= 16384"),
+    "too_many_samples": (_too_many_samples, ValueError, r"N and C <= 2147483647"),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED_REFUSALS))
+def test_fused_wrapper_refuses_before_loading_the_library(case, monkeypatch):
+    from axcnn_torch.kernels import build
+
+    def no_load():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(build, "load_library", no_load)
+    make_args, exc, match = FUSED_REFUSALS[case]
+    before = (kdrop.FUSED_LAUNCHES, kdrop.APPLY_NOT_CHANNELS_LAST)
+    with pytest.raises(exc, match=match):
+        kdrop.dropblock_fused_cuda(*make_args())
+    assert (kdrop.FUSED_LAUNCHES, kdrop.APPLY_NOT_CHANNELS_LAST) == before
+
+
+def test_fused_function_refuses_cpu_tensors():
+    x, seeds, gamma, bs = _fused_args()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kdrop.DropBlockFused.apply(x.requires_grad_(), seeds, gamma, bs)

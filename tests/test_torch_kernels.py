@@ -178,6 +178,7 @@ ENTRIES = {  # C entry point -> (its source, the argtypes its wrapper sets)
     "axcnn_blur_pool3_s2_bwd": ("blurpool.cu", kblur.ENTRY_ARGTYPES),
     "axcnn_dropblock_mask": ("dropblock.cu", kdrop.MASK_ARGTYPES),
     "axcnn_dropblock_apply": ("dropblock.cu", kdrop.APPLY_ARGTYPES),
+    "axcnn_dropblock_fused": ("dropblock.cu", kdrop.FUSED_ARGTYPES),
 }
 
 
@@ -341,8 +342,8 @@ def test_mask_kernel_matches_reference_on_card(h, w, bs, gamma):
 
 @pytest.mark.cuda
 def test_dropblock_op_on_card_matches_cpu():
-    """The op on the card (mask and apply kernels) equals the op on the CPU
-    (plain versions) bit for bit, from the same seeds."""
+    """The op on the card (the fused kernel) equals the op on the CPU (plain
+    versions) bit for bit, from the same seeds."""
     _cuda()
     x = _nchw((8, 14, 14, 64), 24)
     seeds = np.random.default_rng(25).integers(-2 ** 31, 2 ** 31, 8, dtype=np.int32)
@@ -354,9 +355,9 @@ def test_dropblock_op_on_card_matches_cpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dropblock_op_gradient_on_card_matches_cpu(dtype):
-    """Output and input gradient of the op on the card (mask kernel, apply
-    kernel both ways) equal the op's on the CPU (plain versions under
-    autograd) bit for bit, from the same seeds."""
+    """Output and input gradient of the op on the card (the fused kernel
+    forward, the apply kernel backward) equal the op's on the CPU (plain
+    versions under autograd) bit for bit, from the same seeds."""
     _cuda()
     shape = (8, 14, 14, 64)
     x, g = _nchw(shape, 26, dtype=dtype), _nchw(shape, 27, dtype=dtype)
@@ -375,8 +376,8 @@ def test_dropblock_op_gradient_on_card_matches_cpu(dtype):
 @pytest.mark.cuda
 def test_dropblock_op_runs_only_its_kernels_on_card():
     """Under ``torch.profiler`` the op's forward puts on the card only the
-    seeds' copy, the mask kernel and the apply kernel, and its backward only
-    the apply kernel."""
+    seeds' copy and the fused kernel, and its backward only the apply
+    kernel."""
     _cuda()
     from torch.profiler import ProfilerActivity, profile
 
@@ -401,11 +402,11 @@ def test_dropblock_op_runs_only_its_kernels_on_card():
 
     def kinds(prof):
         names = [e.name for e in device_events(prof)]
-        keys = ("Memcpy HtoD", "dropblock_mask_kernel", "dropblock_apply_kernel")
+        keys = ("Memcpy HtoD", "dropblock_fused_kernel", "dropblock_apply_kernel")
         assert all(any(k in n for k in keys) for n in names), names
         return sorted(next(k for k in keys if k in n) for n in names)
 
-    assert kinds(prof_fwd) == ["Memcpy HtoD", "dropblock_apply_kernel", "dropblock_mask_kernel"]
+    assert kinds(prof_fwd) == ["Memcpy HtoD", "dropblock_fused_kernel"]
     assert kinds(prof_bwd) == ["dropblock_apply_kernel"]
 
 
@@ -454,8 +455,9 @@ def _bits(t):
 
 def _apply_inputs(shape_nhwc, seed, device, dtype, offset=0):
     """A channels_last input with inf, -inf and NaN at a dropped and at a
-    kept pixel, and a hashed mask (drop rate 0.1, block size up to 7) with
-    its counts. ``offset`` elements into the storage (not 16-byte aligned)."""
+    kept pixel, its seeds, and their hashed mask (drop rate 0.1, block size
+    up to 7) with its counts. ``offset`` elements into the storage (not
+    16-byte aligned)."""
     n, h, w, c = shape_nhwc
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((n, h, w, c)).astype(np.float32)
@@ -468,7 +470,7 @@ def _apply_inputs(shape_nhwc, seed, device, dtype, offset=0):
             x[0, r, col, :3] = [np.inf, -np.inf, np.nan][:c]
     flat = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), x.ravel()]))
     xt = flat.to(device, dtype)[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
-    return xt, mask.to(device), counts.to(device)
+    return xt, seeds.to(device), mask.to(device), counts.to(device)
 
 
 # the R50 sites at batch 8; C = 8 (16 bytes in bf16), 6 and 4 (8 bytes in
@@ -484,7 +486,7 @@ APPLY_SHAPES = [(8, 14, 14, 1024), (8, 7, 7, 2048), (4, 15, 17, 8), (4, 15, 17, 
 @pytest.mark.parametrize("shape", APPLY_SHAPES)
 def test_apply_kernel_matches_plain_on_card(shape, dtype, backward):
     _cuda()
-    x, mask, counts = _apply_inputs(shape, 40, "cuda", dtype)
+    x, _, mask, counts = _apply_inputs(shape, 40, "cuda", dtype)
     counter = "APPLY_BWD_LAUNCHES" if backward else "APPLY_LAUNCHES"
     before = getattr(kdrop, counter)
     got = kdrop.dropblock_apply_cuda(x, mask, counts, backward=backward)
@@ -504,7 +506,7 @@ def test_apply_kernel_takes_a_misaligned_tensor_on_card(backward, dtype):
     """A channels_last tensor one element into its storage is not 16-byte
     aligned; the entry point takes it one element at a time."""
     _cuda()
-    x, mask, counts = _apply_inputs((2, 14, 14, 64), 41, "cuda", dtype, offset=1)
+    x, _, mask, counts = _apply_inputs((2, 14, 14, 64), 41, "cuda", dtype, offset=1)
     assert x.data_ptr() % 16 and x.is_contiguous(memory_format=torch.channels_last)
     got = kdrop.dropblock_apply_cuda(x, mask, counts, backward=backward)
     plain = kdrop.dropblock_apply_bwd_reference if backward else kdrop.dropblock_apply_reference
@@ -515,7 +517,7 @@ def test_apply_kernel_takes_a_misaligned_tensor_on_card(backward, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_apply_copies_a_gradient_that_is_not_channels_last_on_card(dtype):
     _cuda()
-    x, mask, counts = _apply_inputs((4, 14, 14, 64), 42, "cuda", dtype)
+    x, _, mask, counts = _apply_inputs((4, 14, 14, 64), 42, "cuda", dtype)
     g = x.contiguous()  # NCHW-contiguous
     assert not g.is_contiguous(memory_format=torch.channels_last)
     counted, launched = kdrop.APPLY_NOT_CHANNELS_LAST, kdrop.APPLY_BWD_LAUNCHES
@@ -530,12 +532,121 @@ def test_apply_copies_a_gradient_that_is_not_channels_last_on_card(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_apply_function_gradient_matches_autograd_of_plain_on_card(dtype):
     _cuda()
-    x, mask, counts = _apply_inputs((4, 14, 14, 64), 43, "cuda", dtype)
+    x, _, mask, counts = _apply_inputs((4, 14, 14, 64), 43, "cuda", dtype)
     g = _nchw((4, 14, 14, 64), 44, "cuda", dtype)
     x1, x2 = x.detach().clone().requires_grad_(), x.detach().clone().requires_grad_()
     (got,) = torch.autograd.grad(kdrop.DropBlockApply.apply(x1, mask, counts), x1, g)
     (want,) = torch.autograd.grad(kdrop.dropblock_apply_reference(x2, mask, counts), x2, g)
     assert torch.equal(_bits(got), _bits(want))
+
+
+# ---------------------------------------------------------------------------
+# DropBlock fused: the mask and the forward apply in one cooperative launch
+# ---------------------------------------------------------------------------
+
+# the R50 sites at batch 128; N = 1; N past the cooperative grid (at 7x7x8
+# one CTA's units cover many samples, so CTAs draw several masks); an odd C
+# (the per-element route)
+FUSED_SHAPES = [(128, 14, 14, 1024), (128, 7, 7, 2048), (1, 14, 14, 1024), (1500, 7, 7, 8),
+                (4, 15, 17, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_kernel_matches_plain_on_card(shape, dtype):
+    """Output bit for bit (NaNs included) against the plain mask then the
+    plain apply; the mask and counts equal the mask kernel's."""
+    _cuda()
+    n, h, w, c = shape
+    bs = min(7, h, w)
+    x, seeds, _, _ = _apply_inputs(shape, 45, "cuda", dtype)
+    before = (kdrop.FUSED_LAUNCHES, kdrop.LAUNCHES, kdrop.APPLY_LAUNCHES)
+    y, mask, counts = kdrop.dropblock_fused_cuda(x, seeds, 0.1, bs)
+    torch.cuda.synchronize()
+    assert (kdrop.FUSED_LAUNCHES, kdrop.LAUNCHES, kdrop.APPLY_LAUNCHES) == (
+        before[0] + 1, before[1], before[2])
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    want_y, want_m, want_c = kdrop.dropblock_fused_reference(x, seeds, 0.1, bs)
+    assert bool(want_y.isnan().any()) and bool(want_y.isinf().any())
+    assert torch.equal(_bits(y), _bits(want_y))
+    got_m, got_c = kdrop.dropblock_mask_cuda(seeds, 0.1, h, w, bs)
+    assert torch.equal(mask, got_m) and torch.equal(counts, got_c)
+    assert torch.equal(mask, want_m) and torch.equal(counts, want_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_copies_a_tensor_that_is_not_channels_last_on_card(dtype):
+    _cuda()
+    x, seeds, _, _ = _apply_inputs((4, 14, 14, 64), 46, "cuda", dtype)
+    x = x.contiguous()  # NCHW-contiguous
+    counted, launched = kdrop.APPLY_NOT_CHANNELS_LAST, kdrop.FUSED_LAUNCHES
+    y, _, _ = kdrop.dropblock_fused_cuda(x, seeds, 0.1, 7)
+    assert (kdrop.APPLY_NOT_CHANNELS_LAST, kdrop.FUSED_LAUNCHES) == (counted + 1, launched + 1)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(_bits(y), _bits(kdrop.dropblock_fused_reference(x, seeds, 0.1, 7)[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_function_gradient_matches_autograd_of_plain_on_card(dtype):
+    _cuda()
+    x, seeds, _, _ = _apply_inputs((4, 14, 14, 64), 47, "cuda", dtype)
+    g = _nchw((4, 14, 14, 64), 48, "cuda", dtype)
+    x1, x2 = x.detach().clone().requires_grad_(), x.detach().clone().requires_grad_()
+    y1 = kdrop.DropBlockFused.apply(x1, seeds, 0.1, 7)
+    (got,) = torch.autograd.grad(y1, x1, g)
+    y2 = kdrop.dropblock_fused_reference(x2, seeds, 0.1, 7)[0]
+    (want,) = torch.autograd.grad(y2, x2, g)
+    assert torch.equal(_bits(y1), _bits(y2)) and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(14, 14), (128, 128), (128, 129)])
+def test_op_routes_by_map_size_on_card(hw):
+    """The op launches the fused kernel within the line and the mask kernel
+    then the apply past it; the output is the CPU op's either way."""
+    _cuda()
+    h, w = hw
+    x = _nchw((2, h, w, 8), 49)
+    seeds = np.array([7, -8], np.int32)
+    counters = ("FUSED_LAUNCHES", "LAUNCHES", "APPLY_LAUNCHES")
+    before = [getattr(kdrop, k) for k in counters]
+    got = dropblock(x.cuda(), seeds, keep_prob=0.8, block_size=7, train=True)
+    launched = np.subtract([getattr(kdrop, k) for k in counters], before).tolist()
+    assert launched == ([1, 0, 0] if kdrop.fused_route(h, w) else [0, 1, 1])
+    want = dropblock(x, seeds, keep_prob=0.8, block_size=7, train=True)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gap_gradient_reaches_the_apply_without_a_copy_on_card(dtype):
+    """DropBlock then the global average pool, as at the last stage-4 site:
+    the pool's gradient is channels_last, so the apply backward copies
+    nothing; the gradient equals autograd's through the plain mean on the
+    card bit for bit (on the card PyTorch divides by a scalar as a multiply
+    by its reciprocal, on the CPU it divides, so the devices differ in
+    fp32)."""
+    _cuda()
+    from axcnn_torch.ops.pooling import global_avg_pool
+
+    shape = (4, 7, 7, 64)
+    seeds = np.random.default_rng(50).integers(-2 ** 31, 2 ** 31, 4, dtype=np.int32)
+    g = torch.from_numpy(np.random.default_rng(51).standard_normal((4, 64)).astype(
+        np.float32)).to("cuda", dtype)
+    pools = {"port": global_avg_pool,
+             "autograd": lambda t: t.float().mean(dim=(2, 3)).to(dtype)}
+    out, copies = {}, {}
+    for name, pool in pools.items():
+        x = _nchw(shape, 52, "cuda", dtype).requires_grad_()
+        y = dropblock(x, seeds, keep_prob=0.8, block_size=7, train=True)
+        counted = kdrop.APPLY_NOT_CHANNELS_LAST
+        (out[name],) = torch.autograd.grad(pool(y), x, g)
+        copies[name] = kdrop.APPLY_NOT_CHANNELS_LAST - counted
+    assert copies == {"port": 0, "autograd": 1}
+    assert torch.equal(_bits(out["port"]), _bits(out["autograd"]))
 
 
 # ---------------------------------------------------------------------------
@@ -562,7 +673,7 @@ def _kd_batch():
 
 def _counts():
     return (kblur.LAUNCHES, kblur.BWD_LAUNCHES, kdrop.LAUNCHES, kdrop.APPLY_LAUNCHES,
-            kdrop.APPLY_BWD_LAUNCHES)
+            kdrop.APPLY_BWD_LAUNCHES, kdrop.FUSED_LAUNCHES)
 
 
 @pytest.mark.cuda
@@ -580,7 +691,7 @@ def test_teacher_forward_on_card():
         want = _teacher("cpu")(x)
         before = _counts()
         got = _teacher("cuda")(x.cuda()).cpu()
-    assert np.subtract(_counts(), before).tolist() == [3, 0, 0, 0, 0]
+    assert np.subtract(_counts(), before).tolist() == [3, 0, 0, 0, 0, 0]
     assert (got - want).norm() / want.norm() <= 1e-4
 
 
@@ -588,8 +699,10 @@ def test_teacher_forward_on_card():
 def test_accumulated_kd_step_on_card():
     """One KD step with grad_accum_steps=2 on the card: per micro-batch the
     student's 3 forward and 3 backward BlurPool launches, the teacher's 3
-    forward launches, 9 DropBlock masks and 9 applies each way; the loss
-    agrees with the same step on the CPU through the plain versions."""
+    forward launches, 9 fused DropBlock launches and 9 apply backwards (no
+    standalone mask or forward apply: the 4x4 and 2x2 maps are within the
+    fused line); the loss agrees with the same step on the CPU through the
+    plain versions."""
     _cuda()
     from axcnn_torch.core.dtypes import DEFAULT_POLICY, set_fp32_precision
     from axcnn_torch.models.resnet import ModelConfig
@@ -612,7 +725,7 @@ def test_accumulated_kd_step_on_card():
         if device == "cuda":
             torch.cuda.synchronize()
             assert np.subtract(_counts(), before).tolist() == [2 * (3 + 3), 2 * 3,
-                                                               2 * 9, 2 * 9, 2 * 9]
+                                                               0, 0, 2 * 9, 2 * 9]
             assert all(torch.isfinite(v).all() for v in state.velocity.values())
     assert np.isfinite(losses["cuda"])
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])

@@ -192,6 +192,48 @@ def test_global_avg_pool(dtype):
                                **TOL)
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_global_avg_pool_backward_matches_autograd_of_the_mean(dtype, channels_last):
+    """The gradient is autograd's through ``x.float().mean((2, 3)).to(dtype)``
+    bit for bit, and keeps the input's memory format (autograd's is
+    NCHW-dense whatever the input's)."""
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    rng = np.random.default_rng(70)
+    x = _nchw(_normal(rng, (3, 7, 5, 16))).to(dtype).contiguous(memory_format=fmt)
+    g = torch.from_numpy(_normal(rng, (3, 16))).to(dtype)
+    x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+    y = global_avg_pool(x1)
+    (got,) = torch.autograd.grad(y, x1, g)
+    want_y = x2.float().mean(dim=(2, 3)).to(dtype)
+    (want,) = torch.autograd.grad(want_y, x2, g)
+    assert torch.equal(_bits(y), _bits(want_y))
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+    assert got.is_contiguous(memory_format=fmt)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_global_avg_pool_vjp_matches_jax(dtype):
+    """The gradient against ``jax.vjp`` of the reference's GAP, on a
+    channels_last input (the head's). Tolerance 0: each element is the
+    cotangent in fp32 over H*W, rounded once to the input dtype."""
+    import jax
+
+    rng = np.random.default_rng(71)
+    x, g = _normal(rng, (3, 7, 7, 16)), _normal(rng, (3, 16))
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    _, vjp = jax.vjp(j_gap, jnp.asarray(x, dtype))
+    (want,) = vjp(jnp.asarray(g, dtype))
+    xt = _nchw(x).to(tdtype).contiguous(memory_format=torch.channels_last).requires_grad_()
+    (got,) = torch.autograd.grad(global_avg_pool(xt), xt, torch.from_numpy(g).to(tdtype))
+    assert got.dtype == tdtype
+    np.testing.assert_array_equal(_nhwc(got.float()), np.asarray(want, np.float32))
+
+
 # ---------------------------------------------------------------------------
 # SE / SK (eval)
 # ---------------------------------------------------------------------------
