@@ -14,8 +14,21 @@ own: one file per step, ``<dir>/<step>.pt``, a dict of the port's
 ``state_dict`` names written with ``torch.save`` to a temporary name and
 then renamed, so a kill mid-save leaves the last good checkpoint. It is read
 back with ``torch.load(..., weights_only=True)``: tensors, ints and dicts
-only. Saves are synchronous; ``wait`` and ``close`` keep the reference's
-surface. A checkpoint written by ``axcnn`` crosses through
+only.
+
+Saves are asynchronous, as orbax's are. ``save`` takes a snapshot of every
+tensor of the payload in host memory (pinned, for a card's tensors; the
+buffers are kept and reused by the next save) and waits for the copies, so
+the optimizer and the EMA may update the live tensors in place as soon as
+it returns; one writer thread then pickles, writes, fsyncs, renames and
+applies the retention. At most one save is in flight: the next ``save``
+joins it first, as do ``load``, ``restore``, ``wait`` and ``close``. An
+exception in the writer (``KeyboardInterrupt`` included) is raised again
+by the next call that joins it. ``all_steps`` and ``latest_step`` count an
+in-flight step as written (and the steps its retention removes as gone),
+so a step that is being written is never written again.
+
+A checkpoint written by ``axcnn`` crosses through
 ``axcnn_torch.ckpt.convert.train_state_from_axcnn`` on a host with both
 packages (README.md).
 """
@@ -25,6 +38,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 
 import torch
 
@@ -107,6 +121,10 @@ class CheckpointManager:
             raise ValueError(f"max_to_keep must be >= 1 or None, got {max_to_keep}")
         self._dir = os.path.abspath(directory)
         self._max_to_keep = max_to_keep
+        self._writer: threading.Thread | None = None
+        self._in_flight: int | None = None  # the step the writer is writing
+        self._error: BaseException | None = None
+        self._host: dict = {}  # snapshot buffers by payload path, reused
         if model_config is not None:
             os.makedirs(self._dir, exist_ok=True)
             self._write(SIDECAR, lambda f: f.write(
@@ -133,11 +151,21 @@ class CheckpointManager:
     def path(self, step: int) -> str:
         return os.path.join(self._dir, f"{step}.pt")
 
-    def all_steps(self) -> list[int]:
+    def _steps_on_disk(self) -> list[int]:
         if not os.path.isdir(self._dir):
             return []
         return sorted(int(m.group(1)) for m in map(_STEP_FILE.fullmatch,
                                                    os.listdir(self._dir)) if m)
+
+    def all_steps(self) -> list[int]:
+        """The steps on disk, and the one being written as if it were
+        (after its retention)."""
+        in_flight = self._in_flight
+        steps = self._steps_on_disk()
+        if in_flight is None:
+            return steps
+        steps = sorted(set(steps) | {in_flight})
+        return steps if self._max_to_keep is None else steps[-self._max_to_keep:]
 
     def latest_step(self) -> int | None:
         steps = self.all_steps()
@@ -145,33 +173,72 @@ class CheckpointManager:
 
     def save(self, state, *, loader_state: LoaderState | None = None,
              rng_seed: int = 0, force: bool = False) -> bool:
-        """Write ``state`` at its step; returns whether it wrote. As with
-        orbax, a step already on disk is never rewritten, and a step before
-        the latest is written only when ``force``."""
+        """Start writing ``state`` at its step; returns whether it does. As
+        with orbax, a step already on disk is never rewritten, and a step
+        before the latest is written only when ``force``. Joins the save in
+        flight first; returns once the snapshot is taken."""
+        self._join()
         step = int(state.step)
         latest = self.latest_step()
         if step in self.all_steps() or (not force and latest is not None
                                         and step < latest):
             return False
         model = state.model
-        payload = {
-            "step": step,
+        payload = self._snapshot({
             "params": {k: p.detach() for k, p in model.named_parameters()},
             "model_state": {k: b.detach() for k, b in model.named_buffers()},
             "velocity": state.velocity,
-            "rng_seed": int(rng_seed),
-            "loader_epoch": int(loader_state.epoch) if loader_state else 0,
-            "loader_batches": int(loader_state.batches_yielded) if loader_state else 0,
-        }
-        if state.ema is not None:
-            payload["ema"] = state.ema
+            **({"ema": state.ema} if state.ema is not None else {}),
+        })
+        payload.update(step=step, rng_seed=int(rng_seed),
+                       loader_epoch=int(loader_state.epoch) if loader_state else 0,
+                       loader_batches=int(loader_state.batches_yielded) if loader_state else 0)
         os.makedirs(self._dir, exist_ok=True)
-        self._write(os.path.basename(self.path(step)),
-                    lambda f: torch.save(payload, f))
-        if self._max_to_keep is not None:
-            for old in self.all_steps()[:-self._max_to_keep]:
-                os.remove(self.path(old))
+        self._in_flight = step
+        self._writer = threading.Thread(target=self._write_step, args=(step, payload),
+                                        name="checkpoint-writer")
+        self._writer.start()
         return True
+
+    def _snapshot(self, tensors: dict) -> dict:
+        """``{field: {name: tensor}}`` copied into this manager's host
+        buffers (pinned for CUDA tensors), after the copies have finished."""
+        out, cuda = {}, set()
+        for field, d in tensors.items():
+            out[field] = {}
+            for k, t in d.items():
+                buf = self._host.get((field, k))
+                if (buf is None or buf.shape != t.shape or buf.dtype != t.dtype
+                        or buf.stride() != t.stride()):
+                    buf = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                              pin_memory=t.is_cuda)
+                    self._host[(field, k)] = buf
+                buf.copy_(t, non_blocking=t.is_cuda)
+                if t.is_cuda:
+                    cuda.add(t.device)
+                out[field][k] = buf
+        for device in cuda:
+            torch.cuda.synchronize(device)
+        return out
+
+    def _write_step(self, step: int, payload: dict) -> None:
+        """The writer thread: the file, then the retention."""
+        try:
+            self._write(os.path.basename(self.path(step)), lambda f: torch.save(payload, f))
+            if self._max_to_keep is not None:
+                for old in self._steps_on_disk()[:-self._max_to_keep]:
+                    os.remove(self.path(old))
+        except BaseException as exc:  # noqa: BLE001 - raised again by _join
+            self._error = exc
+
+    def _join(self) -> None:
+        """Wait for the save in flight; raise its writer's exception."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = self._in_flight = None
+        if self._error is not None:
+            exc, self._error = self._error, None
+            raise exc
 
     def model_config(self) -> dict | None:
         """The architecture sidecar written by the producing run, or None."""
@@ -184,6 +251,7 @@ class CheckpointManager:
     def load(self, step: int | None = None, *, device="cpu") -> dict | None:
         """The raw payload of ``step`` (default: the latest) with its tensors
         on ``device``, or None when there is no checkpoint."""
+        self._join()
         step = self.latest_step() if step is None else step
         if step is None:
             return None
@@ -224,7 +292,12 @@ class CheckpointManager:
         return state, loader_state, int(raw["rng_seed"])
 
     def wait(self) -> None:
-        """Saves are synchronous: nothing is in flight."""
+        """Wait until the save in flight is on disk."""
+        self._join()
 
     def close(self) -> None:
-        """Nothing to release; kept for the reference's surface."""
+        """Wait for the save in flight and release the snapshot buffers."""
+        try:
+            self._join()
+        finally:
+            self._host = {}

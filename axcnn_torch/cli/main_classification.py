@@ -37,7 +37,10 @@ Gloo. Under a launcher that sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR`` and ``MASTER_PORT`` (``torchrun --nproc-per-node=N -m
 axcnn_torch.cli.main_classification ...``), each process is one rank and
 starts nothing. If a rank fails, the run ends with a non-zero exit code and
-that rank's traceback; the others are stopped.
+that rank's traceback; the others are stopped. A rank that fails after
+another (most often at a collective that the first failure broke) waits
+``PEER_GRACE_S`` before it exits, so that the first failure, the cause, is
+the one reported.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ from __future__ import annotations
 import os
 import socket
 import sys
+import time
+
+PEER_GRACE_S = 10.0
 
 
 def num_ranks(cfg) -> int:
@@ -77,9 +83,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, coordinator: str, argv, results) -> None:
+def _rank_main(rank: int, world: int, coordinator: str, argv, results, failed) -> None:
     """One spawned rank: card ``rank`` (or the host), the process group,
-    the run; rank 0 hands its metrics back."""
+    the run; rank 0 hands its metrics back. ``failed`` is set by the first
+    rank to fail."""
     import torch
 
     from axcnn_torch.parallel import mesh
@@ -95,6 +102,11 @@ def _rank_main(rank: int, world: int, coordinator: str, argv, results) -> None:
     mesh.init_distributed(device, rank=rank, world_size=world, coordinator=coordinator)
     try:
         metrics = run(cfg, local_rank=rank)
+    except BaseException:
+        if failed.is_set():  # another rank failed first: let its error end the run
+            time.sleep(PEER_GRACE_S)
+        failed.set()
+        raise
     finally:
         mesh.shutdown()
     if rank == 0:
@@ -119,9 +131,11 @@ def main(argv=None):
     elif (world := num_ranks(cfg)) > 1:
         import torch.multiprocessing as mp
 
-        results = mp.get_context("spawn").SimpleQueue()
+        ctx = mp.get_context("spawn")
+        results = ctx.SimpleQueue()
         mp.start_processes(_rank_main, nprocs=world, start_method="spawn",
-                           args=(world, f"127.0.0.1:{_free_port()}", argv, results))
+                           args=(world, f"127.0.0.1:{_free_port()}", argv, results,
+                                 ctx.Event()))
         metrics = results.get()
     else:
         metrics = run(cfg)

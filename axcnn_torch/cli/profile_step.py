@@ -5,6 +5,8 @@
     python -m axcnn_torch.cli.profile_step --what=kd         # the R152 KD step
     python -m axcnn_torch.cli.profile_step --what=remat      # the R50 step, remat=blocks
     python -m axcnn_torch.cli.profile_step --what=dp --ranks=2  # the R50 step on 2 cards
+    python -m axcnn_torch.cli.profile_step --what=bl         # bl_resnet50 and its ablation
+    python -m axcnn_torch.cli.profile_step --what=flops      # their forward FLOPs (no card)
 
 ``step``: ``assemble_resnet50`` at full width, 1001 classes, batch 128, bf16,
 random uint8 images on the card, the train step as ``make_train_step``
@@ -17,6 +19,12 @@ bf16, channels_last), each run forward and then backward through
 ``axcnn_torch.ops.dropblock.dropblock``; one repetition is one step's worth.
 ``kd``: ``assemble_resnet152_kd`` (R152 student, batch 1024 as 8
 micro-batches of 128, bf16) with a seeded ``assemble_resnet50`` teacher.
+``bl``: the ``bl_resnet50`` preset's step (Big-Little, alpha 2, beta 4) at
+batch 128, then in the same process its ablation (``bl_alpha = bl_beta =
+0``: the same recipe on plain stages), each measured as ``step`` is, with
+the forward GFLOPs of one image of each (``flops``: those alone, counted
+by ``torch.utils.flop_counter.FlopCounterMode`` on the meta device, so
+with no card; convolutions and matmuls only).
 
 After three warm-up steps, ``--untraced`` steps are timed one by one on the
 host clock: the wall until the step's loss reached the host (a synchronize
@@ -143,29 +151,53 @@ def _wait_loss(metrics):
     metrics["loss"].item()  # the host waits for the step, as the loop's log does
 
 
-def _step_runner(kd: bool, remat: bool = False, group=None):
+def preset_model(name: str, **changes):
+    """A preset's ``ModelConfig`` with ImageNet's 1001-way head."""
     import dataclasses
 
+    from axcnn_torch.utils.config import load_preset
+
+    return dataclasses.replace(load_preset(name).model, num_classes=1001, **changes)
+
+
+def forward_gflops(cfg, image_size: int = 224) -> float:
+    """GFLOPs of one image's eval forward through ``ResNet(cfg)``, as
+    ``FlopCounterMode`` counts them (convolutions and matmuls), on the meta
+    device."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from axcnn_torch.models.resnet import ResNet
+
+    with torch.device("meta"):
+        model = ResNet(cfg).eval()
+        images = torch.empty(1, image_size, image_size, 3)
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        model(images)
+    return counter.get_total_flops() / 1e9
+
+
+def _bl_models():
+    bl = preset_model("bl_resnet50")
+    return {"bl": bl, "ablation": preset_model("bl_resnet50", bl_alpha=0, bl_beta=0)}
+
+
+def _step_runner(cfg, *, kd: bool = False, group=None):
     from axcnn_torch.core.dtypes import BF16_POLICY
     from axcnn_torch.models.resnet import ResNet
     from axcnn_torch.train.schedules import make_lr_schedule
     from axcnn_torch.train.train_step import create_train_state, make_train_step
     from axcnn_torch.utils.config import load_preset
 
-    r50 = dataclasses.replace(load_preset("assemble_resnet50").model, num_classes=1001,
-                              remat="blocks" if remat else "none")
     kw = dict(policy=BF16_POLICY, label_smoothing=0.1, mixup_alpha=0.2)
     batch_size = BATCH
     if kd:
         preset = load_preset("assemble_resnet152_kd")
-        cfg = dataclasses.replace(preset.model, num_classes=1001)
-        teacher = ResNet(r50, generator=torch.Generator().manual_seed(SEED + 1))
+        teacher = ResNet(preset_model("assemble_resnet50"),
+                         generator=torch.Generator().manual_seed(SEED + 1))
         kw.update(teacher=teacher.to("cuda", memory_format=torch.channels_last).eval()
                   .requires_grad_(False), kd_temp=preset.train.kd_temp,
                   kd_alpha=preset.train.kd_alpha, grad_accum_steps=8)
         batch_size = 8 * BATCH
-    else:
-        cfg = r50
     state = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
                                device="cuda", use_ema=True)
     step = make_train_step(cfg, lr_schedule=make_lr_schedule(
@@ -213,7 +245,8 @@ def _dp_rank(rank: int, world: int, coordinator: str, untraced: int, steps: int,
     mesh.init_distributed(torch.device("cuda", rank), rank=rank, world_size=world,
                           coordinator=coordinator)
     try:
-        result = _measure(*_step_runner(kd=False, group=mesh.data_group()), untraced, steps)
+        result = _measure(*_step_runner(preset_model("assemble_resnet50"),
+                                        group=mesh.data_group()), untraced, steps)
     finally:
         mesh.shutdown()
     if rank == 0:
@@ -236,13 +269,18 @@ def _measure_dp(ranks: int, untraced: int, steps: int) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--what", choices=("step", "dropblock", "kd", "remat", "dp"),
-                        default="step")
+    parser.add_argument("--what", choices=("step", "dropblock", "kd", "remat", "dp", "bl",
+                                           "flops"), default="step")
     parser.add_argument("--ranks", type=int, default=2, help="cards for --what=dp")
     parser.add_argument("--steps", type=int, default=3, help="steps in the traced window")
     parser.add_argument("--untraced", type=int, default=20, help="steps timed untraced")
     parser.add_argument("--label", default="", help="a name for the tree measured")
     args = parser.parse_args(argv)
+    if args.what == "flops":
+        print(json.dumps({"profile": "flops", "label": args.label, "image_size": 224,
+                          "forward_gflops_per_image": {k: forward_gflops(c) for k, c in
+                                                       _bl_models().items()}}), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
@@ -250,10 +288,21 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout
     if args.what == "dp":
         result = _measure_dp(args.ranks, args.untraced, args.steps)
+    elif args.what == "bl":
+        result = {}
+        for name, cfg in _bl_models().items():
+            result[name] = {"forward_gflops_per_image": forward_gflops(cfg),
+                            **_measure(*_step_runner(cfg), args.untraced, args.steps)}
+            torch.cuda.empty_cache()
     else:
-        enqueue, wait = (_dropblock_runner() if args.what == "dropblock"
-                         else _step_runner(kd=args.what == "kd", remat=args.what == "remat"))
-        result = _measure(enqueue, wait, args.untraced, args.steps)
+        if args.what == "dropblock":
+            runner = _dropblock_runner()
+        elif args.what == "kd":
+            runner = _step_runner(preset_model("assemble_resnet152_kd"), kd=True)
+        else:
+            runner = _step_runner(preset_model(
+                "assemble_resnet50", remat="blocks" if args.what == "remat" else "none"))
+        result = _measure(*runner, args.untraced, args.steps)
     print(json.dumps({"profile": args.what, "label": args.label, "dtype": "bf16",
                       "card": smi.splitlines()[0], **result}), flush=True)
     return 0

@@ -1,7 +1,8 @@
-"""Big-Little ResNet-50 preset (alpha=2, beta=4), field for field the
-reference's ``axcnn/configs/bl_resnet50.py``. The config only: building the
-model raises ``NotImplementedError`` until Big-Little stages are ported
-(ROADMAP.md Queue A item 10)."""
+"""Big-Little ResNet-50 preset (bL-Net: alpha=2, beta=4, ResNet-D,
+zero-gamma, AutoAugment v0, mixup 0.2, bf16), field for field the
+reference's ``axcnn/configs/bl_resnet50.py``: the speed-oriented preset
+beside ``assemble_resnet50``. Stages 2-3 are Big-Little stages
+(``axcnn_torch.models.resnet.BLStage``)."""
 
 from axcnn_torch.models.resnet import ModelConfig
 from axcnn_torch.utils.config import Config, DataConfig, RuntimeConfig, TrainConfig

@@ -15,7 +15,9 @@ multiple of 16), one thread per element otherwise.
 PyTorch versions: shifted adds in fp32 in the kernels' order, with no conv,
 so no cuDNN or TF32 choice enters them. ``LAUNCHES`` and ``BWD_LAUNCHES``
 count the two kernels' launches on either route; ``ROUTES`` counts them by
-route. ``BWD_G_NOT_CHANNELS_LAST`` counts backward calls whose gradient was
+route, and under ``general`` the calls of ``axcnn_torch.ops.blurpool``'s
+general version (every other filter size and stride: a depthwise conv, no
+kernel of this file). ``BWD_G_NOT_CHANNELS_LAST`` counts backward calls whose gradient was
 not channels_last-contiguous and so was copied first.
 """
 
@@ -30,7 +32,7 @@ from axcnn_torch.kernels.build import entry
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-ROUTES = {"fwd_tma": 0, "fwd_thread": 0, "bwd_tma": 0, "bwd_thread": 0}
+ROUTES = {"fwd_tma": 0, "fwd_thread": 0, "bwd_tma": 0, "bwd_thread": 0, "general": 0}
 BWD_G_NOT_CHANNELS_LAST = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,9 +42,11 @@ ENTRY_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, *[ctypes.c_lon
 
 
 def check_blur_args(stride: int, filter_size: int) -> None:
+    """The kernels compute BlurPool 3x3/2 only; ``axcnn_torch.ops.blurpool``
+    routes every other size to its general version."""
     if (filter_size, stride) != (3, 2):
         raise NotImplementedError(
-            f"BlurPool is ported for filter_size=3, stride=2 only (got "
+            f"the BlurPool kernels take filter_size=3, stride=2 only (got "
             f"filter_size={filter_size}, stride={stride})")
 
 
@@ -56,10 +60,8 @@ def _blur3_s2_rows(x: torch.Tensor) -> torch.Tensor:
     return (o_prev + 2.0 * e + o) * 0.25
 
 
-def blur_pool_reference(x: torch.Tensor, *, stride: int = 2,
-                        filter_size: int = 3) -> torch.Tensor:
+def blur_pool_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch BlurPool 3x3/2 on NCHW, in fp32, cast back once."""
-    check_blur_args(stride, filter_size)
     t = _blur3_s2_rows(x.float())
     y = _blur3_s2_rows(t.transpose(-1, -2)).transpose(-1, -2)
     return y.to(x.dtype)
@@ -111,8 +113,8 @@ def blur_pool_cuda(x: torch.Tensor, *, stride: int = 2,
                    filter_size: int = 3) -> torch.Tensor:
     """Launch the CUDA kernel on ``x``; raise on anything it does not take."""
     global LAUNCHES
-    _check_cuda_nchw("blur_pool_cuda", x)
     check_blur_args(stride, filter_size)
+    _check_cuda_nchw("blur_pool_cuda", x)
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("blur_pool_cuda needs a channels_last-contiguous input")
     n, c, h, w = x.shape

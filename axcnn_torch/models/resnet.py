@@ -1,26 +1,41 @@
 """Assembled ResNet v1 bottleneck family (port of ``axcnn/models/resnet.py``).
 
 ResNet-50/101/152 with the assembly knobs: ResNet-D stem and shortcut, SE,
-SK, BlurPool ``sconv|proj|max``, DropBlock after every block of
-``dropblock_stages`` in training, zero-gamma and ``width_multiplier``. The
-train forward uses batch-statistic BN everywhere (averaged over a process
-group when given: sync-BN) and updates the moving statistics in place.
-Module and parameter names follow the reference's param tree
-(``stem.conv0``, ``stage2.block0.sk.fc_z``, ``head``), so
-``axcnn_torch.ckpt.convert`` maps one onto the other by rule.
+SK (two convs, or ``sk_merged_conv``'s one 5x5), BlurPool ``sconv|proj|max``
+with any ``anti_alias_filter_size`` in 1-7, DropBlock after every block of
+``dropblock_stages`` in training, zero-gamma, ``width_multiplier`` and
+Big-Little stages. The train forward uses batch-statistic BN everywhere
+(averaged over a process group when given: sync-BN) and updates the moving
+statistics in place. Module and parameter names follow the reference's
+param tree (``stem.conv0``, ``stage2.block0.sk.fc_z``,
+``stage2.big.block0.conv1``, ``head``), so ``axcnn_torch.ckpt.convert``
+maps one onto the other by rule.
+
+Big-Little (``bl_alpha``, ``bl_beta``; bL-Net) replaces stages 2-3 with a
+``BLStage``: the stage's stride-2 projection block (``entry``, input
+resolution R down to S), then a ``big`` branch of n-1 full-width blocks one
+octave below S (its first block strides S -> S/2 and projects) and a
+``little`` branch of ``max(1, n // beta)`` blocks at S and width
+``max(filters // alpha, 16)`` followed by a 1x1 conv and BN
+(``little_proj``, ``little_proj_bn``, no zero-gamma) up to the stage width;
+the merge upsamples ``big`` to S by nearest neighbour with half-pixel
+centres (``jax.image.resize``'s ``nearest``: ``F.interpolate``'s
+``nearest-exact``, not ``nearest``, whenever S is odd), adds ``little`` and
+applies ReLU. DropBlock sits at such a stage's output
+(``dropblock/stage{s}/out``), not after its blocks.
 
 ``remat="blocks"`` in training runs the reference's regions, the stem and
-each residual block, under ``torch.utils.checkpoint`` (non-reentrant):
-their activations are recomputed in the backward. DropBlock stays outside
-the regions, so it is not replayed; the replay leaves the BN moving
-statistics alone (``ops.norm.replaying``), so they are updated once.
-``remat="conv"`` / ``"conv_nocse"`` are XLA name policies with no torch
-counterpart, and refused in training with that reason.
+each residual block (a BL stage's blocks included; its projection and
+merge are not), under ``torch.utils.checkpoint`` (non-reentrant): their
+activations are recomputed in the backward. DropBlock stays outside the
+regions, so it is not replayed; the replay leaves the BN moving statistics
+alone (``ops.norm.replaying``), so they are updated once. ``remat="conv"``
+/ ``"conv_nocse"`` are XLA name policies with no torch counterpart, and
+refused in training with that reason.
 
-Not ported yet, and refused with ``NotImplementedError`` (ROADMAP.md):
-Big-Little stages (``bl_alpha``), ``scan_blocks`` (a JAX compile-time
-lever) and the merged SK 5x5 conv. In eval, DropBlock is the identity and
-``remat`` has no effect, as in the reference.
+``scan_blocks`` (a JAX compile-time lever with stacked weights) is refused
+with ``NotImplementedError`` (ROADMAP.md Queue A item 11). In eval,
+DropBlock is the identity and ``remat`` has no effect, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ import dataclasses
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -46,6 +62,7 @@ from axcnn_torch.ops.sk import SK
 RESNET_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 _STAGE_FILTERS = (64, 128, 256, 512)
 _EXPANSION = 4
+_BL_STAGES = (1, 2)  # 0-indexed stages that get the Big-Little branches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,17 +114,11 @@ class ModelConfig:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    missing = [name for name, on in (
-        ("Big-Little stages (bl_alpha/bl_beta)", cfg.use_bl),
-        ("scan_blocks", cfg.scan_blocks),
-        ("sk_merged_conv", cfg.sk_merged_conv),
-        ("anti_alias_filter_size != 3",
-         cfg.anti_alias_type != "none" and cfg.anti_alias_filter_size != 3),
-    ) if on]
-    if missing:
+    if cfg.scan_blocks:
         raise NotImplementedError(
-            f"not ported to axcnn_torch yet: {', '.join(missing)} (ROADMAP.md "
-            "Queue A)")
+            "axcnn_torch does not take scan_blocks, a JAX compile-time lever (lax.scan "
+            "over stacked block weights) with no torch counterpart (ROADMAP.md Queue A "
+            "item 11)")
 
 
 class Stem(nn.Module):
@@ -118,6 +129,7 @@ class Stem(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.blur_max = cfg.anti_alias_type == "max"
+        self.filter_size = cfg.anti_alias_filter_size
         widths = [(3, 32), (32, 32), (32, 64)] if cfg.use_resnet_d else [(3, 64)]
         self.depth = len(widths)
         for i, (cin, cout) in enumerate(widths):
@@ -130,7 +142,8 @@ class Stem(nn.Module):
             x = getattr(self, f"conv{i}")(x, compute_dtype)
             x = torch.relu(getattr(self, f"bn{i}")(x, train=train, group=group))
         if self.blur_max:
-            return blur_pool(max_pool_same(x, window=3, stride=1))
+            return blur_pool(max_pool_same(x, window=3, stride=1), stride=2,
+                             filter_size=self.filter_size)
         return max_pool_same(x, window=3, stride=2)
 
 
@@ -145,6 +158,7 @@ class Block(nn.Module):
         out_ch = filters * _EXPANSION
         aa = cfg.anti_alias_type != "none"
         self.stride = stride
+        self.filter_size = cfg.anti_alias_filter_size
         self.blur_mid = aa and stride > 1
         # shortcut downsample: ResNet-D avg pool, or BlurPool for proj/max
         self.short_pool = None
@@ -163,7 +177,8 @@ class Block(nn.Module):
         m = cfg.bn_momentum
         self.bn1 = BatchNorm(filters, momentum=m)
         if cfg.use_sk_block:
-            self.sk = SK(filters, filters, stride=mid_stride, bn_momentum=m)
+            self.sk = SK(filters, filters, stride=mid_stride, bn_momentum=m,
+                         merged=cfg.sk_merged_conv)
         else:
             self.conv2 = Conv(3, filters, filters, stride=mid_stride)
             self.bn2 = BatchNorm(filters, momentum=m)
@@ -178,7 +193,7 @@ class Block(nn.Module):
         if self.short_pool == "avg":
             x = avg_pool_same(x, window=self.stride, stride=self.stride)
         elif self.short_pool == "blur":
-            x = blur_pool(x, stride=self.stride)
+            x = blur_pool(x, stride=self.stride, filter_size=self.filter_size)
         return self.proj_bn(self.proj_conv(x, cd), train=train, group=group)
 
     def forward(self, x, compute_dtype, train: bool = False, group=None):
@@ -190,11 +205,48 @@ class Block(nn.Module):
         else:
             h = torch.relu(self.bn2(self.conv2(h, cd), train=train, group=group))
         if self.blur_mid:
-            h = blur_pool(h, stride=self.stride)
+            h = blur_pool(h, stride=self.stride, filter_size=self.filter_size)
         h = self.bn3(self.conv3(h, cd), train=train, group=group)
         if hasattr(self, "se"):
             h = self.se(h)
         return torch.relu(h + shortcut.to(h.dtype))
+
+
+class BLStage(nn.Module):
+    """A Big-Little stage (the reference's ``_bl_stage_init`` /
+    ``_bl_stage_apply``): ``entry``, the ``big`` and ``little`` branches,
+    ``little_proj`` and ``little_proj_bn``, then the merge (module
+    docstring)."""
+
+    def __init__(self, cfg: ModelConfig, in_ch: int, filters: int, n_blocks: int):
+        super().__init__()
+        out_ch = filters * _EXPANSION
+        little_filters = max(filters // max(cfg.bl_alpha, 1), 16)
+        self.entry = Block(cfg, in_ch, filters, stride=2, has_proj=True)
+        self.big = nn.ModuleDict({
+            f"block{b}": Block(cfg, out_ch, filters, stride=2 if b == 0 else 1, has_proj=b == 0)
+            for b in range(max(n_blocks - 1, 1))})
+        self.little = nn.ModuleDict()
+        ch = out_ch
+        for b in range(max(1, n_blocks // max(cfg.bl_beta, 1))):
+            self.little[f"block{b}"] = Block(cfg, ch, little_filters, stride=1, has_proj=b == 0)
+            ch = little_filters * _EXPANSION
+        self.little_proj = Conv(1, ch, out_ch)
+        self.little_proj_bn = BatchNorm(out_ch, momentum=cfg.bn_momentum)
+
+    def forward(self, x, compute_dtype, train: bool = False, group=None, *,
+                remat: bool = False):
+        cd = compute_dtype
+        x = _region(self.entry, x, cd, train, group, remat=remat)
+        big = x
+        for block in self.big.values():
+            big = _region(block, big, cd, train, group, remat=remat)
+        little = x
+        for block in self.little.values():
+            little = _region(block, little, cd, train, group, remat=remat)
+        little = self.little_proj_bn(self.little_proj(little, cd), train=train, group=group)
+        big_up = F.interpolate(big, size=little.shape[-2:], mode="nearest-exact")
+        return torch.relu(big_up + little)
 
 
 class ResNet(nn.Module):
@@ -210,6 +262,10 @@ class ResNet(nn.Module):
         in_ch = 64
         for s in range(4):
             filters = cfg.stage_filters(s)
+            if cfg.use_bl and s in _BL_STAGES:
+                self.add_module(f"stage{s + 1}", BLStage(cfg, in_ch, filters, cfg.blocks[s]))
+                in_ch = filters * _EXPANSION
+                continue
             stage = nn.ModuleDict()
             for b in range(cfg.blocks[s]):
                 # first block of each stage projects (and strides if s > 0)
@@ -235,8 +291,9 @@ class ResNet(nn.Module):
         ``progress`` in [0, 1] drives the DropBlock keep-prob schedule;
         ``rng`` (the step's stream) seeds each DropBlock site by its name,
         ``dropblock/stage{s}/block{b}``, and is required when training with
-        DropBlock. ``dropblock_uniforms`` maps site names to (N, H, W)
-        uniforms for the plain path (tests)."""
+        DropBlock; a Big-Little stage's site is ``dropblock/stage{s}/out``.
+        ``dropblock_uniforms`` maps site names to (N, H, W) uniforms for the
+        plain path (tests)."""
         cfg = self.cfg
         if train and cfg.remat in ("conv", "conv_nocse"):
             raise NotImplementedError(
@@ -253,15 +310,24 @@ class ResNet(nn.Module):
         # NHWC -> NCHW view: the memory stays NHWC, i.e. channels_last
         x = policy.cast_to_compute(images).permute(0, 3, 1, 2)
         x = _region(self.stem, x, cd, train, group, remat=remat)
+        def drop(x, site):
+            return dropblock(x, sample_seeds(rng.numpy(site), x.shape[0]), keep_prob=kp,
+                             block_size=cfg.dropblock_block_size, train=True,
+                             uniforms=uniforms.get(site))
+
         for s in range(4):
             sname = f"stage{s + 1}"
-            for b, block in enumerate(getattr(self, sname).values()):
+            stage = getattr(self, sname)
+            db_here = use_db and s + 1 in cfg.dropblock_stages
+            if isinstance(stage, BLStage):
+                x = stage(x, cd, train, group, remat=remat)
+                if db_here:
+                    x = drop(x, f"dropblock/{sname}/out")
+                continue
+            for b, block in enumerate(stage.values()):
                 x = _region(block, x, cd, train, group, remat=remat)
-                if use_db and s + 1 in cfg.dropblock_stages:
-                    site = f"dropblock/{sname}/block{b}"
-                    x = dropblock(x, sample_seeds(rng.numpy(site), x.shape[0]),
-                                  keep_prob=kp, block_size=cfg.dropblock_block_size,
-                                  train=True, uniforms=uniforms.get(site))
+                if db_here:
+                    x = drop(x, f"dropblock/{sname}/block{b}")
         pooled = global_avg_pool(x)  # (N, C), in the compute dtype
         # the head computes in fp32 at least (a float64 policy keeps float64)
         head_dtype = torch.promote_types(pooled.dtype, torch.float32)

@@ -8,13 +8,21 @@ the loaders of ``axcnn_torch.data.pipeline``, ``axcnn_torch.utils.logging``'s
 ``MetricLogger`` (``<model_dir>/metrics.jsonl``) and ``Throughput``, and
 ``axcnn_torch.utils.watchdog``. A producer thread keeps ``data.prefetch``
 batches in flight to the device (``device_prefetch``: pinned memory, a side
-stream), for training and for eval.
+stream), for training and for eval. With ``data.echo_factor`` > 1 each
+batch feeds that many consecutive steps (``EchoIterator``, above the
+prefetch, so an echoed batch is already on the card); the step's own
+streams still fold the step index, so echoed steps draw afresh.
 
 As in the reference: checkpoints under ``<model_dir>/checkpoints`` every
 ``save_checkpoint_steps``, at each eval and at the end, and the run resumes
 from the latest one with the position of the batch the loop consumed (the
-prefetch runs ahead of it); ``eval_only``; SIGTERM finishes the step in
-flight, saves and returns (one process only); the hang watchdog;
+prefetch runs ahead of it). Saves are asynchronous
+(``axcnn_torch.ckpt.checkpoint``: the loop waits for a snapshot, a thread
+writes) and deferred to the end of an echo group, where the consumed
+position resumes the step and batch stream exactly; the run's last step and
+an early stop save at once. ``eval_only``; SIGTERM finishes the step in
+flight, saves at the group's end, waits for the write and returns (one
+process only); the hang watchdog;
 ``profile_steps``; warm start from ``pretrained_checkpoint``; the KD teacher
 from ``kd_teacher_checkpoint``; gradient accumulation.
 
@@ -24,12 +32,12 @@ builds the same state from the seed, checks that the ranks agree on it,
 reads its own shard of the input (``host_id=rank``, ``batch_size // world``)
 and runs the data-parallel step; the eval sums over the ranks, which first
 agree on their number of eval batches. Rank 0 alone logs and saves; every
-rank waits at a barrier after a save. The LR and the schedules stay
-functions of the global batch.
+rank waits at a barrier while it takes the save's snapshot. The LR and the
+schedules stay functions of the global batch.
 
 Refused with ``NotImplementedError`` until ported (ROADMAP.md): spatial
-partitioning, device AutoAugment, data echo, export and ImageNet-C; and, by
-design, DCN slices (``REFUSED``).
+partitioning, device AutoAugment, export and ImageNet-C; and, by design,
+DCN slices (``REFUSED``).
 """
 
 from __future__ import annotations
@@ -45,8 +53,8 @@ import torch
 from axcnn_torch.ckpt.checkpoint import CheckpointManager, load_weights, model_from_payload
 from axcnn_torch.core.dtypes import policy_from_name, set_fp32_precision
 from axcnn_torch.data.datasets import DatasetInfo, get_dataset
-from axcnn_torch.data.pipeline import (MultiProducerLoader, SyntheticLoader, TFRecordImageLoader,
-                                       device_prefetch)
+from axcnn_torch.data.pipeline import (EchoIterator, MultiProducerLoader, SyntheticLoader,
+                                       TFRecordImageLoader, device_prefetch)
 from axcnn_torch.models.resnet import ModelConfig
 from axcnn_torch.parallel import mesh
 from axcnn_torch.train.ema import ema_init
@@ -61,7 +69,6 @@ from axcnn_torch.utils.watchdog import HangWatchdog, exit_after
 UNPORTED = (
     ("runtime.spatial_partitions > 1", 11, lambda c: c.runtime.spatial_partitions > 1),
     ("data.autoaugment_device", 10, lambda c: c.data.autoaugment_device),
-    ("data.echo_factor > 1", 10, lambda c: c.data.echo_factor > 1),
     ("runtime.export_dir", 10, lambda c: bool(c.runtime.export_dir)),
     ("runtime.eval_imagenet_c", 10, lambda c: c.runtime.eval_imagenet_c),
 )
@@ -371,8 +378,11 @@ def run(cfg: Config, *, local_rank: int = 0):
     step = state.step
     # the prefetch runs up to data.prefetch + 1 batches ahead of the loop, so
     # a save records its consumed_state, not train_loader.state
-    train_iter = device_prefetch(iter(train_loader), device=device, size=cfg.data.prefetch,
-                                 state_fn=lambda: train_loader.state)
+    prefetch = device_prefetch(iter(train_loader), device=device, size=cfg.data.prefetch,
+                               state_fn=lambda: train_loader.state)
+    train_iter = prefetch
+    if cfg.data.echo_factor > 1:
+        train_iter = EchoIterator(prefetch, cfg.data.echo_factor)
     # SIGTERM (the grace signal before a kill): finish the step in flight,
     # save the consumed position, return. One process only: with several
     # ranks only the signalled one would stop, and the others would wait at
@@ -384,7 +394,7 @@ def run(cfg: Config, *, local_rank: int = 0):
     profile_dir = os.path.join(cfg.runtime.model_dir, "profile")
     profiler = None
     profiled = not lead
-    pending_save = pending_force = False
+    pending_save = pending_force = pending_preempt = False
     watchdog = make_watchdog(lambda: step)
 
     def beat():
@@ -423,22 +433,34 @@ def run(cfg: Config, *, local_rank: int = 0):
                 pending_force = True
                 stopping = bool(cfg.train.stop_threshold
                                 and eval_metrics["top1"] >= cfg.train.stop_threshold)
-            preempt = preempted.is_set()
-            if pending_save or pending_force or preempt:
+            pending_preempt = pending_preempt or preempted.is_set()
+            # a save waits for the end of the echo group: consumed_state
+            # counts fresh batches, so only there does it resume exactly; the
+            # run's last step and an early stop save at once
+            aligned = getattr(train_iter, "at_boundary", True)
+            if ((pending_save or pending_force or pending_preempt)
+                    and (aligned or step == total_steps or stopping)):
                 if lead:
                     ckpt.save(state, loader_state=train_iter.consumed_state,
-                              rng_seed=cfg.train.seed, force=pending_force or preempt)
-                mesh.barrier(device, group)  # the checkpoint is whole for every rank
-                beat()  # a save is a long, legitimate pause
+                              rng_seed=cfg.train.seed, force=pending_force or pending_preempt)
+                # the ranks leave together once rank 0 has its snapshot; its
+                # writer runs on, and is joined by the next save or the end
+                mesh.barrier(device, group)
+                beat()
                 pending_save = pending_force = False
-                if preempt:
+                if pending_preempt:
+                    # the write may outlast the watchdog's deadline: disarm it
+                    # before waiting, so the preemption still exits 0
+                    if watchdog is not None:
+                        watchdog.stop()
+                    ckpt.wait()
                     logger.log("preempt_save", step)
                     break
             if stopping:
                 logger.log("early_stop", step, top1=eval_metrics["top1"])
                 break
     finally:
-        train_iter.close()
+        prefetch.close()
         if profiler is not None:
             profiler.stop()
         if watchdog is not None:

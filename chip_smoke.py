@@ -35,7 +35,8 @@ points and checks them:
    forward apply launch (2 + 2 + 2 launches);
 5. kernel_time: each kernel, its plain version and (BlurPool) the cuDNN call
    for the same function, and (BlurPool, the apply) a device copy of the
-   same bytes, at batch 128, bf16, beside its bound (bytes over the card's
+   same bytes, at batch 128, bf16 (BlurPool at the R50 step's three shapes
+   and the two a Big-Little step adds), beside its bound (bytes over the card's
    memory rate or operations over its fp32 rate), the BlurPool kernels and
    the apply on inputs rotated through 256 MB so they read device memory;
    the fused kernel beside the mask kernel then the apply (the two
@@ -62,7 +63,8 @@ points and checks them:
    the CPU through the plain versions, from the same state and seeds;
 11. checkpoint: a full-width assembled R50 state after 3 b128 bf16 steps is
     saved and restored into a fresh state; every tensor must come back bit
-    for bit with the fresh state's strides; save and restore seconds, MB;
+    for bit with the fresh state's strides; the save's blocking seconds (the
+    snapshot), the writer's seconds after it, restore seconds, MB;
 12. resume: the training CLI at full width, b128, bf16, 5 steps with a
     checkpoint at step 5, the hang watchdog armed and steps 1-2 profiled,
     then the same command to 10 steps: it must log ``restore`` at step 5,
@@ -90,7 +92,27 @@ points and checks them:
     training CLI with ``--model.remat=blocks`` at full width, b128, bf16, 5
     steps: finite losses, the launches per step, peak memory beside the run
     without;
-17. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
+17. bl_train: ``--config=bl_resnet50`` (Big-Little R50) through the training
+    CLI at full width, 224x224, 1001 classes, b128, bf16, synthetic data, 20
+    steps, ``--data.echo_factor=2`` and a save every 5 steps (deferred to the
+    echo groups' ends: steps 6, 10, 16, 20): finite losses, 10 fresh batches,
+    each save's blocking time below its writer thread's time, each
+    checkpoint restored bit for bit equal to the state at its step; step
+    walls, peak memory;
+18. bl_serve: ``predict`` on that checkpoint: its top-5 lines must equal the
+    restored EMA model's; that model's served img/s at b128 and latency at
+    b1, bf16;
+19. bl_parity: BL logits, card against CPU, from one seeded model with
+    perturbed BN, fp32 (TF32 off) <= 1e-3 and bf16 <= 5e-2 relative L2;
+20. bl_assembled: one b128 bf16 train step of BL with ResNet-D, SE, SK as
+    one 5x5 conv, BlurPool sconv and DropBlock: the BlurPool kernels 5 + 5
+    times and the fused DropBlock kernel and the apply backward 4 + 4
+    times, at the expected shapes (two of BlurPool's are BL's own);
+21. blur_sizes: BlurPool filter sizes 1-7 at stride 2 (and 3 at stride 1)
+    on fp32 and bf16 maps of odd and even extents: the general route
+    (cuDNN's depthwise conv) against its plain version on the card, and
+    (3, 2) still on the kernel;
+22. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
     card, NCCL), global b256, bf16, 10 steps: finite losses, img/s per card
     and in total. On a machine with one card it prints ``"ran": false``.
 
@@ -119,15 +141,18 @@ TIME_BATCH = 128
 # the BlurPool inputs of an R50 step at the main path's batch
 SLICE_SHAPES = [(TIME_BATCH, 56, 56, 128), (TIME_BATCH, 28, 28, 256),
                 (TIME_BATCH, 14, 14, 512)]
+# the two BlurPool inputs a Big-Little R50 step adds (the big branches'
+# first blocks of stages 2-3): checked and timed beside the R50 shapes
+BL_SHAPES = [(TIME_BATCH, 28, 28, 128), (TIME_BATCH, 14, 14, 256)]
 # tile edges of the TMA route: a last row band shorter than the rest and odd
 # extents on one sample (57x58), column bands (W 199), a channel block half
 # outside C (96); C at the smallest TMA-legal widths (8; 4 for fp32 only);
 # C only the per-thread route takes (6; 4 in bf16)
 EDGE_SHAPES = [(1, 57, 58, 128), (2, 9, 199, 64), (3, 15, 17, 96), (3, 15, 17, 8),
                (2, 13, 11, 4), (2, 7, 9, 6)]
-CHECK_SHAPES = SLICE_SHAPES + [(8, 112, 112, 64)] + EDGE_SHAPES
+CHECK_SHAPES = SLICE_SHAPES + BL_SHAPES + [(8, 112, 112, 64)] + EDGE_SHAPES
 # BlurPool backward: the forward INPUT extents (gradients are half-size)
-BWD_CHECK_SHAPES = SLICE_SHAPES + [(2, 8, 9, 8)] + EDGE_SHAPES
+BWD_CHECK_SHAPES = SLICE_SHAPES + BL_SHAPES + [(2, 8, 9, 8)] + EDGE_SHAPES
 # a channels_last tensor at a storage offset that is not 16-byte aligned
 MISALIGNED_SHAPE = (2, 15, 17, 64)
 # DropBlock sites of the assembled R50 at 224x224: (H, W, block size)
@@ -152,6 +177,10 @@ DP_RANKS, DP_LOCAL_BATCH = 2, 64
 DP_NCCL_BATCH, DP_NCCL_STEPS = 256, 10
 RESUME_STEPS = (5, 10)  # the first run's steps, then the resumed run's end
 KD_BATCH, KD_ACCUM, KD_STEPS = 1024, 8, 3
+BL_ECHO, BL_SAVE_EVERY = 2, 5
+# the general BlurPool route's check maps: odd and even extents, C that is
+# and is not a multiple of 8
+BLUR_SIZE_SHAPES = [(4, 28, 28, 64), (3, 15, 17, 24), (2, 9, 8, 6)]
 L2_FLUSH_BYTES = 256 << 20  # timing inputs cycle through at least this much (H100 L2: 50 MB)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory bandwidth (datasheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (datasheet)
@@ -538,7 +567,7 @@ def kernel_time_phase(errs):
         tot["bound_by"].add(bound_by)
         tot["library_ms"] = None if lib is None else tot["library_ms"] + lib
 
-    for n, h, w, c in SLICE_SHAPES:
+    for n, h, w, c in SLICE_SHAPES + BL_SHAPES:
         for kind in ("fwd", "bwd"):
             if kind == "fwd":
                 shape = (TIME_BATCH, h, w, c)
@@ -579,7 +608,8 @@ def kernel_time_phase(errs):
                  library_max_abs_err_vs_plain=lib_err, bytes=nbytes, ops=ops,
                  rotating_inputs=len(xs), kernel_gb_per_s=nbytes / (k * 1e-3) / 1e9)
             del xs, srcs
-            add(kind, k, p, bound, bound_by, lib)
+            if (n, h, w, c) in SLICE_SHAPES:  # the summary sums one R50 step's shapes
+                add(kind, k, p, bound, bound_by, lib)
     for h, w, bs in MASK_TIME_SHAPES:
         # the mask kernel reads 512 bytes of seeds: there is no L2 to flush
         seeds = [_seeds(TIME_BATCH, gen) for _ in range(16)]
@@ -795,14 +825,26 @@ def parity_phase():
 
 
 def throughput_phase(smi):
-    from axcnn_torch.core.dtypes import BF16_POLICY
-    from axcnn_torch.train.train_step import create_train_state, eval_logits, load_ema
+    from axcnn_torch.train.train_step import create_train_state, load_ema
 
     # the model predict serves: the preset's EMA weights, loaded once
     state = create_train_state(_assembled_cfg(), generator=torch.Generator().manual_seed(SEED),
                                device="cuda", use_ema=True)
     load_ema(state)
+    for batch, rate in _served(state).items():
+        emit("throughput", model="assemble_resnet50", batch=batch, dtype="bf16", **rate,
+             card=smi)
+
+
+def _served(state):
+    """The served forward of ``state``'s model (``eval_logits``, bf16) on
+    random uint8 images: {batch: img/s, ms a batch, iters} at b128 (20
+    forwards) and b1 (50), each ending in a synchronize."""
+    from axcnn_torch.core.dtypes import BF16_POLICY
+    from axcnn_torch.train.train_step import eval_logits
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
     for batch, iters in ((TIME_BATCH, 20), (1, 50)):
         u8 = torch.randint(0, 256, (batch, 224, 224, 3), generator=gen, device="cuda",
                            dtype=torch.uint8)
@@ -816,8 +858,8 @@ def throughput_phase(smi):
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / iters
         assert torch.isfinite(logits).all() and logits.shape == (batch, 1001)
-        emit("throughput", model="assemble_resnet50", batch=batch, dtype="bf16",
-             img_per_s=batch / dt, ms_per_batch=dt * 1e3, iters=iters, card=smi)
+        out[batch] = {"img_per_s": batch / dt, "ms_per_batch": dt * 1e3, "iters": iters}
+    return out
 
 
 def _run_cli(argv):
@@ -1003,7 +1045,9 @@ def checkpoint_phase(smi, tmp):
     mgr = CheckpointManager(os.path.join(tmp, "ckpt"), max_to_keep=1)
     t0 = time.perf_counter()
     mgr.save(state)
-    save_s = time.perf_counter() - t0
+    save_s = time.perf_counter() - t0  # the loop's pause: the snapshot
+    mgr.wait()
+    write_s = time.perf_counter() - t0 - save_s
     fresh = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED + 9),
                                device="cuda", use_ema=True)
     strides = {f: {k: t.stride() for k, t in d.items()}
@@ -1024,7 +1068,8 @@ def checkpoint_phase(smi, tmp):
     ok = not bad and restored.step == 3 and counts == _launches(9, 9, 27)
     emit("checkpoint", model="assemble_resnet50", steps=3, batch=TIME_BATCH, dtype="bf16",
          loss=metrics["loss"].item(), tensors=n, differ=bad[:5],
-         file_mb=os.path.getsize(mgr.path(3)) / 1e6, save_s=save_s, restore_s=restore_s,
+         file_mb=os.path.getsize(mgr.path(3)) / 1e6, save_s=save_s, write_s=write_s,
+         restore_s=restore_s,
          launches=counts, card=smi, ok=ok)
     if not ok:
         raise AssertionError(f"checkpoint round trip failed: {bad[:5]} {counts}")
@@ -1383,6 +1428,312 @@ def dp_nccl_phase(smi, tmp, single):
         raise AssertionError("dp_nccl phase failed")
 
 
+def _bl_cfg(**changes):
+    from axcnn_torch.utils.config import load_preset
+
+    return dataclasses.replace(load_preset("bl_resnet50").model, num_classes=1001, **changes)
+
+
+def _state_snapshot(state):
+    """Copies, on the card, of every tensor a checkpoint holds."""
+    return {f: {k: t.detach().clone() for k, t in d.items()}
+            for f, d in _state_tensors(state).items()}
+
+
+class _SaveClock:
+    """Wraps ``CheckpointManager`` while a CLI run trains: each save's
+    blocking time (the loop's pause: the snapshot), the writer thread's time
+    (pickle, write, fsync, rename, retention), and a copy of the state at the
+    moment of each save, taken before the save is timed."""
+
+    def __init__(self):
+        from axcnn_torch.ckpt.checkpoint import CheckpointManager
+
+        self.cls, self.saves, self.states, self.writer_s = CheckpointManager, [], {}, {}
+        self.save, self.write = CheckpointManager.save, CheckpointManager._write_step
+
+    def __enter__(self):
+        clock = self
+
+        def save(mgr, state, **kw):
+            states = _state_snapshot(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wrote = clock.save(mgr, state, **kw)
+            blocking = time.perf_counter() - t0
+            if wrote:
+                clock.states[int(state.step)] = states
+                clock.saves.append({"step": int(state.step), "blocking_s": blocking})
+            return wrote
+
+        def write(mgr, step, payload):
+            t0 = time.perf_counter()
+            clock.write(mgr, step, payload)
+            clock.writer_s[step] = time.perf_counter() - t0
+
+        self.cls.save, self.cls._write_step = save, write
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save, self.cls._write_step = self.save, self.write
+
+
+def bl_train_phase(smi, model_dir):
+    """``bl_resnet50`` through the training CLI at full width, b128, bf16,
+    20 steps, each synthetic batch echoed twice, a save every 5 steps; then
+    each checkpoint restored and held bit for bit against the state at its
+    step. Returns the path's counts (the preset launches no hand kernel)."""
+    from axcnn_torch.ckpt.checkpoint import CheckpointManager
+    from axcnn_torch.data.pipeline import EchoIterator
+    from axcnn_torch.train import loop
+    from axcnn_torch.train.train_step import create_train_state
+
+    class CountingEcho(EchoIterator):
+        fresh = 0
+
+        def __next__(self):
+            CountingEcho.fresh += self.at_boundary
+            return super().__next__()
+
+    argv = ["--config=bl_resnet50", "--data.use_synthetic_data",
+            f"--train.train_steps={TRAIN_STEPS}", f"--train.batch_size={TIME_BATCH}",
+            "--train.log_every=1", f"--data.echo_factor={BL_ECHO}",
+            f"--runtime.save_checkpoint_steps={BL_SAVE_EVERY}", "--runtime.num_devices=1",
+            f"--runtime.model_dir={model_dir}"]
+    loop.EchoIterator = CountingEcho
+    try:
+        with _SaveClock() as clock:
+            metrics, counts, seconds, peak, records = _run_cli(argv)
+    finally:
+        loop.EchoIterator = EchoIterator
+    train = [r for r in records if r["tag"] == "train"]
+    losses = [r["loss"] for r in train]
+    walls = _step_walls(train)
+    # saves every 5 steps wait for the end of an echo group (even steps)
+    want_steps = sorted({s + s % BL_ECHO for s in range(BL_SAVE_EVERY, TRAIN_STEPS + 1,
+                                                         BL_SAVE_EVERY)} | {TRAIN_STEPS})
+    mgr = CheckpointManager(os.path.join(model_dir, "checkpoints"))
+    differ, restored_s = [], []
+    for step in want_steps:
+        fresh = create_train_state(_bl_cfg(), generator=torch.Generator().manual_seed(SEED + 9),
+                                   device="cuda", use_ema=True)
+        t0 = time.perf_counter()
+        fresh, _, _ = mgr.restore(fresh, step=step)
+        torch.cuda.synchronize()
+        restored_s.append(time.perf_counter() - t0)
+        got = _state_snapshot(fresh)
+        for field, want in clock.states[step].items():
+            differ += [f"{step}/{field}/{k}" for k, t in want.items()
+                       if not torch.equal(got[field][k], t)]
+        del fresh, got
+    saves = [{**r, "writer_s": clock.writer_s[r["step"]]} for r in clock.saves]
+    ok = ([r["step"] for r in train] == list(range(1, TRAIN_STEPS + 1))
+          and all(np.isfinite(losses)) and counts == _launches(0, 0, 0)
+          and CountingEcho.fresh == TRAIN_STEPS // BL_ECHO
+          and [r["step"] for r in saves] == want_steps == mgr.all_steps()
+          and all(r["blocking_s"] < r["writer_s"] for r in saves) and not differ
+          and metrics["count"] == 4 * TIME_BATCH)
+    emit("bl_train", model="bl_resnet50", batch=TIME_BATCH, dtype="bf16", steps=TRAIN_STEPS,
+         echo_factor=BL_ECHO, fresh_batches=CountingEcho.fresh, losses=losses,
+         step_ms=[w * 1e3 for w in walls], mean_step_ms=float(walls.mean()) * 1e3,
+         step_ms_min=float(walls.min()) * 1e3, train_img_per_s=TIME_BATCH / float(walls.mean()),
+         max_memory_allocated_gib=peak / 2 ** 30, saves=saves,
+         file_mb=os.path.getsize(mgr.path(want_steps[-1])) / 1e6, restore_s=restored_s,
+         restored_differ=differ[:5], launches=counts, expected=_launches(0, 0, 0), eval=metrics,
+         seconds=seconds, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("bl_train phase failed")
+    return counts
+
+
+def bl_serve_phase(smi, model_dir, tmp):
+    """``predict`` on the ``bl_train`` run's checkpoint against its restored
+    EMA state's own ``eval_logits``; then that model's served img/s at b128
+    and latency at b1, bf16."""
+    from axcnn_torch.ckpt.checkpoint import CheckpointManager
+    from axcnn_torch.cli import predict
+    from axcnn_torch.core.dtypes import BF16_POLICY
+    from axcnn_torch.data.datasets import get_dataset
+    from axcnn_torch.data.preprocessing import preprocess_eval
+    from axcnn_torch.train.train_step import create_train_state, eval_logits, load_ema
+
+    paths = _write_jpegs(tmp, 8)
+    out, err = io.StringIO(), io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = predict.main([*(f"--image={p}" for p in paths), "--config=bl_resnet50",
+                           f"--runtime.model_dir={model_dir}"])
+    counts = _counts()
+    if rc != 0:
+        raise AssertionError(f"predict exited {rc}: {err.getvalue()}")
+    got = [json.loads(line) for line in out.getvalue().splitlines()]
+    state = create_train_state(_bl_cfg(), generator=torch.Generator(), device="cuda",
+                               use_ema=True)
+    state, _, _ = CheckpointManager(os.path.join(model_dir, "checkpoints")).restore(state)
+    u8 = np.stack([preprocess_eval(open(p, "rb").read(), image_size=224, resize_min=256)
+                   for p in paths])
+    info = get_dataset("imagenet")
+    logits = eval_logits(state, torch.from_numpy(u8).cuda(), policy=BF16_POLICY, use_ema=True,
+                         mean_rgb=info.mean_rgb, stddev_rgb=info.stddev_rgb)
+    want = _predict_lines(logits.cpu().numpy(), paths)
+    load_ema(state)  # the model predict serves
+    served = _served(state)
+    ok = got == want and "random init" not in err.getvalue() and counts == _launches(0, 0, 0)
+    emit("bl_serve", model="bl_resnet50", images=len(paths), step=state.step,
+         top5_equal=got == want, first=got[0], want_first=want[0], launches=counts,
+         served_b128=served[TIME_BATCH], served_b1=served[1], dtype="bf16", card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("serving the BL checkpoint disagrees with its restored state")
+    return counts
+
+
+def bl_parity_phase():
+    """BL-preset logits, card against CPU, from the same seeded weights with
+    perturbed BN: fp32 (TF32 off) and bf16, at ``parity``'s bounds."""
+    from axcnn_torch.core.dtypes import BF16_POLICY, DEFAULT_POLICY, set_fp32_precision
+    from axcnn_torch.data.preprocessing import normalize_device
+    from axcnn_torch.models.resnet import ResNet
+
+    set_fp32_precision(DEFAULT_POLICY)
+    model = ResNet(_bl_cfg(), generator=torch.Generator().manual_seed(SEED))
+    _perturb_bn(model, SEED)
+    model.eval()
+    u8 = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (2, 224, 224, 3), dtype=np.uint8))
+    with torch.inference_mode():
+        ref = model(normalize_device(u8)).numpy()
+    model.to("cuda", memory_format=torch.channels_last)
+    x = normalize_device(u8.cuda())
+    with torch.inference_mode():
+        fp32 = model(x).cpu().numpy()
+        bf16 = model(x, policy=BF16_POLICY).cpu().numpy()
+    assert np.isfinite(fp32).all() and np.isfinite(bf16).all()
+    rel = lambda a: float(np.linalg.norm(a - ref) / np.linalg.norm(ref))  # noqa: E731
+    e32, e16 = rel(fp32), rel(bf16)
+    ok = e32 <= 1e-3 and e16 <= 5e-2
+    emit("bl_parity", model="bl_resnet50", batch=2, logits_shape=list(fp32.shape),
+         ref_norm=float(np.linalg.norm(ref)), fp32_rel_l2=e32, fp32_tol=1e-3, bf16_rel_l2=e16,
+         bf16_tol=5e-2, top1_agree_bf16=bool((bf16.argmax(1) == ref.argmax(1)).all()), ok=ok)
+    if not ok:
+        raise AssertionError("BL card-vs-CPU logits parity failed")
+
+
+def bl_assembled_phase(smi):
+    """One full-width b128 bf16 train step of Big-Little with the
+    reference's assembly (ResNet-D, SE, SK as one 5x5 conv, BlurPool sconv,
+    DropBlock), DropBlock at keep-prob 0.95: finite loss, and the hand
+    kernels' launches and input shapes. BlurPool runs at the stride-2 mid
+    conv of stages 2-3's entry and big block0 and of stage 4's block0 (5
+    forwards and 5 backwards: 56x56x128, 28x28x128, 28x28x256, 14x14x256,
+    14x14x512); DropBlock at stage 3's output (14x14x1024) and after each of
+    stage 4's three blocks (7x7x2048): 4 fused launches and 4 apply
+    backwards."""
+    from axcnn_torch.core.dtypes import BF16_POLICY
+    from axcnn_torch.train.train_step import create_train_state
+
+    cfg = _bl_cfg(use_se_block=True, use_sk_block=True, sk_merged_conv=True,
+                  anti_alias_type="sconv", use_dropblock=True)
+    state = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
+                               device="cuda")
+    state.step = 1  # step 1 of 2: keep-prob 0.95, DropBlock drops
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"images": torch.randint(0, 256, (TIME_BATCH, 224, 224, 3), generator=gen,
+                                     device="cuda", dtype=torch.uint8),
+             "labels": torch.randint(0, 1001, (TIME_BATCH,), generator=gen, device="cuda")}
+    shapes = {"blur_fwd": [], "fused": []}
+    blur, fused = kblur.blur_pool_cuda, kdrop.dropblock_fused_cuda
+
+    def blur_rec(x, **kw):
+        n, c, h, w = x.shape
+        shapes["blur_fwd"].append([n, h, w, c])
+        return blur(x, **kw)
+
+    def fused_rec(x, *a):
+        n, c, h, w = x.shape
+        shapes["fused"].append([n, h, w, c])
+        return fused(x, *a)
+
+    kblur.blur_pool_cuda, kdrop.dropblock_fused_cuda = blur_rec, fused_rec
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        state, metrics = _dp_steps(cfg, 2, 0.2, policy=BF16_POLICY)(state, batch, SEED + 1)
+        loss = metrics["loss"].item()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        routes = dict(kblur.ROUTES)
+    finally:
+        kblur.blur_pool_cuda, kdrop.dropblock_fused_cuda = blur, fused
+    want = _launches(5, 5, 4)
+    want_shapes = {"blur_fwd": [[TIME_BATCH, 56, 56, 128], [TIME_BATCH, 28, 28, 128],
+                                [TIME_BATCH, 28, 28, 256], [TIME_BATCH, 14, 14, 256],
+                                [TIME_BATCH, 14, 14, 512]],
+                   "fused": [[TIME_BATCH, 14, 14, 1024]] + [[TIME_BATCH, 7, 7, 2048]] * 3}
+    ok = (np.isfinite(loss) and counts == want and shapes == want_shapes
+          and routes["fwd_thread"] == routes["bwd_thread"] == routes["general"] == 0)
+    emit("bl_assembled", model="bl_resnet50 + resnet_d, se, sk (merged 5x5), sconv, dropblock",
+         batch=TIME_BATCH, dtype="bf16", loss=loss, first_step_s=seconds,
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         launches=counts, expected=want, shapes_nhwc=shapes, expected_shapes=want_shapes,
+         routes=routes, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"bl_assembled launched {counts} at {shapes}, expected {want} "
+                             f"at {want_shapes}")
+    return counts
+
+
+def blur_sizes_phase():
+    """BlurPool's general route (filter sizes 1-7 but 3, and 3 at stride 1:
+    cuDNN's depthwise conv) on the card against its plain version on the
+    card, forward for fp32 and bf16 maps of odd and even extents and the
+    fp32 gradient against autograd through the plain version; the (3, 2)
+    call must still take the kernel. Tolerance: fp32 max abs error <= 1e-6
+    of the largest output; bf16 within one bf16 ulp of the plain value."""
+    from axcnn_torch.ops.blurpool import blur_pool, blur_pool_general_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cases, worst = [], {"fp32": 0.0, "bf16_ulps": 0.0, "fp32_grad": 0.0}
+    for fs, stride in [(f, 2) for f in range(1, 8)] + [(3, 1)]:
+        for shape in BLUR_SIZE_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = _nchw_input(shape, dtype, gen).detach().requires_grad_(dtype == torch.float32)
+                before = dict(kblur.ROUTES)
+                got = blur_pool(x, stride=stride, filter_size=fs)
+                new = {k: v - before[k] for k, v in kblur.ROUTES.items() if v != before[k]}
+                want = blur_pool_general_reference(x.detach(), stride=stride, filter_size=fs)
+                kernel = "fwd_tma" if _tma_legal(shape[3], dtype) else "fwd_thread"
+                routes_ok = new == ({kernel: 1} if (fs, stride) == (3, 2) else {"general": 1})
+                diff = (got.detach().float() - want.float()).abs()
+                if dtype == torch.float32:
+                    err = diff.max().item() / want.abs().max().item()
+                    g = torch.randn(got.shape, generator=gen, device="cuda")
+                    (dx,) = torch.autograd.grad(got, x, g)
+                    x2 = x.detach().clone().requires_grad_()
+                    (dx2,) = torch.autograd.grad(
+                        blur_pool_general_reference(x2, stride=stride, filter_size=fs), x2, g)
+                    gerr = (dx - dx2).abs().max().item() / dx2.abs().max().item()
+                    ok = err <= 1e-6 and gerr <= 1e-6
+                    worst["fp32"], worst["fp32_grad"] = (max(worst["fp32"], err),
+                                                         max(worst["fp32_grad"], gerr))
+                else:
+                    err = (diff / _bf16_ulp(want)).max().item()
+                    ok = err <= 1.0
+                    worst["bf16_ulps"] = max(worst["bf16_ulps"], err)
+                ok = ok and routes_ok and got.shape == want.shape
+                cases.append(ok)
+                if not ok:
+                    emit("blur_sizes_case", filter_size=fs, stride=stride, shape=list(shape),
+                         dtype=str(dtype), err=err, routes=new, ok=False)
+    ok = all(cases)
+    emit("blur_sizes", filter_sizes=list(range(1, 8)), shapes_nhwc=BLUR_SIZE_SHAPES,
+         cases=len(cases), failed=cases.count(False), worst=worst,
+         tolerance={"fp32": 1e-6, "fp32_grad": 1e-6, "bf16_ulps": 1.0},
+         kernel_route_for_3_2="the kernel (fwd_tma or fwd_thread by C)", ok=ok)
+    if not ok:
+        raise AssertionError("BlurPool's general route disagrees with its plain version")
+
+
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
     ("fwd", ("fwd",), "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
@@ -1416,6 +1767,12 @@ def main():
         paths["kd"] = kd_phase(smi, run_dir, os.path.join(tmp, "kd"))
         paths["dp"] = dp_phase(smi, tmp)
         paths["remat"] = remat_phase(smi, tmp, single)
+        bl_dir = os.path.join(tmp, "bl")
+        paths["bl_train"] = bl_train_phase(smi, bl_dir)
+        paths["bl_serve"] = bl_serve_phase(smi, bl_dir, tmp)
+        bl_parity_phase()
+        paths["bl_assembled"] = bl_assembled_phase(smi)
+        blur_sizes_phase()
         dp_nccl_phase(smi, tmp, single)
     for _, keys, name, *_ in KERNELS:
         for k in keys:

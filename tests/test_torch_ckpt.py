@@ -96,6 +96,7 @@ def test_retention_and_save_rules(tmp_path):
         state.step = step
         assert mgr.save(state)
     assert mgr.all_steps() == [3, 4] and mgr.latest_step() == 4
+    mgr.wait()
     assert sorted(os.listdir(tmp_path)) == ["3.pt", "4.pt"]
     state.step = 4
     assert not mgr.save(state, force=True)
@@ -104,6 +105,7 @@ def test_retention_and_save_rules(tmp_path):
     wider = CheckpointManager(str(tmp_path), max_to_keep=3)
     assert wider.save(state, force=True)
     assert wider.all_steps() == [2, 3, 4]  # retention is by step
+    wider.wait()
     assert mgr.restore(_state(3), step=2)[0].step == 2
     with pytest.raises(ValueError, match="max_to_keep"):
         CheckpointManager(str(tmp_path), max_to_keep=0)
@@ -125,6 +127,7 @@ def test_a_failed_save_leaves_the_last_good_checkpoint(tmp_path, monkeypatch):
     mgr = CheckpointManager(str(tmp_path))
     state = _state(4)
     mgr.save(state)
+    mgr.wait()
     good = (tmp_path / "7.pt").read_bytes()
 
     def killed(obj, f):
@@ -133,8 +136,9 @@ def test_a_failed_save_leaves_the_last_good_checkpoint(tmp_path, monkeypatch):
 
     monkeypatch.setattr(torch, "save", killed)
     state.step = 8
+    assert mgr.save(state)  # the write fails in the writer thread
     with pytest.raises(KeyboardInterrupt):
-        mgr.save(state)
+        mgr.wait()
     assert sorted(os.listdir(tmp_path)) == ["7.pt"]
     assert (tmp_path / "7.pt").read_bytes() == good and mgr.latest_step() == 7
 
@@ -256,9 +260,10 @@ def test_orbax_checkpoint_crosses_and_serves_the_same(tmp_path, capsys):
     # the three lines of the bridge (README.md)
     jmgr = JCheckpointManager(os.path.join(jdir, "checkpoints"))
     jstate, loader_state, rng_seed = jmgr.restore(_reference_template(JModelConfig(**CFG)))
-    CheckpointManager(os.path.join(tdir, "checkpoints"), model_config=jmgr.model_config()
-                      ).save(train_state_from_axcnn(jstate, ModelConfig(**CFG)),
-                             loader_state=loader_state, rng_seed=rng_seed)
+    tmgr = CheckpointManager(os.path.join(tdir, "checkpoints"), model_config=jmgr.model_config())
+    tmgr.save(train_state_from_axcnn(jstate, ModelConfig(**CFG)), loader_state=loader_state,
+              rng_seed=rng_seed)
+    tmgr.wait()
     jmgr.close()
 
     imgs = []
@@ -296,6 +301,7 @@ def test_predict_refuses_a_checkpoint_of_another_model(tmp_path, capsys):
     mgr = CheckpointManager(str(ckpt_dir), model_config=dataclasses.asdict(
         ModelConfig(**{**CFG, "width_multiplier": 0.25})))
     mgr.save(_state(0, cfg=ModelConfig(**{**CFG, "width_multiplier": 0.25})))
+    mgr.wait()
     argv = [f"--image={img}", *PREDICT, f"--runtime.model_dir={tmp_path / 'run'}", "--cpu"]
     assert tpredict.main(argv) == 1
     err = capsys.readouterr().err

@@ -113,6 +113,7 @@ def _save_teacher(directory, cfg, *, sidecar=True, seed=0):
     mgr = CheckpointManager(directory,
                             model_config=dataclasses.asdict(cfg) if sidecar else None)
     mgr.save(state)
+    mgr.wait()
     return state
 
 

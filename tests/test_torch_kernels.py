@@ -63,13 +63,17 @@ def test_blur_pool_routes_cpu_tensors_to_reference():
 
 
 def test_blur_pool_refuses_what_it_does_not_take():
+    """The kernel entry takes 3x3/2 only, refused before the device; the op
+    routes every other size to its general version instead."""
     x = torch.zeros(1, 8, 6, 6)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kblur.blur_pool_cuda(x)
     with pytest.raises(NotImplementedError, match="filter_size=3, stride=2"):
-        blur_pool(x, filter_size=5)
+        kblur.blur_pool_cuda(x, filter_size=5)
     with pytest.raises(NotImplementedError):
-        blur_pool(x, stride=3)
+        kblur.blur_pool_cuda(x, stride=3)
+    assert blur_pool(x, filter_size=5).shape == (1, 8, 3, 3)
+    assert blur_pool(x, stride=3).shape == (1, 8, 2, 2)
 
 
 @pytest.mark.cuda

@@ -23,7 +23,10 @@ of 10):
   statistics, so the step's velocity, loss and moving statistics are the
   means of two one-process steps on the shards;
 - the step's own draws: one lambda from the global stream, or with
-  ``mixup_per_shard`` each rank's from its fold (``mixup_lam`` their mean).
+  ``mixup_per_shard`` each rank's from its fold (``mixup_lam`` their mean);
+- Big-Little stages (``bl_alpha=2, bl_beta=4`` on the same flags) in
+  float64 against the reference's Big-Little ``shard_train_step``, with the
+  same bounds.
 
 Remat alone, the prefetch, the CLI on two CPU ranks (resume included, a
 failing rank) and the refusals follow.
@@ -61,7 +64,12 @@ LR_KW = dict(base_lr=0.1 * N / 256, total_steps=TOTAL, warmup_steps=2)
 SITES = {f"dropblock/stage{s}/block{b}": SIZE // 4 // 2 ** (s - 1)
          for s, blocks in ((3, 6), (4, 3)) for b in range(blocks)}
 ROOT_KEY = 72
-LEGS = ("fp32", "fp64", "fp32_remat", "fp64_nosync", "own_draws", "own_draws_per_shard")
+BL_CFG = {**CFG, "bl_alpha": 2, "bl_beta": 4}
+# a Big-Little stage 3 has one DropBlock site, at its output
+BL_SITES = {"dropblock/stage3/out": SIZE // 16,
+            **{k: hw for k, hw in SITES.items() if k.startswith("dropblock/stage4")}}
+LEGS = ("fp32", "fp64", "fp32_remat", "fp64_nosync", "own_draws", "own_draws_per_shard",
+        "bl_fp64")
 
 
 def _free_port():
@@ -80,11 +88,11 @@ def _port_step(inputs, leg, rank, group="data"):
     the new state's tensors and the metrics."""
     from axcnn_torch.parallel.mesh import data_group
 
-    f64 = leg.startswith("fp64")
+    f64, bl = "fp64" in leg, leg.startswith("bl")
     remat = "blocks" if leg.endswith("remat") else "none"
-    cfg = ModelConfig(**CFG, remat=remat)
+    cfg = ModelConfig(**(BL_CFG if bl else CFG), remat=remat)
     state = create_train_state(cfg, generator=torch.Generator(), device="cpu")
-    payload = inputs["fp64" if f64 else "fp32"]
+    payload = inputs[leg if bl else "fp64" if f64 else "fp32"]
     state.model.load_state_dict(payload["model"])
     state.velocity = {k: v.clone() for k, v in payload["velocity"].items()}
     state.ema = {k: v.clone() for k, v in payload["ema"].items()}
@@ -134,7 +142,7 @@ def _rank_main(rank, world, port, workdir):
 # the test side (imports the reference)
 # ---------------------------------------------------------------------------
 
-def _reference_state(seed):
+def _reference_state(seed, cfg=CFG):
     """The reference's TrainState at step 5: He-scaled weights, perturbed BN,
     random velocity and an EMA near the weights (as in
     tests/test_torch_train_step.py)."""
@@ -144,7 +152,7 @@ def _reference_state(seed):
     from axcnn.models.resnet import resnet_init
     from axcnn.train.train_step import TrainState as JTrainState
 
-    p_shape, s_shape = jax.eval_shape(lambda k: resnet_init(k, JModelConfig(**CFG)),
+    p_shape, s_shape = jax.eval_shape(lambda k: resnet_init(k, JModelConfig(**cfg)),
                                       jax.random.key(0))
     rng = np.random.default_rng(seed)
 
@@ -178,7 +186,7 @@ def _batch():
             "labels": rng.integers(0, 10, N).astype(np.int32)}
 
 
-def _draws(root_key):
+def _draws(root_key, sites=SITES):
     """The reference's draws of the step: lambda from the global stream, each
     shard's DropBlock uniforms from the stream folded with its index."""
     import jax
@@ -193,14 +201,14 @@ def _draws(root_key):
         rng_i = JRngStream(jax.random.fold_in(rng_global("shard"), i))
         uniforms.append({site: torch.from_numpy(np.array(jax.random.uniform(
             rng_i(site), (N // WORLD, hw, hw, 1), jnp.float32))[..., 0])
-            for site, hw in SITES.items()})
+            for site, hw in sites.items()})
     return lam, uniforms
 
 
-def _port_inputs(jstate, batch, lam, uniforms):
+def _port_inputs(jstate, batch, lam, uniforms, cfg=CFG):
     from axcnn_torch.ckpt.convert import train_state_from_axcnn
 
-    tstate = train_state_from_axcnn(jstate, ModelConfig(**CFG))
+    tstate = train_state_from_axcnn(jstate, ModelConfig(**cfg))
     m = N // WORLD
     return {"model": tstate.model.state_dict(), "velocity": tstate.velocity,
             "ema": tstate.ema, "lam": lam[()],
@@ -209,7 +217,7 @@ def _port_inputs(jstate, batch, lam, uniforms):
                         "uniforms": uniforms[i]} for i in range(WORLD)]}
 
 
-def _reference_step(jstate, batch, root_key, float_dtype):
+def _reference_step(jstate, batch, root_key, float_dtype, cfg=CFG):
     import jax
     import jax.numpy as jnp
 
@@ -223,7 +231,7 @@ def _reference_step(jstate, batch, root_key, float_dtype):
                         jstate)
     policy = JPolicy(param_dtype=jnp.float32, compute_dtype=jnp.float32)
     jstep = shard_train_step(
-        j_make_train_step(JModelConfig(**CFG), lr_schedule=j_lr(**LR_KW), policy=policy,
+        j_make_train_step(JModelConfig(**cfg), lr_schedule=j_lr(**LR_KW), policy=policy,
                           axis_name=DATA_AXIS, **STEP_KW), make_mesh(WORLD))
     j_new, j_metrics = jstep(j_in, batch, root_key)
     return j_in, jax.tree.map(np.asarray, j_new), jax.device_get(j_metrics)
@@ -240,12 +248,15 @@ def dp_runs(tmp_path_factory):
 
     workdir = tmp_path_factory.mktemp("dp")
     jstate, batch, root_key = _reference_state(80), _batch(), jax.random.key(ROOT_KEY)
+    bl_state = _reference_state(82, BL_CFG)
     inputs = {"fp32": _port_inputs(jstate, batch, *_draws(root_key))}
+    to64 = lambda t: jax.tree.map(  # noqa: E731
+        lambda a: np.asarray(a, np.float64) if a.dtype.kind == "f" else a, t)
     with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnp, "float32", jnp.float64)
-        j64 = jax.tree.map(lambda a: np.asarray(a, np.float64) if a.dtype.kind == "f" else a,
-                           jstate)
-        inputs["fp64"] = _port_inputs(j64, batch, *_draws(root_key))
+        inputs["fp64"] = _port_inputs(to64(jstate), batch, *_draws(root_key))
+        inputs["bl_fp64"] = _port_inputs(to64(bl_state), batch,
+                                         *_draws(root_key, BL_SITES), BL_CFG)
     torch.save(inputs, workdir / "inputs.pt")
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
@@ -257,6 +268,7 @@ def dp_runs(tmp_path_factory):
         with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
             mp.setattr(jnp, "float32", jnp.float64)
             want["fp64"] = _reference_step(jstate, batch, root_key, np.float64)
+            want["bl_fp64"] = _reference_step(bl_state, batch, root_key, np.float64, BL_CFG)
         outs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
         for p in procs:
@@ -270,18 +282,19 @@ def dp_runs(tmp_path_factory):
     for leg in LEGS:
         r0 = ranks[0][leg]
         with pytest.MonkeyPatch.context() as mp:
-            if leg.startswith("fp64"):  # the converter's fp32 cast, re-pointed
+            if "fp64" in leg:  # the converter's fp32 cast, re-pointed
                 mp.setattr(torch.Tensor, "float", lambda self: self.double())
-            tree = train_state_to_axcnn(_as_state(r0, remat=leg.endswith("remat")))
+            tree = train_state_to_axcnn(_as_state(r0, remat=leg.endswith("remat"),
+                                                  cfg=BL_CFG if leg.startswith("bl") else CFG))
         got[leg] = dict(tree=jax.tree.map(lambda a: np.asarray(a, np.float64), tree),
                         metrics=r0["metrics"], ranks=[r[leg] for r in ranks])
     got["inputs"] = workdir / "inputs.pt"
     return want, got
 
 
-def _as_state(out, remat):
+def _as_state(out, remat, cfg=CFG):
     """A TrainState holding a rank's result, for the converter."""
-    cfg = ModelConfig(**CFG, remat="blocks" if remat else "none")
+    cfg = ModelConfig(**cfg, remat="blocks" if remat else "none")
     state = create_train_state(cfg, generator=torch.Generator(), device="cpu")
     if out["params"][next(iter(out["params"]))].dtype == torch.float64:
         state.model.double()
@@ -346,6 +359,26 @@ def test_dp_bn_statistics_match(dp_runs, leg, rtol, atol):
     assert set(port) == set(ref)
     for k in ref:
         np.testing.assert_allclose(port[k], ref[k], rtol=rtol, atol=atol, err_msg=k)
+
+
+def test_dp_big_little_fp64_step_matches_the_reference(dp_runs):
+    """Big-Little stages under data parallelism (sync-BN over the little
+    branch's projection BN too, DropBlock at stage 3's output): float64, the
+    bounds of the assembled legs."""
+    want, got = dp_runs
+    (old, new, jm), port = want["bl_fp64"], got["bl_fp64"]
+    tm = port["metrics"]
+    np.testing.assert_allclose(tm["loss"], float(jm["loss"]), rtol=1e-7)
+    assert tm["train_top1"] == float(jm["train_top1"])
+    np.testing.assert_allclose(tm["mixup_lam"], float(jm["mixup_lam"]), rtol=1e-7)
+    for field in ("params", "velocity"):
+        errs = _update_errors(want["bl_fp64"], port, field)
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= 1e-6, (field, worst, errs[worst])
+    ref, mine = _leaves(new.model_state), _leaves(port["tree"]["model_state"])
+    assert set(mine) == set(ref) and any("little_proj_bn" in k for k in ref)
+    for k in ref:
+        np.testing.assert_allclose(mine[k], ref[k], rtol=1e-7, atol=1e-10, err_msg=k)
 
 
 def test_dp_fp64_ema_matches(dp_runs):
@@ -420,26 +453,28 @@ def test_dp_draws_lambda_from_the_global_or_the_rank_stream(dp_runs, per_shard):
 # remat on one process
 # ---------------------------------------------------------------------------
 
-def _small_state(remat, seed=3):
-    cfg = ModelConfig(**CFG, remat=remat)
+def _small_state(remat, seed=3, kw=CFG):
+    cfg = ModelConfig(**kw, remat=remat)
     state = create_train_state(cfg, generator=torch.Generator().manual_seed(seed),
                                device="cpu")
     state.step = STEP
     return cfg, state
 
 
-def test_remat_blocks_matches_no_remat_and_updates_bn_once():
+@pytest.mark.parametrize("kw", [CFG, BL_CFG], ids=["assembled", "bl"])
+def test_remat_blocks_matches_no_remat_and_updates_bn_once(kw):
     """DropBlock active (keep-prob 0.75 at step 5 of 10), drawn from the
     step's hashed seeds: under ``remat="blocks"`` the loss, every gradient
     (through the update) and the BN moving statistics equal the run without
     remat bit for bit, and each moving statistic moved by exactly one
-    update from its initial value."""
+    update from its initial value. Big-Little: each block of a BL stage is
+    a region; its projection and merge are not."""
     rng = np.random.default_rng(5)
     batch = {"images": torch.from_numpy(rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)),
              "labels": torch.from_numpy(rng.integers(0, 10, 4).astype(np.int64))}
     runs = {}
     for remat in ("none", "blocks"):
-        cfg, state = _small_state(remat)
+        cfg, state = _small_state(remat, kw=kw)
         before = {k: b.clone() for k, b in state.model.named_buffers()}
         step = make_train_step(cfg, lr_schedule=t_lr(**LR_KW), **STEP_KW)
         state, metrics = step(state, batch, 11)

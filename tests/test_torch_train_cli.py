@@ -112,7 +112,6 @@ REFUSED_FLAGS = {
     "runtime.spatial_partitions > 1": "--runtime.spatial_partitions=2",
     "runtime.dcn_slices > 1": "--runtime.dcn_slices=2",
     "data.autoaugment_device": "--data.autoaugment_device",
-    "data.echo_factor > 1": "--data.echo_factor=2",
     "runtime.export_dir": "--runtime.export_dir=/nonexistent",
     "runtime.eval_imagenet_c": "--runtime.eval_imagenet_c",
 }
