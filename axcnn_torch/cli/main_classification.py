@@ -23,7 +23,21 @@ Usage, with the reference's argv grammar and presets:
     ... --config=assemble_resnet152_kd --train.grad_accum_steps=8 \\
         --train.kd_teacher_checkpoint=/tmp/run1/checkpoints
 
-``runtime.platform`` picks the device: ``""`` or ``gpu`` is the CUDA card,
+    # AutoAugment on the card instead of in the loader (real data only):
+    ... --data.data_dir=/data/imagenet --data.autoaugment_device=true
+
+    # evaluate in int8 (int8 convs, bf16 elsewhere) and write a serving export:
+    ... --runtime.model_dir=/tmp/run1 --runtime.eval_only --train.dtype=int8 \\
+        --runtime.export_dir=/tmp/run1/export_int8
+
+    # ImageNet-C mCE of what a run saved (axcnn_torch.data.build_imagenet_c
+    # writes the corrupted sets):
+    ... --runtime.model_dir=/tmp/run1 --runtime.eval_imagenet_c \\
+        --data.data_dir=/data/imagenet_c
+
+``runtime.eval_imagenet_c`` runs ``axcnn_torch.eval.imagenet_c.run_imagenet_c``
+in place of the training loop, on as many ranks. ``runtime.platform`` picks
+the device: ``""`` or ``gpu`` is the CUDA card,
 and the run exits non-zero with a message when there is none; ``cpu`` is the
 host. The metrics go to ``<runtime.model_dir>/metrics.jsonl``. SIGTERM
 finishes the step in flight, saves a checkpoint and exits 0 (one process).
@@ -90,7 +104,7 @@ def _rank_main(rank: int, world: int, coordinator: str, argv, results, failed) -
     import torch
 
     from axcnn_torch.parallel import mesh
-    from axcnn_torch.train.loop import resolve_device, run
+    from axcnn_torch.train.loop import resolve_device
     from axcnn_torch.utils.config import parse_cli
 
     cfg = parse_cli(argv)
@@ -101,7 +115,7 @@ def _rank_main(rank: int, world: int, coordinator: str, argv, results, failed) -
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     mesh.init_distributed(device, rank=rank, world_size=world, coordinator=coordinator)
     try:
-        metrics = run(cfg, local_rank=rank)
+        metrics = _run(cfg, local_rank=rank)
     except BaseException:
         if failed.is_set():  # another rank failed first: let its error end the run
             time.sleep(PEER_GRACE_S)
@@ -113,9 +127,21 @@ def _rank_main(rank: int, world: int, coordinator: str, argv, results, failed) -
         results.put(metrics)
 
 
+def _run(cfg, *, local_rank: int = 0):
+    """This process's part of the run: the mCE evaluation or the training
+    loop."""
+    if cfg.runtime.eval_imagenet_c:
+        from axcnn_torch.eval.imagenet_c import run_imagenet_c
+
+        return run_imagenet_c(cfg, local_rank=local_rank)
+    from axcnn_torch.train.loop import run
+
+    return run(cfg, local_rank=local_rank)
+
+
 def main(argv=None):
     from axcnn_torch.parallel import mesh
-    from axcnn_torch.train.loop import resolve_device, run
+    from axcnn_torch.train.loop import resolve_device
     from axcnn_torch.utils.config import parse_cli
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -125,7 +151,7 @@ def main(argv=None):
         local_rank = int(os.environ.get("LOCAL_RANK", 0))
         mesh.init_distributed(resolve_device(cfg.runtime.platform, local_rank))
         try:
-            metrics = run(cfg, local_rank=local_rank)
+            metrics = _run(cfg, local_rank=local_rank)
         finally:
             mesh.shutdown()
     elif (world := num_ranks(cfg)) > 1:
@@ -138,7 +164,7 @@ def main(argv=None):
                                  ctx.Event()))
         metrics = results.get()
     else:
-        metrics = run(cfg)
+        metrics = _run(cfg)
     print({k: round(v, 4) if isinstance(v, float) else v
            for k, v in (metrics or {}).items()})
     return metrics

@@ -11,6 +11,14 @@ The C entry points choose a route by shape: TMA tiles in shared memory
 where a tensor map can describe the input (16-byte aligned, C * itemsize a
 multiple of 16), one thread per element otherwise.
 
+``axcnn::blur_pool3_s2`` (``blur_pool3_s2``) is the forward as a
+``torch.library`` custom op, the form a traced program can hold: its CUDA
+implementation is the kernel's launch (``blur_pool_cuda``), its CPU one the
+plain version, and its fake one the output's shape, channels_last. The
+serving forward calls it, so a ``torch.export`` of that forward keeps the
+op, and the device the program runs on picks the implementation; the
+training forward keeps ``BlurPool3S2``.
+
 ``blur_pool_reference`` and ``blur_pool_bwd_reference`` are the plain
 PyTorch versions: shifted adds in fp32 in the kernels' order, with no conv,
 so no cuDNN or TF32 choice enters them. ``LAUNCHES`` and ``BWD_LAUNCHES``
@@ -165,3 +173,21 @@ class BlurPool3S2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return blur_pool_bwd_cuda(g, ctx.in_hw)
+
+
+@torch.library.custom_op("axcnn::blur_pool3_s2", mutates_args=(), device_types="cuda")
+def blur_pool3_s2(x: torch.Tensor) -> torch.Tensor:
+    """BlurPool 3x3/2 forward as a custom op: on the card, the kernel."""
+    return blur_pool_cuda(x)
+
+
+@blur_pool3_s2.register_kernel("cpu")
+def _blur_pool3_s2_cpu(x: torch.Tensor) -> torch.Tensor:
+    return blur_pool_reference(x).contiguous(memory_format=torch.channels_last)
+
+
+@blur_pool3_s2.register_fake
+def _blur_pool3_s2_fake(x: torch.Tensor) -> torch.Tensor:
+    n, c, h, w = x.shape
+    return torch.empty((n, c, (h + 1) // 2, (w + 1) // 2), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)

@@ -137,9 +137,9 @@ class Stem(nn.Module):
             self.add_module(f"conv{i}", Conv(k, cin, cout, stride=2 if i == 0 else 1))
             self.add_module(f"bn{i}", BatchNorm(cout, momentum=cfg.bn_momentum))
 
-    def forward(self, x, compute_dtype, train: bool = False, group=None):
+    def forward(self, x, compute_dtype, train: bool = False, group=None, quantize=False):
         for i in range(self.depth):
-            x = getattr(self, f"conv{i}")(x, compute_dtype)
+            x = getattr(self, f"conv{i}")(x, compute_dtype, quantize)
             x = torch.relu(getattr(self, f"bn{i}")(x, train=train, group=group))
         if self.blur_max:
             return blur_pool(max_pool_same(x, window=3, stride=1), stride=2,
@@ -187,26 +187,26 @@ class Block(nn.Module):
         if cfg.use_se_block:
             self.se = SE(out_ch, ratio=cfg.se_ratio)
 
-    def _shortcut(self, x, cd, train, group):
+    def _shortcut(self, x, cd, train, group, qc):
         if not hasattr(self, "proj_conv"):
             return x
         if self.short_pool == "avg":
             x = avg_pool_same(x, window=self.stride, stride=self.stride)
         elif self.short_pool == "blur":
             x = blur_pool(x, stride=self.stride, filter_size=self.filter_size)
-        return self.proj_bn(self.proj_conv(x, cd), train=train, group=group)
+        return self.proj_bn(self.proj_conv(x, cd, qc), train=train, group=group)
 
-    def forward(self, x, compute_dtype, train: bool = False, group=None):
-        cd = compute_dtype
-        shortcut = self._shortcut(x, cd, train, group)
-        h = torch.relu(self.bn1(self.conv1(x, cd), train=train, group=group))
+    def forward(self, x, compute_dtype, train: bool = False, group=None, quantize=False):
+        cd, qc = compute_dtype, quantize
+        shortcut = self._shortcut(x, cd, train, group, qc)
+        h = torch.relu(self.bn1(self.conv1(x, cd, qc), train=train, group=group))
         if hasattr(self, "sk"):
-            h = self.sk(h, cd, train=train, group=group)
+            h = self.sk(h, cd, train=train, group=group, quantize=qc)
         else:
-            h = torch.relu(self.bn2(self.conv2(h, cd), train=train, group=group))
+            h = torch.relu(self.bn2(self.conv2(h, cd, qc), train=train, group=group))
         if self.blur_mid:
             h = blur_pool(h, stride=self.stride, filter_size=self.filter_size)
-        h = self.bn3(self.conv3(h, cd), train=train, group=group)
+        h = self.bn3(self.conv3(h, cd, qc), train=train, group=group)
         if hasattr(self, "se"):
             h = self.se(h)
         return torch.relu(h + shortcut.to(h.dtype))
@@ -234,17 +234,18 @@ class BLStage(nn.Module):
         self.little_proj = Conv(1, ch, out_ch)
         self.little_proj_bn = BatchNorm(out_ch, momentum=cfg.bn_momentum)
 
-    def forward(self, x, compute_dtype, train: bool = False, group=None, *,
+    def forward(self, x, compute_dtype, train: bool = False, group=None, quantize=False, *,
                 remat: bool = False):
-        cd = compute_dtype
-        x = _region(self.entry, x, cd, train, group, remat=remat)
+        args = (compute_dtype, train, group, quantize)
+        x = _region(self.entry, x, *args, remat=remat)
         big = x
         for block in self.big.values():
-            big = _region(block, big, cd, train, group, remat=remat)
+            big = _region(block, big, *args, remat=remat)
         little = x
         for block in self.little.values():
-            little = _region(block, little, cd, train, group, remat=remat)
-        little = self.little_proj_bn(self.little_proj(little, cd), train=train, group=group)
+            little = _region(block, little, *args, remat=remat)
+        little = self.little_proj_bn(self.little_proj(little, compute_dtype, quantize),
+                                     train=train, group=group)
         big_up = F.interpolate(big, size=little.shape[-2:], mode="nearest-exact")
         return torch.relu(big_up + little)
 
@@ -306,10 +307,10 @@ class ResNet(nn.Module):
             raise ValueError("training with DropBlock requires rng")
         kp = dropblock_keep_prob(progress, cfg.dropblock_keep_prob)
         uniforms = dropblock_uniforms or {}
-        cd = policy.compute_dtype
+        args = (policy.compute_dtype, train, group, policy.quantize_conv)
         # NHWC -> NCHW view: the memory stays NHWC, i.e. channels_last
         x = policy.cast_to_compute(images).permute(0, 3, 1, 2)
-        x = _region(self.stem, x, cd, train, group, remat=remat)
+        x = _region(self.stem, x, *args, remat=remat)
         def drop(x, site):
             return dropblock(x, sample_seeds(rng.numpy(site), x.shape[0]), keep_prob=kp,
                              block_size=cfg.dropblock_block_size, train=True,
@@ -320,12 +321,12 @@ class ResNet(nn.Module):
             stage = getattr(self, sname)
             db_here = use_db and s + 1 in cfg.dropblock_stages
             if isinstance(stage, BLStage):
-                x = stage(x, cd, train, group, remat=remat)
+                x = stage(x, *args, remat=remat)
                 if db_here:
                     x = drop(x, f"dropblock/{sname}/out")
                 continue
             for b, block in enumerate(stage.values()):
-                x = _region(block, x, cd, train, group, remat=remat)
+                x = _region(block, x, *args, remat=remat)
                 if db_here:
                     x = drop(x, f"dropblock/{sname}/block{b}")
         pooled = global_avg_pool(x)  # (N, C), in the compute dtype

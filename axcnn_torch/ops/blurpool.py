@@ -6,6 +6,10 @@ takes the hand-written kernels' route, where the device decides: a CPU
 tensor takes their plain PyTorch version, which autograd differentiates; a
 CUDA tensor takes the kernels through ``BlurPool3S2`` (forward kernel,
 backward kernel as its gradient), which raise on what they do not take.
+Where no gradient is asked for (serving, evaluation, a KD teacher, a
+``torch.export`` trace), the forward is the custom op
+``axcnn::blur_pool3_s2``: the same kernel on a CUDA tensor and the same
+plain version on a CPU one, in a form a traced program keeps.
 Every other filter size (1-7) and stride takes the general version on both
 devices, the reference's XLA form: a depthwise conv with the normalised
 binomial filter and TF fixed padding, in full fp32 for fp32 tensors (TF32
@@ -47,6 +51,8 @@ def blur_pool(x, *, stride: int = 2, filter_size: int = 3):
     """Depthwise binomial blur + stride-``stride`` subsample."""
     if (filter_size, stride) != (3, 2):
         return blur_pool_general(x, stride=stride, filter_size=filter_size)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.ops.axcnn.blur_pool3_s2(x)
     if x.device.type == "cpu":
         return kblur.blur_pool_reference(x)
     return kblur.BlurPool3S2.apply(x)

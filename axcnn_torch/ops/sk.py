@@ -51,15 +51,19 @@ class SK(nn.Module):
         self.bn_z = BatchNorm(d, momentum=bn_momentum)
         self.fc_select = Dense(d, NUM_BRANCHES * out_ch, std=(1.0 / d) ** 0.5)
 
-    def forward(self, x, compute_dtype=None, *, train: bool = False, group=None):
+    def forward(self, x, compute_dtype=None, *, train: bool = False, group=None,
+                quantize: bool = False):
         """``group``: the process group train-mode BN averages its statistics
-        over (None: this rank's batch alone)."""
+        over (None: this rank's batch alone). ``quantize``: the branch convs
+        (or the merged one) through the dynamic int8 conv."""
         if self.merged:
             h2 = conv2d_fixed_padding(x, merged_sk_weight(self.conv0.weight, self.conv1.weight),
-                                      stride=self.stride, compute_dtype=compute_dtype)
+                                      stride=self.stride, compute_dtype=compute_dtype,
+                                      quantize=quantize)
             raw = [h2[:, :self.out_ch], h2[:, self.out_ch:]]
         else:
-            raw = [getattr(self, f"conv{b}")(x, compute_dtype) for b in range(NUM_BRANCHES)]
+            raw = [getattr(self, f"conv{b}")(x, compute_dtype, quantize)
+                   for b in range(NUM_BRANCHES)]
         branches = [torch.relu(getattr(self, f"bn{b}")(raw[b], train=train, group=group))
                     for b in range(NUM_BRANCHES)]
         u = branches[0] + branches[1]

@@ -24,7 +24,11 @@ an early stop save at once. ``eval_only``; SIGTERM finishes the step in
 flight, saves at the group's end, waits for the write and returns (one
 process only); the hang watchdog;
 ``profile_steps``; warm start from ``pretrained_checkpoint``; the KD teacher
-from ``kd_teacher_checkpoint``; gradient accumulation.
+from ``kd_teacher_checkpoint``; gradient accumulation; device AutoAugment
+(``data.autoaugment_device`` with real data and an ``autoaugment_type``: the
+loader then decodes and crops only); the serving export to
+``runtime.export_dir`` at the end of the run and after an ``eval_only``
+eval, from rank 0; and the int8 serving policy, with ``eval_only`` only.
 
 Data parallelism: inside a process group of several ranks
 (``axcnn_torch.parallel.mesh``; the CLI starts one rank per card), each rank
@@ -36,12 +40,14 @@ rank waits at a barrier while it takes the save's snapshot. The LR and the
 schedules stay functions of the global batch.
 
 Refused with ``NotImplementedError`` until ported (ROADMAP.md): spatial
-partitioning, device AutoAugment, export and ImageNet-C; and, by design,
-DCN slices (``REFUSED``).
+partitioning; and, by design, DCN slices (``REFUSED``). ImageNet-C
+(``runtime.eval_imagenet_c``) is ``axcnn_torch.eval.imagenet_c``, which the
+CLI runs instead of this loop.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import signal
@@ -51,7 +57,9 @@ import numpy as np
 import torch
 
 from axcnn_torch.ckpt.checkpoint import CheckpointManager, load_weights, model_from_payload
+from axcnn_torch.ckpt.export import export_serving
 from axcnn_torch.core.dtypes import policy_from_name, set_fp32_precision
+from axcnn_torch.data.autoaugment_device import make_device_autoaugment
 from axcnn_torch.data.datasets import DatasetInfo, get_dataset
 from axcnn_torch.data.pipeline import (EchoIterator, MultiProducerLoader, SyntheticLoader,
                                        TFRecordImageLoader, device_prefetch)
@@ -60,7 +68,7 @@ from axcnn_torch.parallel import mesh
 from axcnn_torch.train.ema import ema_init
 from axcnn_torch.train.schedules import make_lr_schedule, scale_lr_for_batch
 from axcnn_torch.train.train_step import (
-    TrainState, create_train_state, make_eval_step, make_train_step, pad_batch)
+    TrainState, create_train_state, load_ema, make_eval_step, make_train_step, pad_batch)
 from axcnn_torch.utils.config import Config, resolve_preprocessing
 from axcnn_torch.utils.logging import MetricLogger, Throughput
 from axcnn_torch.utils.watchdog import HangWatchdog, exit_after
@@ -68,9 +76,6 @@ from axcnn_torch.utils.watchdog import HangWatchdog, exit_after
 # (what, its ROADMAP.md Queue A item, is it asked for) -- each refused until ported
 UNPORTED = (
     ("runtime.spatial_partitions > 1", 11, lambda c: c.runtime.spatial_partitions > 1),
-    ("data.autoaugment_device", 10, lambda c: c.data.autoaugment_device),
-    ("runtime.export_dir", 10, lambda c: bool(c.runtime.export_dir)),
-    ("runtime.eval_imagenet_c", 10, lambda c: c.runtime.eval_imagenet_c),
 )
 # (what, why it is not ported, is it asked for) -- refused by design
 REFUSED = (
@@ -133,8 +138,9 @@ def _make_loaders(cfg: Config, info: DatasetInfo, rank: int = 0, world: int = 1)
     common = dict(image_size=cfg.data.image_size, resize_min=cfg.data.resize_min,
                   dct_method=cfg.data.dct_method, num_workers=cfg.data.num_workers,
                   use_native=cfg.data.loader == "cpp", host_id=rank, num_hosts=world)
-    train_kw = dict(batch_size=bs, train=True, seed=cfg.train.seed,
-                    autoaugment_type=cfg.data.autoaugment_type,
+    # device AutoAugment: the host loader only decodes and crops
+    host_aa = "none" if cfg.data.autoaugment_device else cfg.data.autoaugment_type
+    train_kw = dict(batch_size=bs, train=True, seed=cfg.train.seed, autoaugment_type=host_aa,
                     shuffle_buffer=cfg.data.shuffle_buffer, **common)
     if cfg.data.num_producers > 1:
         train_loader = MultiProducerLoader(
@@ -299,8 +305,14 @@ def run(cfg: Config, *, local_rank: int = 0):
     cfg = Config(model=model, data=resolve_preprocessing(cfg.data),
                  train=cfg.train, runtime=cfg.runtime)
     policy = policy_from_name(cfg.train.dtype)
+    if policy.quantize_conv and not cfg.runtime.eval_only:
+        raise ValueError(
+            "dtype=int8 is a serving-only post-training-quantization policy "
+            "(the quantized conv is not differentiable); train in bf16/fp32 "
+            "and pass --train.dtype=int8 with --runtime.eval_only or the "
+            "predict CLI")
     set_fp32_precision(policy)
-    lead = rank == 0  # rank 0 alone logs, saves and profiles
+    lead = rank == 0  # rank 0 alone logs, saves, profiles and exports
     logger = MetricLogger(cfg.runtime.model_dir if lead else None, quiet=not lead,
                           tensorboard=cfg.runtime.tensorboard and lead)
 
@@ -316,6 +328,10 @@ def run(cfg: Config, *, local_rank: int = 0):
         warmup_steps=int(cfg.train.lr_warmup_epochs * steps_per_epoch),
         decay_type=cfg.train.lr_decay_type)
     norm = dict(mean_rgb=info.mean_rgb, stddev_rgb=info.stddev_rgb)
+    autoaugment_fn = None
+    if cfg.data.autoaugment_device and not cfg.data.use_synthetic_data:
+        autoaugment_fn = make_device_autoaugment(cfg.data.autoaugment_type,
+                                                 num_groups=cfg.data.aa_num_groups)
     train_step = make_train_step(
         cfg.model, lr_schedule=lr_schedule, total_steps=total_steps, policy=policy,
         label_smoothing=cfg.train.label_smoothing, mixup_alpha=cfg.data.mixup_alpha,
@@ -324,7 +340,7 @@ def run(cfg: Config, *, local_rank: int = 0):
         use_ema=cfg.train.use_ema, ema_decay=cfg.train.ema_decay,
         teacher=_load_teacher(cfg, device), kd_temp=cfg.train.kd_temp,
         kd_alpha=cfg.train.kd_alpha, grad_accum_steps=cfg.train.grad_accum_steps,
-        group=group, **norm)
+        group=group, autoaugment_fn=autoaugment_fn, **norm)
     eval_step = make_eval_step(cfg.model, policy=policy, use_ema=cfg.train.use_ema,
                                group=group, **norm)
     state = create_train_state(cfg.model,
@@ -369,6 +385,8 @@ def run(cfg: Config, *, local_rank: int = 0):
             if watchdog is not None:
                 watchdog.stop()
         logger.log("eval", eval_step_no, **metrics)
+        if lead:
+            _maybe_export(cfg, state, policy, info, logger)
         logger.close()
         return metrics
 
@@ -469,10 +487,26 @@ def run(cfg: Config, *, local_rank: int = 0):
         # that no loop reads
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
+    if lead:
+        _maybe_export(cfg, state, policy, info, logger)
     ckpt.wait()
     ckpt.close()
     logger.close()
     return eval_metrics
+
+
+def _maybe_export(cfg: Config, state: TrainState, policy, info: DatasetInfo, logger) -> None:
+    """The serving export of the run's EMA weights (its parameters without
+    EMA) to ``runtime.export_dir``, on the run's device; a copy of the model
+    takes the weights, so the state is left as it is."""
+    if not cfg.runtime.export_dir:
+        return
+    model = copy.deepcopy(state.model)
+    if cfg.train.use_ema and state.ema is not None:
+        load_ema(TrainState(model=model, ema=state.ema))
+    export_serving(cfg.runtime.export_dir, cfg.model, model, image_size=cfg.data.image_size,
+                   policy=policy, mean=info.mean_rgb, std=info.stddev_rgb)
+    logger.log("export", state.step, path=cfg.runtime.export_dir)
 
 
 def _start_profiler(device):

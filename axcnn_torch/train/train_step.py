@@ -1,18 +1,19 @@
 """Training and evaluation steps (port of ``axcnn/train/train_step.py``).
 
-``make_train_step`` with the KD teacher, gradient accumulation and data
-parallelism, without device AutoAugment (ROADMAP.md). In the reference's
-order: normalize, mixup, ``progress = step / total``, forward (train-mode
-BN, DropBlock) and loss (+ KD), backward, momentum SGD with masked weight
-decay, EMA. The state is updated in place: parameters, velocity, EMA and
+``make_train_step`` with the KD teacher, gradient accumulation, data
+parallelism and device AutoAugment. In the reference's order: device
+AutoAugment on the uint8 batch (``autoaugment_fn``, drawn from the step's
+``"autoaugment"`` stream), normalize, mixup, ``progress = step / total``,
+forward (train-mode BN, DropBlock) and loss (+ KD), backward, momentum SGD
+with masked weight decay, EMA. The state is updated in place: parameters, velocity, EMA and
 the BN moving statistics.
 ``make_eval_step`` evaluates with the EMA swap (BASELINE config 3).
 
 Data parallelism (a process ``group``, one rank per card, each with the
 whole state and its shard of the batch) follows
 ``axcnn/train/train_step.py:130-230``: per-sample draws (DropBlock) come
-from the step's stream folded with the rank, mixup's lambda from the
-stream before the fold (one lambda for the global batch) unless
+and the AutoAugment draws come from the step's stream folded with the
+rank, mixup's lambda from the stream before the fold (one lambda for the global batch) unless
 ``mixup_per_shard``; BN averages its statistics over the ranks
 (``sync_bn``); after the backward (after the last micro-batch) the
 gradients, the loss, the BN moving statistics and the metrics
@@ -78,7 +79,7 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
                     teacher: ResNet | None = None, kd_temp: float = 1.0,
                     kd_alpha: float = 1.0, mean_rgb=None, stddev_rgb=None,
                     grad_accum_steps: int = 1, group=None, sync_bn: bool = True,
-                    mixup_per_shard: bool = False):
+                    mixup_per_shard: bool = False, autoaugment_fn=None):
     """Builds ``train_step(state, batch, root_seed) -> (state, metrics)``.
 
     ``batch`` = {'images': uint8 NHWC, 'labels': int N}, on the state's
@@ -91,15 +92,21 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
     the mixed images with the student's policy.
 
     ``grad_accum_steps = A > 1`` splits the batch into A micro-batches, as
-    the reference does: micro-batch ``i`` draws DropBlock and mixup (one
-    lambda each) from the step's ``"accum"`` stream folded with ``i``; BN
+    the reference does: micro-batch ``i`` draws DropBlock, AutoAugment and
+    mixup (one lambda each) from the step's ``"accum"`` stream folded with
+    ``i``; BN
     uses its statistics and updates the moving ones, micro by micro; the
     gradients, loss, top-1 and lambda are means over the micro-batches; one
     SGD and one EMA update follow. Activations live for one micro-batch.
 
-    ``lam=`` and ``dropblock_uniforms=`` (a dict by site name) replace the
-    step's own random draws, one entry per micro-batch when ``A > 1``; they
-    let a CPU test hand in the reference's.
+    ``autoaugment_fn`` (``axcnn_torch.data.autoaugment_device``'s) augments
+    each (micro-)batch on its device before normalization, from the
+    ``"autoaugment"`` stream of its rng.
+
+    ``lam=``, ``dropblock_uniforms=`` (a dict by site name) and ``aa_draws=``
+    (``draw_autoaugment``'s form) replace the step's own random draws, one
+    entry per micro-batch when ``A > 1``; they let a CPU test hand in the
+    reference's.
 
     ``group`` (a process group of several ranks; None: one process) makes
     it the data-parallel step of the module docstring; ``batch`` is then
@@ -111,9 +118,13 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
     bn_group = group if sync_bn else None
     mask = None
 
-    def micro_step(model, images_u8, labels, rng, mix_rng, progress, lam, uniforms):
+    def micro_step(model, images_u8, labels, rng, mix_rng, progress, lam, uniforms,
+                   aa_draws):
         """Forward and backward of one (micro-)batch; the gradients add up in
         ``.grad``. Returns (loss, top-1, lambda)."""
+        if autoaugment_fn is not None:
+            images_u8 = autoaugment_fn(images_u8, None if aa_draws is not None
+                                       else rng.numpy("autoaugment"), draws=aa_draws)
         images = normalize_device(images_u8, mean_rgb, stddev_rgb)
         labels_b = None
         if mixup_alpha > 0:
@@ -137,7 +148,7 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
         return loss.detach(), top1, np.float32(lam)
 
     def train_step(state: TrainState, batch, root_seed: int, *, lam=None,
-                   dropblock_uniforms=None):
+                   dropblock_uniforms=None, aa_draws=None):
         nonlocal mask
         model = state.model
         if model.cfg != cfg:
@@ -153,7 +164,7 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
         progress = np.float32(step) / np.float32(max(total_steps, 1))
         images, labels = batch["images"], batch["labels"]
         if A == 1:
-            micros = [(images, labels, rng, mix_rng, lam, dropblock_uniforms)]
+            micros = [(images, labels, rng, mix_rng, lam, dropblock_uniforms, aa_draws)]
         else:
             n = labels.shape[0]
             if n % A:
@@ -162,11 +173,12 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
             accum, mix_accum = RngStream(rng("accum")), RngStream(mix_rng("accum"))
             lams = [None] * A if lam is None else list(lam)
             unis = [None] * A if dropblock_uniforms is None else list(dropblock_uniforms)
-            if len(lams) != A or len(unis) != A:
-                raise ValueError(f"lam and dropblock_uniforms take {A} entries, "
-                                 "one per micro-batch")
+            aas = [None] * A if aa_draws is None else list(aa_draws)
+            if len(lams) != A or len(unis) != A or len(aas) != A:
+                raise ValueError(f"lam, dropblock_uniforms and aa_draws take {A} "
+                                 "entries, one per micro-batch")
             micros = [(images[i * m:(i + 1) * m], labels[i * m:(i + 1) * m],
-                       accum.fold_step(i), mix_accum.fold_step(i), lams[i], unis[i])
+                       accum.fold_step(i), mix_accum.fold_step(i), lams[i], unis[i], aas[i])
                       for i in range(A)]
 
         params = dict(model.named_parameters())
@@ -174,9 +186,9 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
             p.grad = None
         loss = top1 = None
         lam_sum = np.float32(0.0)
-        for images_i, labels_i, rng_i, mix_i, lam_i, uni_i in micros:
+        for images_i, labels_i, rng_i, mix_i, lam_i, uni_i, aa_i in micros:
             loss_i, top1_i, lam_i = micro_step(model, images_i, labels_i, rng_i, mix_i,
-                                               progress, lam_i, uni_i)
+                                               progress, lam_i, uni_i, aa_i)
             loss = loss_i if loss is None else loss + loss_i
             top1 = top1_i if top1 is None else top1 + top1_i
             lam_sum = lam_sum + lam_i

@@ -112,7 +112,38 @@ points and checks them:
     on fp32 and bf16 maps of odd and even extents: the general route
     (cuDNN's depthwise conv) against its plain version on the card, and
     (3, 2) still on the kernel;
-22. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
+22. aa_parity: each device AutoAugment op on the card against the same op
+    on the CPU for the same inputs, magnitudes and signs, on integer and
+    fractional images at 224x224: the integer ops, Equalize and AutoContrast
+    bit for bit, the warps and enhances within 1e-4 (of 255); the
+    applicator on a b128 batch with the same draws within 1e-4;
+23. aa_time: the augmentation alone (v0, 8 groups) on a b128 224x224 batch:
+    device ms per call (events) and the host's enqueue ms per call;
+24. aa_train: the training CLI on TFRecords of 256 JPEGs at 256x256 (the
+    port's writer), full width, b128, bf16, 12 steps, AutoAugment v0 on the
+    card (``--data.autoaugment_device=true``), then the same run with host
+    AutoAugment: step walls, the loop's wait for each batch, peak memory,
+    and the device-AA run's launches, 3 + 3 + 9 + 9 per step;
+25. int8_check: every conv of an int8 R50 forward at b128 (the seeded
+    model): the ``torch._int_mm`` route's int32 accumulators against the
+    plain version's (float64 ``F.conv2d``) on the card, bit for bit, at each
+    distinct shape (stride 2, dilation 2 and the stem's k = 27 among them);
+26. int8_serve: served img/s at b128 and b1 under int8 beside bf16; the
+    int8 logits' relative L2 to the fp32 logits (< 0.05) and their top-1
+    agreement; an int8 forward launches the BlurPool forward 3 times and
+    ``_int_mm`` 71 times;
+27. export: the ``train`` run's EMA exported on the card (``torch.export``)
+    in bf16 (b128 and b1) and int8 (b128), each reloaded with
+    ``load_serving``: logits bit for bit the direct forward's, the BlurPool
+    forward kernel launched 3 times (TMA route) by a reloaded forward,
+    served img/s, export and load seconds; ``predict --export`` prints the
+    same lines as ``predict`` from the checkpoint on 128 JPEGs;
+28. mce: 8 clean 256x256 JPEGs labelled with the ``train`` run's own
+    predictions, ``build_imagenet_c`` for all 15 corruptions at severities
+    1-2, ``main_classification --runtime.eval_imagenet_c`` on the card in
+    fp32 from that run's checkpoint: the mce line equals ``compute_mce`` of
+    the per-set lines, and each set's top-1 equals the port's CPU run;
+29. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
     card, NCCL), global b256, bf16, 10 steps: finite losses, img/s per card
     and in total. On a machine with one card it prints ``"ran": false``.
 
@@ -122,6 +153,7 @@ The last two lines are the kernels' summary and the result line.
 
 import contextlib
 import dataclasses
+import functools
 import glob
 import io
 import json
@@ -130,6 +162,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -181,6 +214,9 @@ BL_ECHO, BL_SAVE_EVERY = 2, 5
 # the general BlurPool route's check maps: odd and even extents, C that is
 # and is not a multiple of 8
 BLUR_SIZE_SHAPES = [(4, 28, 28, 64), (3, 15, 17, 24), (2, 9, 8, 6)]
+AA_STEPS, AA_IMAGES = 12, 256  # device-AA training: steps, 256^2 JPEGs in the train set
+INT8_CONVS = 71  # convs of an assembled R50 forward: stem 3, 16 blocks x 4, 4 projections
+MCE_IMAGES, MCE_SEVERITIES = 8, (1, 2)
 L2_FLUSH_BYTES = 256 << 20  # timing inputs cycle through at least this much (H100 L2: 50 MB)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory bandwidth (datasheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (datasheet)
@@ -836,19 +872,20 @@ def throughput_phase(smi):
              card=smi)
 
 
-def _served(state):
-    """The served forward of ``state``'s model (``eval_logits``, bf16) on
-    random uint8 images: {batch: img/s, ms a batch, iters} at b128 (20
-    forwards) and b1 (50), each ending in a synchronize."""
+def _served(state, policy=None):
+    """The served forward of ``state``'s model (``eval_logits``, bf16 unless
+    ``policy``) on random uint8 images: {batch: img/s, ms a batch, iters} at
+    b128 (20 forwards) and b1 (50), each ending in a synchronize."""
     from axcnn_torch.core.dtypes import BF16_POLICY
     from axcnn_torch.train.train_step import eval_logits
 
+    policy = policy or BF16_POLICY
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     out = {}
     for batch, iters in ((TIME_BATCH, 20), (1, 50)):
         u8 = torch.randint(0, 256, (batch, 224, 224, 3), generator=gen, device="cuda",
                            dtype=torch.uint8)
-        fwd = lambda: eval_logits(state, u8, policy=BF16_POLICY)  # noqa: E731
+        fwd = functools.partial(eval_logits, state, u8, policy=policy)
         for _ in range(3):
             fwd()
         torch.cuda.synchronize()
@@ -889,12 +926,17 @@ def _step_walls(train):
     return np.diff([r["time"] for r in train])
 
 
-def train_phase(smi):
-    """The training CLI at full width, b128, bf16, on synthetic data."""
-    with tempfile.TemporaryDirectory() as tmp:
+def train_phase(smi, model_dir=None):
+    """The training CLI at full width, b128, bf16, on synthetic data; its
+    checkpoint stays in ``model_dir`` when given (``export`` and ``mce``
+    serve it)."""
+    with contextlib.ExitStack() as stack:
+        if model_dir is None:
+            model_dir = stack.enter_context(tempfile.TemporaryDirectory())
         argv = ["--config=assemble_resnet50", "--data.use_synthetic_data",
                 f"--train.train_steps={TRAIN_STEPS}", f"--train.batch_size={TIME_BATCH}",
-                "--train.log_every=1", "--runtime.num_devices=1", f"--runtime.model_dir={tmp}"]
+                "--train.log_every=1", "--runtime.num_devices=1",
+                f"--runtime.model_dir={model_dir}"]
         metrics, counts, seconds, peak, records = _run_cli(argv)
     routes, g_not_cl = dict(kblur.ROUTES), kblur.BWD_G_NOT_CHANNELS_LAST
     apply_not_cl = kdrop.APPLY_NOT_CHANNELS_LAST
@@ -1734,6 +1776,455 @@ def blur_sizes_phase():
         raise AssertionError("BlurPool's general route disagrees with its plain version")
 
 
+# ---------------------------------------------------------------------------
+# device AutoAugment, int8 serving, the serving export, ImageNet-C
+# ---------------------------------------------------------------------------
+
+def _write_records(directory, split, count, seed, *, shards=1, size=256, labels=None):
+    """``count`` seeded JPEGs of ``size``^2 (gradients, stripes and noise) in
+    ``shards`` TFRecord shards ``<split>-*`` of the port's writer; labels
+    ``labels[i]`` or seeded in [0, 1001)."""
+    from PIL import Image
+
+    from axcnn_torch.data.tfrecord import TFRecordWriter, make_example
+
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    per = -(-count // shards)
+    for s in range(shards):
+        with TFRecordWriter(os.path.join(directory, f"{split}-{s:05d}-of-{shards:05d}")) as w:
+            for i in range(s * per, min(count, (s + 1) * per)):
+                a, b, p = rng.uniform(0.2, 1.0, 3)
+                base = np.stack([yy * a, xx * b, ((yy + xx) // max(int(p * 16), 2)) % 2 * 200],
+                                -1) * 255 / size
+                img = np.clip(base + rng.integers(0, 48, base.shape), 0, 255).astype(np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, "JPEG", quality=90)
+                label = int(rng.integers(0, 1001))  # drawn either way: the same images
+                if labels is not None:
+                    label = int(labels[i])
+                w.write(make_example({"image/encoded": [buf.getvalue()],
+                                      "image/class/label": [label]}))
+
+
+def _timed_prefetch(waits):
+    """``loop.device_prefetch`` whose iterators record how long the loop
+    waits for each batch (one list a call: the train stream, then the
+    eval's)."""
+    from axcnn_torch.train import loop
+
+    make = loop.device_prefetch
+
+    class Timed:
+        def __init__(self, it, times):
+            self._it, self._times = it, times
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            t0 = time.perf_counter()
+            batch = next(self._it)
+            self._times.append(time.perf_counter() - t0)
+            return batch
+
+        def __getattr__(self, name):
+            return getattr(self._it, name)
+
+    def timed(*args, **kwargs):
+        waits.append([])
+        return Timed(make(*args, **kwargs), waits[-1])
+
+    return timed
+
+
+def aa_parity_phase():
+    """Each device AutoAugment op on the card against the same op on the CPU,
+    same inputs, magnitudes and signs, on integer images (an op's first
+    input) and on fractional ones (a second op's): the integer ops, Equalize
+    and AutoContrast bit for bit, the warps and enhances within 1e-4 on the
+    [0, 255] scale; then the applicator on a b128 batch with the same draws,
+    within 1e-4."""
+    from axcnn_torch.data.autoaugment import POLICIES
+    from axcnn_torch.data.autoaugment_device import (OP_FNS, draw_autoaugment,
+                                                     make_device_autoaugment)
+
+    exact = {"Posterize", "Solarize", "SolarizeAdd", "Invert", "Equalize", "AutoContrast",
+             "Cutout"}
+    rng = np.random.default_rng(SEED)
+    ints = rng.integers(0, 256, (8, 224, 224, 3)).astype(np.float32)
+    inputs = {"integer": ints,
+              "fractional": np.clip(ints * 0.7 + rng.random(ints.shape, np.float32) * 60,
+                                    0, 255).astype(np.float32)}
+    signs = np.where(rng.random(8) < 0.5, -1.0, 1.0).astype(np.float32)
+    worst, bad = {}, []
+    for name, op in OP_FNS.items():
+        for kind, imgs in inputs.items():
+            for mag in (2, 7, 10):
+                got = op(torch.from_numpy(imgs).cuda(), mag, signs).cpu()
+                want = op(torch.from_numpy(imgs), mag, signs)
+                err = (got - want).abs().max().item()
+                worst[name] = max(worst.get(name, 0.0), err)
+                if err > (0.0 if name in exact else 1e-4):
+                    bad.append((name, kind, mag, err))
+    u8 = torch.from_numpy(rng.integers(0, 256, (TIME_BATCH, 224, 224, 3), dtype=np.uint8))
+    fn = make_device_autoaugment("v0", num_groups=8)
+    draws = draw_autoaugment(np.random.default_rng(SEED + 1), len(POLICIES["v0"]), 8,
+                             TIME_BATCH // 8)
+    got = fn(u8.cuda(), draws=draws).cpu()
+    want = fn(u8, draws=draws)
+    batch_err = (got - want).abs().max().item()
+    changed = float((want != u8.float()).any(dim=(1, 2, 3)).float().mean())
+    ok = not bad and batch_err <= 1e-4 and changed > 0
+    emit("aa_parity", ops=len(OP_FNS), exact_ops=sorted(exact), tolerance=1e-4,
+         max_abs_err_by_op=worst, failed=bad[:5], batch_max_abs_err=batch_err,
+         batch_images_changed=changed, ok=ok)
+    if not ok:
+        raise AssertionError(f"device AutoAugment card-vs-CPU parity failed: {bad[:5]}")
+
+
+def aa_time_phase(smi):
+    """The augmentation alone (v0, 8 groups) on a b128 224^2 uint8 batch on
+    the card: device ms per call (events, the calls queued behind a sleep
+    kernel, 20 draws) and the host's enqueue ms per call."""
+    from axcnn_torch.data.autoaugment import POLICIES
+    from axcnn_torch.data.autoaugment_device import draw_autoaugment, make_device_autoaugment
+
+    fn = make_device_autoaugment("v0", num_groups=8)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    u8 = torch.randint(0, 256, (TIME_BATCH, 224, 224, 3), generator=gen, device="cuda",
+                       dtype=torch.uint8)
+    rng = np.random.default_rng(SEED)
+    draws = [draw_autoaugment(rng, len(POLICIES["v0"]), 8, TIME_BATCH // 8) for _ in range(20)]
+    device_ms = _time_ms(lambda d: fn(u8, draws=d), draws, iters=20)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for d in draws:
+        fn(u8, draws=d)
+    enqueue_ms = (time.perf_counter() - t0) / len(draws) * 1e3
+    torch.cuda.synchronize()
+    emit("aa_time", policy="v0", groups=8, batch=TIME_BATCH, image=224, device_ms=device_ms,
+         enqueue_ms=enqueue_ms, card=smi)
+    return {"device_ms": device_ms, "enqueue_ms": enqueue_ms}
+
+
+def aa_train_phase(smi, tmp, aa_time):
+    """The training CLI on TFRecords of 256^2 JPEGs (written here with the
+    port's writer), full width, b128, bf16, AA_STEPS steps, with AutoAugment
+    v0 on the card, then the same run with it in the loader (host PIL): the
+    step walls, the loop's wait for each batch, peak memory, and the kernel
+    launches of the device-AA run per step."""
+    from axcnn_torch.train import loop
+
+    data_dir = os.path.join(tmp, "aa_records")
+    _write_records(data_dir, "train", AA_IMAGES, SEED, shards=4)
+    _write_records(data_dir, "validation", TIME_BATCH, SEED + 1)
+    runs = {}
+    for where in ("device", "host"):
+        argv = ["--config=assemble_resnet50", f"--data.data_dir={data_dir}",
+                "--data.dataset_name=custom", "--data.num_classes=1001",
+                f"--data.num_train_examples={AA_IMAGES}",
+                f"--data.num_eval_examples={TIME_BATCH}", "--data.autoaugment_type=v0",
+                f"--data.autoaugment_device={str(where == 'device').lower()}",
+                f"--train.train_steps={AA_STEPS}", f"--train.batch_size={TIME_BATCH}",
+                "--train.log_every=1", "--runtime.num_devices=1",
+                f"--runtime.model_dir={os.path.join(tmp, 'aa_' + where)}"]
+        waits = []
+        with mock.patch.object(loop, "device_prefetch", _timed_prefetch(waits)):
+            metrics, counts, seconds, peak, records = _run_cli(argv)
+        train = [r for r in records if r["tag"] == "train"]
+        losses = [r["loss"] for r in train]
+        walls = _step_walls(train)
+        assert [r["step"] for r in train] == list(range(1, AA_STEPS + 1)), records
+        assert all(np.isfinite(losses)), losses
+        assert metrics["count"] == TIME_BATCH, metrics
+        train_waits = np.array(waits[0][1:]) * 1e3  # after the first batch's warm-up
+        runs[where] = dict(
+            counts=counts, mean_step_ms=float(walls.mean()) * 1e3,
+            step_ms_min=float(walls.min()) * 1e3, step_ms_max=float(walls.max()) * 1e3,
+            train_img_per_s=TIME_BATCH / float(walls.mean()),
+            loader_wait_ms_mean=float(train_waits.mean()),
+            loader_wait_ms_max=float(train_waits.max()),
+            first_batch_wait_s=waits[0][0], max_memory_allocated_gib=peak / 2 ** 30,
+            first_loss=losses[0], last_loss=losses[-1], seconds=seconds)
+    want = _launches(3 * AA_STEPS + 3, 3 * AA_STEPS, 9 * AA_STEPS)
+    got = runs["device"]["counts"]
+    ok = got == want and runs["host"]["counts"] == want
+    emit("aa_train", model="assemble_resnet50", batch=TIME_BATCH, dtype="bf16",
+         steps=AA_STEPS, images=AA_IMAGES, jpeg=256, policy="v0",
+         launches_per_step={k: v / AA_STEPS for k, v in got.items()}, launches=got,
+         expected=want, device_aa=runs["device"], host_aa=runs["host"],
+         aa_device_ms=aa_time["device_ms"], aa_enqueue_ms=aa_time["enqueue_ms"],
+         card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"aa_train launches {got}, expected {want}")
+    return got
+
+
+def _seeded_model():
+    """The parity phase's seeded full-width assembled R50 with perturbed BN,
+    on the card, channels_last, in eval mode."""
+    from axcnn_torch.models.resnet import ResNet
+
+    model = ResNet(_assembled_cfg(), generator=torch.Generator().manual_seed(SEED))
+    _perturb_bn(model, SEED)
+    return model.to("cuda", memory_format=torch.channels_last).eval()
+
+
+def int8_check_phase():
+    """Every int8 conv of an R50 forward at b128 (the seeded model, int8
+    policy): the card's ``torch._int_mm`` route against the plain version
+    (float64 ``F.conv2d`` on the card) on the same int8 operands, bit for bit
+    on the int32 accumulators, once for each distinct shape."""
+    from axcnn_torch.core.dtypes import INT8_SERVING_POLICY
+    from axcnn_torch.data.preprocessing import normalize_device
+    from axcnn_torch.ops import conv as kconv
+
+    model = _seeded_model()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    u8 = torch.randint(0, 256, (TIME_BATCH, 224, 224, 3), generator=gen, device="cuda",
+                       dtype=torch.uint8)
+    route = kconv.int8_conv_acc_cuda
+    shapes, calls = {}, [0]
+
+    def checked(xq, wq, *, stride, dilation, padding):
+        acc = route(xq, wq, stride=stride, dilation=dilation, padding=padding)
+        calls[0] += 1
+        key = (tuple(xq.shape), tuple(wq.shape), stride, dilation, padding)
+        if key not in shapes:
+            want = kconv.int8_conv_acc_reference(xq, wq, stride=stride, dilation=dilation,
+                                                 padding=padding)
+            shapes[key] = int((acc.long() - want.long()).abs().max().item())
+        return acc
+
+    with mock.patch.object(kconv, "int8_conv_acc_cuda", checked), torch.inference_mode():
+        logits = model(normalize_device(u8), policy=INT8_SERVING_POLICY)
+    torch.cuda.synchronize()
+    worst = max(shapes.values())
+    ks = {w[1] * w[2] * w[3] for _, w, *_ in shapes}
+    # why the route builds its own patch matrix: does F.unfold take int8 here?
+    try:
+        torch.nn.functional.unfold(torch.zeros((1, 8, 4, 4), dtype=torch.int8, device="cuda"), 3)
+        unfold_int8 = "ran"
+    except (RuntimeError, NotImplementedError) as e:
+        unfold_int8 = str(e).splitlines()[0][:160]
+    ok = (worst == 0 and bool(torch.isfinite(logits).all()) and 27 in ks
+          and any(k[2] == 2 for k in shapes) and any(k[3] == 2 for k in shapes))
+    emit("int8_check", batch=TIME_BATCH, convs=calls[0], distinct_shapes=len(shapes),
+         stride2=sum(k[2] == 2 for k in shapes), dilation2=sum(k[3] == 2 for k in shapes),
+         k27=27 in ks, max_abs_err=worst, tolerance=0, f_unfold_int8_cuda=unfold_int8,
+         shapes=[{"x": list(k[0]), "w": list(k[1]), "stride": k[2], "dilation": k[3],
+                  "err": e} for k, e in shapes.items()], ok=ok)
+    if not ok:
+        raise AssertionError("the int8 conv route disagrees with its plain version")
+    return worst
+
+
+def int8_serve_phase(smi):
+    """The seeded model served under int8 beside bf16 (img/s at b128 and b1),
+    and the int8 logits against the fp32 ones (TF32 off) on the phase's b128
+    images: relative L2, top-1 agreement; one int8 forward's launches."""
+    from axcnn_torch.core.dtypes import (BF16_POLICY, DEFAULT_POLICY, INT8_SERVING_POLICY,
+                                         set_fp32_precision)
+    from axcnn_torch.ops import conv as kconv
+    from axcnn_torch.train.train_step import TrainState, eval_logits
+
+    state = TrainState(model=_seeded_model(), ema=None)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    u8 = torch.randint(0, 256, (TIME_BATCH, 224, 224, 3), generator=gen, device="cuda",
+                       dtype=torch.uint8)
+    set_fp32_precision(DEFAULT_POLICY)
+    fp32 = eval_logits(state, u8, policy=DEFAULT_POLICY)
+    _zero_counts()
+    mm0 = kconv.INT8_MM_CALLS
+    int8 = eval_logits(state, u8, policy=INT8_SERVING_POLICY)
+    torch.cuda.synchronize()
+    counts, mm = _counts(), kconv.INT8_MM_CALLS - mm0
+    rel = float((int8 - fp32).norm() / fp32.norm())
+    agree = float((int8.argmax(-1) == fp32.argmax(-1)).float().mean())
+    served = {"int8": _served(state, INT8_SERVING_POLICY), "bf16": _served(state, BF16_POLICY)}
+    ok = (counts == _launches(3, 0, 0) and mm == INT8_CONVS and rel < 0.05
+          and bool(torch.isfinite(int8).all()))
+    emit("int8_serve", model="assemble_resnet50", rel_l2_to_fp32=rel, rel_l2_bound=0.05,
+         top1_agreement=agree, launches=counts, int8_mm_calls=mm,
+         served={p: {str(b): v for b, v in r.items()} for p, r in served.items()},
+         card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"int8 serving failed: rel {rel}, launches {counts}, mm {mm}")
+    return counts, served
+
+
+def _predict(argv):
+    from axcnn_torch.cli import predict
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = predict.main(argv)
+    if rc != 0:
+        raise AssertionError(f"predict exited {rc}: {err.getvalue()}")
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def export_phase(smi, model_dir, tmp):
+    """The ``train`` run's EMA exported on the card in bf16 and int8 at
+    b128 (bf16 also at b1), each reloaded with ``load_serving``: its logits
+    bit for bit those of the direct forward on the same input, the BlurPool
+    kernel launched 3 times (TMA route) by a reloaded forward, served img/s;
+    then ``predict --export`` against ``predict`` from the checkpoint on 128
+    JPEGs (the export's batch, so neither pads)."""
+    from axcnn_torch.ckpt.checkpoint import CheckpointManager, model_from_payload
+    from axcnn_torch.ckpt.export import export_serving, load_serving
+    from axcnn_torch.core.dtypes import BF16_POLICY, INT8_SERVING_POLICY
+    from axcnn_torch.data.datasets import get_dataset
+    from axcnn_torch.data.preprocessing import normalize_device
+
+    info = get_dataset("imagenet")
+    cfg = _assembled_cfg()
+    raw = CheckpointManager(os.path.join(model_dir, "checkpoints")).load(device="cuda")
+    model = model_from_payload(raw, cfg, device="cuda", use_ema=True, where="train run")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    results, dirs, counts = {}, {}, None
+    for name, policy, batches in (("bf16", BF16_POLICY, (TIME_BATCH, 1)),
+                                  ("int8", INT8_SERVING_POLICY, (TIME_BATCH,))):
+        for batch in batches:
+            d = dirs[name, batch] = os.path.join(tmp, f"export_{name}_{batch}")
+            t0 = time.perf_counter()
+            export_serving(d, cfg, model, batch_size=batch, image_size=224, policy=policy,
+                           mean=info.mean_rgb, std=info.stddev_rgb)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fn, meta = load_serving(d)
+            load_s = time.perf_counter() - t0
+            u8 = torch.randint(0, 256, (batch, 224, 224, 3), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+            _zero_counts()
+            tma0 = kblur.ROUTES["fwd_tma"]
+            got = fn(u8)
+            torch.cuda.synchronize()
+            tma = kblur.ROUTES["fwd_tma"] - tma0
+            if (name, batch) == ("bf16", TIME_BATCH):
+                counts = _counts()
+            with torch.inference_mode():
+                want = model(normalize_device(u8, info.mean_rgb, info.stddev_rgb),
+                             policy=policy)
+            iters = 20 if batch > 1 else 50
+            for _ in range(3):
+                fn(u8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(u8)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / iters
+            results[f"{name}_b{batch}"] = dict(
+                equal=bool(torch.equal(got, want)),
+                max_abs_diff=float((got - want).abs().max()), blur_fwd_tma_launches=tma,
+                img_per_s=batch / dt, ms_per_batch=dt * 1e3, export_s=export_s,
+                load_s=load_s, pt2_mb=os.path.getsize(os.path.join(d, "serving.pt2")) / 1e6,
+                quantized_int8=meta["quantized_int8"])
+    paths = _write_jpegs(tmp, TIME_BATCH)
+    images = [f"--image={p}" for p in paths]
+    ckpt_args = ["--config=assemble_resnet50", f"--runtime.model_dir={model_dir}"]
+    top5 = {}
+    for name in ("bf16", "int8"):
+        from_export = _predict([*images, f"--export={dirs[name, TIME_BATCH]}"])
+        from_ckpt = _predict([*images, *ckpt_args, f"--train.dtype={name}"])
+        top5[name] = {"equal": from_export == from_ckpt,
+                      "first": from_export[0], "ckpt_first": from_ckpt[0]}
+    ok = (all(r["equal"] and r["blur_fwd_tma_launches"] == 3 for r in results.values())
+          and all(t["equal"] for t in top5.values()))
+    emit("export", model="assemble_resnet50", weights="train run EMA", results=results,
+         predict_top5=top5, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("the reloaded export disagrees with the direct forward")
+    return counts
+
+
+def mce_phase(smi, model_dir, tmp):
+    """ImageNet-C end to end: MCE_IMAGES clean 256^2 JPEGs labelled with the
+    ``train`` run's own fp32 predictions, ``build_imagenet_c`` for all 15
+    corruptions at MCE_SEVERITIES, then ``main_classification
+    --runtime.eval_imagenet_c`` on the card (fp32, TF32 off) from that run's
+    checkpoint: the mce line equals ``compute_mce`` of the per-set lines,
+    and each set's top-1 equals the port's on the CPU (fp32) on the same
+    shards."""
+    from axcnn_torch.ckpt.checkpoint import CheckpointManager, model_from_payload
+    from axcnn_torch.cli import main_classification
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, set_fp32_precision
+    from axcnn_torch.data.build_imagenet_c import build_corrupted_set
+    from axcnn_torch.data.datasets import get_dataset
+    from axcnn_torch.data.preprocessing import normalize_device, preprocess_eval
+    from axcnn_torch.data.tfrecord import TFRecordReader, list_shards, parse_example
+    from axcnn_torch.eval.imagenet_c import CORRUPTIONS, compute_mce
+
+    t_start = time.perf_counter()
+    info = get_dataset("imagenet_c")
+    clean = os.path.join(tmp, "mce_clean")
+    _write_records(clean, "validation", MCE_IMAGES, SEED + 5, shards=2)
+    # labels: the model's own predictions on the clean pixels (the records
+    # hold head indices), so top-1 on the corrupted sets is not 0
+    u8 = np.stack([preprocess_eval(bytes(parse_example(p)["image/encoded"][0]))
+                   for shard in list_shards(clean, "validation") for p in TFRecordReader(shard)])
+    raw = CheckpointManager(os.path.join(model_dir, "checkpoints")).load(device="cuda")
+    model = model_from_payload(raw, _assembled_cfg(), device="cuda", use_ema=True, where="x")
+    set_fp32_precision(DEFAULT_POLICY)
+    with torch.inference_mode():
+        preds = model(normalize_device(torch.from_numpy(u8).cuda(), info.mean_rgb,
+                                       info.stddev_rgb)).argmax(-1).cpu().numpy()
+    _write_records(clean, "validation", MCE_IMAGES, SEED + 5, shards=2,
+                   labels=preds)
+    corrupted = os.path.join(tmp, "mce_c")
+    t0 = time.perf_counter()
+    build_corrupted_set(clean, corrupted, severities=MCE_SEVERITIES,
+                        progress=lambda _: None)
+    build_s = time.perf_counter() - t0
+    common = ["--config=assemble_resnet50", f"--data.data_dir={corrupted}",
+              "--runtime.eval_imagenet_c=true", f"--train.batch_size={MCE_IMAGES}",
+              "--train.dtype=fp32", "--data.num_workers=2"]
+    runs = {}
+    for where, extra in (("card", ["--runtime.num_devices=1"]),
+                         ("cpu", ["--runtime.platform=cpu"])):
+        run_dir = os.path.join(tmp, f"mce_{where}")
+        argv = [*common, *extra, f"--runtime.model_dir={run_dir}",
+                f"--train.pretrained_checkpoint={model_dir}/checkpoints",
+                "--train.warm_start_exclude_head=false"]
+        _zero_counts()
+        t0 = time.perf_counter()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            result = main_classification.main(argv)
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        sets = {(r["corruption"], r["severity"]): r["top1"]
+                for r in records if r["tag"] == "imagenet_c"}
+        mce_line = [r for r in records if r["tag"] == "mce"][-1]
+        runs[where] = dict(result=result, sets=sets, mce_line=mce_line, seconds=seconds,
+                           counts=_counts())
+    card = runs["card"]
+    errs = {c: np.mean([1.0 - card["sets"][c, s] / 100.0 for s in MCE_SEVERITIES])
+            for c in CORRUPTIONS}
+    recomputed = compute_mce(errs)
+    line_ok = all(abs(card["mce_line"][k] - v) <= 1e-9 * max(1.0, abs(v))
+                  for k, v in recomputed.items())
+    sets_equal = card["sets"] == runs["cpu"]["sets"]
+    n_sets = len(CORRUPTIONS) * len(MCE_SEVERITIES)
+    top1_mean = float(np.mean(list(card["sets"].values())))
+    ok = (line_ok and sets_equal and len(card["sets"]) == n_sets and top1_mean > 0
+          and card["counts"]["fwd"] == 3 * n_sets)
+    emit("mce", model="assemble_resnet50", images=MCE_IMAGES, severities=list(MCE_SEVERITIES),
+         sets=n_sets, mce=card["result"]["mce"], mce_cpu=runs["cpu"]["result"]["mce"],
+         mce_line_equals_compute_mce=line_ok, top1_card_equals_cpu=sets_equal,
+         top1_mean=top1_mean, build_s=build_s,
+         card_s=card["seconds"], cpu_s=runs["cpu"]["seconds"], launches=card["counts"],
+         phase_s=time.perf_counter() - t_start, card_name=smi, ok=ok)
+    if not ok:
+        raise AssertionError("the mCE phase failed")
+    return card["counts"]
+
+
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
     ("fwd", ("fwd",), "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
@@ -1757,9 +2248,10 @@ def main():
     paths["serve"] = serve_phase()
     parity_phase()
     throughput_phase(smi)
-    paths["train"], single = train_phase(smi)
-    train_parity_phase()
     with tempfile.TemporaryDirectory() as tmp:
+        train_dir = os.path.join(tmp, "train")
+        paths["train"], single = train_phase(smi, train_dir)
+        train_parity_phase()
         run_dir = os.path.join(tmp, "resume")
         paths["checkpoint"] = checkpoint_phase(smi, tmp)
         paths["resume"] = resume_phase(smi, run_dir)
@@ -1773,6 +2265,12 @@ def main():
         bl_parity_phase()
         paths["bl_assembled"] = bl_assembled_phase(smi)
         blur_sizes_phase()
+        aa_parity_phase()
+        paths["aa_train"] = aa_train_phase(smi, tmp, aa_time_phase(smi))
+        int8_check_phase()
+        paths["int8_serve"], _ = int8_serve_phase(smi)
+        paths["export"] = export_phase(smi, train_dir, tmp)
+        paths["mce"] = mce_phase(smi, train_dir, tmp)
         dp_nccl_phase(smi, tmp, single)
     for _, keys, name, *_ in KERNELS:
         for k in keys:

@@ -75,12 +75,12 @@ def test_unknown_preset_names_the_presets():
 
 def test_dtype_policies_match_reference():
     jmap = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
-    for name in ("fp32", "float32", "bf16", "bfloat16", "fp16", "float16", "amp"):
+    for name in ("fp32", "float32", "bf16", "bfloat16", "fp16", "float16", "amp", "int8",
+                 "INT8"):
         j, t = jdtypes.policy_from_name(name), tdtypes.policy_from_name(name)
         assert jmap[j.compute_dtype] == t.compute_dtype
         assert jmap[j.param_dtype] == t.param_dtype
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdtypes.policy_from_name("int8")
+        assert j.quantize_conv == t.quantize_conv == (name.lower() == "int8")
     with pytest.raises(ValueError, match="unknown dtype policy"):
         tdtypes.policy_from_name("fp8")
 

@@ -733,3 +733,79 @@ def test_accumulated_kd_step_on_card():
             assert all(torch.isfinite(v).all() for v in state.velocity.values())
     assert np.isfinite(losses["cuda"])
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# BlurPool as a custom op (the serving forward, and what a torch.export holds)
+# ---------------------------------------------------------------------------
+
+def test_blur_custom_op_cpu_is_the_plain_version():
+    x = _nchw((2, 9, 8, 16), 21).contiguous(memory_format=torch.channels_last)
+    got = torch.ops.axcnn.blur_pool3_s2(x)
+    assert torch.equal(got, kblur.blur_pool_reference(x))
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.library.opcheck(torch.ops.axcnn.blur_pool3_s2.default, (x,),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+def test_blur_pool_takes_the_custom_op_without_a_gradient():
+    """No gradient asked for: the custom op; a gradient: the autograd route
+    (on the CPU the plain version, which autograd differentiates)."""
+    x = _nchw((1, 6, 6, 8), 22).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        y = blur_pool(x.requires_grad_())
+    assert y.is_contiguous(memory_format=torch.channels_last) and not y.requires_grad
+    z = blur_pool(x)
+    assert z.requires_grad and torch.equal(z.detach(), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blur_custom_op_launches_the_kernel_on_card(dtype):
+    _cuda()
+    x = _nchw((4, 28, 28, 64), 23, "cuda", dtype).contiguous(memory_format=torch.channels_last)
+    before = kblur.LAUNCHES
+    with torch.inference_mode():
+        got = torch.ops.axcnn.blur_pool3_s2(x)
+    torch.cuda.synchronize()
+    assert kblur.LAUNCHES == before + 1
+    assert torch.equal(got, kblur.blur_pool_reference(x))
+
+
+# ---------------------------------------------------------------------------
+# the int8 conv's card route (torch._int_mm, cuBLASLt)
+# ---------------------------------------------------------------------------
+
+def test_int8_card_route_refuses_cpu_tensors():
+    from axcnn_torch.ops.conv import int8_conv_acc_cuda
+
+    xq = torch.zeros(1, 8, 4, 4, dtype=torch.int8)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        int8_conv_acc_cuda(xq, torch.zeros(8, 8, 1, 1, dtype=torch.int8), stride=1,
+                           dilation=1, padding=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # (N, C, H, W, O, k, stride, dilation): 3x3, stride 2, dilation 2, the
+    # stem's k = 27, 1x1 (no copy), rows under 17, N not a multiple of 8
+    (2, 64, 14, 14, 64, 3, 1, 1), (2, 64, 14, 14, 64, 3, 2, 1), (2, 64, 14, 14, 64, 3, 1, 2),
+    (2, 3, 32, 32, 32, 3, 2, 1), (2, 64, 7, 7, 256, 1, 1, 1), (1, 16, 2, 2, 16, 1, 1, 1),
+    (2, 8, 9, 9, 12, 3, 1, 1)])
+def test_int8_card_route_matches_plain_on_card(shape):
+    _cuda()
+    from axcnn_torch.ops import conv as kconv
+
+    n, c, h, w, o, k, stride, dilation = shape
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(n, c, h, w, generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    wt = torch.randn(o, c, k, k, generator=gen, device="cuda")
+    pad = kconv.fixed_pad_amounts(k, dilation)[0]
+    xq, _, wq, _ = kconv.quantize_int8(x, wt)
+    before = kconv.INT8_MM_CALLS
+    got = kconv.int8_conv_acc_cuda(xq, wq, stride=stride, dilation=dilation, padding=pad)
+    want = kconv.int8_conv_acc_reference(xq, wq, stride=stride, dilation=dilation, padding=pad)
+    torch.cuda.synchronize()
+    assert kconv.INT8_MM_CALLS == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)

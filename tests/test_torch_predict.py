@@ -49,7 +49,7 @@ def _lines(capsys):
     return [json.loads(line) for line in capsys.readouterr().out.splitlines()]
 
 
-@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32", "int8"])
 def test_predict_cpu_prints_top5_per_image(jpegs, small, capsys, dtype):
     rc = predict.main([*(f"--image={p}" for p in jpegs), *small, "--cpu",
                        f"--train.dtype={dtype}"])
@@ -90,7 +90,9 @@ def test_predict_without_cuda_refuses_to_run_on_cpu(jpegs, small, capsys, monkey
     assert out.out == "" and "--cpu" in out.err
 
 
-def test_predict_usage_and_unported_export(jpegs):
+def test_predict_usage_and_missing_export(jpegs):
+    """``--export`` serves an export directory (tests/test_torch_export.py);
+    one that does not exist is an error, not a fallback."""
     assert predict.main([]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predict.main([f"--image={jpegs[0]}", "--export=/nonexistent"])
+    with pytest.raises(FileNotFoundError):
+        predict.main([f"--image={jpegs[0]}", "--export=/nonexistent", "--cpu"])

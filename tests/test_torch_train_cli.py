@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from axcnn_torch.cli import main_classification as tcli
-from axcnn_torch.train.loop import REFUSED, UNPORTED
+from axcnn_torch.train.loop import REFUSED, UNPORTED, check_ported
+from axcnn_torch.utils.config import parse_cli
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = ["--config=assemble_resnet50", "--data.use_synthetic_data",
@@ -111,6 +112,9 @@ def test_cli_trains_on_tfrecords(producers, tmp_path):
 REFUSED_FLAGS = {
     "runtime.spatial_partitions > 1": "--runtime.spatial_partitions=2",
     "runtime.dcn_slices > 1": "--runtime.dcn_slices=2",
+}
+# options that were refused until ported; the loop now takes each
+PORTED_FLAGS = {
     "data.autoaugment_device": "--data.autoaugment_device",
     "runtime.export_dir": "--runtime.export_dir=/nonexistent",
     "runtime.eval_imagenet_c": "--runtime.eval_imagenet_c",
@@ -136,6 +140,15 @@ def test_unported_option_is_refused(what, tmp_path):
         assert str(err.value) == f"axcnn_torch does not take {what}: {why}"
         assert "not ported" not in str(err.value)
     assert not os.listdir(tmp_path)  # refused before anything ran
+
+
+@pytest.mark.parametrize("what", sorted(PORTED_FLAGS))
+def test_ported_option_is_not_refused(what):
+    """Options once refused until ported now pass the loop's check; only
+    spatial partitioning is left unported."""
+    cfg = parse_cli([*SMALL, "--runtime.platform=cpu", PORTED_FLAGS[what]])
+    check_ported(cfg)
+    assert [w for w, _, _ in UNPORTED] == ["runtime.spatial_partitions > 1"]
 
 
 def test_unknown_platform_is_refused(tmp_path):

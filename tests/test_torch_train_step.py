@@ -330,3 +330,81 @@ def test_train_state_without_ema_round_trips():
     tstate = train_state_from_axcnn(jstate, ModelConfig(**CFG))
     assert tstate.ema is None
     assert train_state_to_axcnn(tstate)["ema"] is None
+
+
+# ---------------------------------------------------------------------------
+# the step with device AutoAugment
+# ---------------------------------------------------------------------------
+
+AA_GROUPS = 4
+
+
+@pytest.fixture(scope="module")
+def aa_step():
+    """One fp32 step of the assembled config with device AutoAugment (v0, 4
+    groups of 2) in both packages, from one state and batch, the reference's
+    draws handed to the port: its ``"autoaugment"`` key's sub-policies,
+    coins and signs (recomputed from the key with ``jax.random``), mixup's
+    lambda and DropBlock's uniforms."""
+    from axcnn.data.autoaugment_device import make_device_autoaugment as j_aa
+    from axcnn_torch.data.autoaugment import POLICIES
+    from axcnn_torch.data.autoaugment_device import make_device_autoaugment as t_aa
+    from test_torch_autoaugment_device import _reference_draws
+
+    jstate = _reference_state(75)
+    batch = _batch()
+    root_key = jax.random.key(ROOT_KEY)
+    policy = JPolicy(param_dtype=jnp.float32, compute_dtype=jnp.float32)
+    j_fn = j_aa("v0", num_groups=AA_GROUPS)
+    jstep = jax.jit(j_make_train_step(JModelConfig(**CFG), lr_schedule=j_lr(**LR_KW),
+                                      policy=policy, autoaugment_fn=j_fn, **STEP_KW))
+    j_new, j_metrics = jstep(jstate, batch, root_key)
+    draws = JRngStream(root_key).fold_step(jnp.int32(STEP))
+    aa_draws = _reference_draws(draws("autoaugment"), N, AA_GROUPS, len(POLICIES["v0"]))
+    lam = np.asarray(jax.random.beta(draws("mixup"), 0.2, 0.2, dtype=jnp.float32))
+    uniforms = {site: torch.from_numpy(np.array(jax.random.uniform(
+        draws(site), (N, hw, hw, 1), jnp.float32))[..., 0]) for site, hw in SITES.items()}
+    cfg = ModelConfig(**CFG)
+    tstep = make_train_step(cfg, lr_schedule=t_lr(**LR_KW), policy=Policy(),
+                            autoaugment_fn=t_aa("v0", num_groups=AA_GROUPS), **STEP_KW)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tstate, t_metrics = tstep(train_state_from_axcnn(jstate, cfg), tbatch, 0, lam=lam[()],
+                              dropblock_uniforms=uniforms, aa_draws=aa_draws)
+    augmented = {
+        "got": t_aa("v0", num_groups=AA_GROUPS)(tbatch["images"], draws=aa_draws).numpy(),
+        "want": np.asarray(jax.jit(j_fn)(draws("autoaugment"), batch["images"]))}
+    return dict(old=jstate, want=jax.tree.map(np.asarray, j_new),
+                want_metrics=jax.device_get(j_metrics), got=train_state_to_axcnn(tstate),
+                got_metrics=t_metrics, lam=lam, augmented=augmented, images=batch["images"])
+
+
+def test_aa_step_augments_the_batch_as_the_reference(aa_step):
+    """The augmentation the step applies: the reference's draws through the
+    port's ops against the reference's compiled applicator (whose warps XLA
+    contracts into multiply-adds: up to 1.6e-3 from its own op-by-op run;
+    tests/test_torch_autoaugment_device.py holds the op-by-op bound, 1e-4)."""
+    got, want = aa_step["augmented"]["got"], aa_step["augmented"]["want"]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-2)
+    assert not np.array_equal(got, aa_step["images"].astype(np.float32))
+
+
+def test_aa_step_metrics_match(aa_step):
+    _check_metrics(aa_step, 1e-5)
+
+
+@pytest.mark.parametrize("field", ["params", "velocity", "ema"])
+def test_aa_step_update_within_reference_noise(aa_step, field):
+    """The bounds of ``test_fp32_update_within_reference_noise``."""
+    errs = _update_errors(aa_step, field)
+    worst = max(errs, key=errs.get)
+    print(f"AA fp32 {field}: worst leaf {errs[worst]:.3g} ({worst}), "
+          f"median {np.median(list(errs.values())):.3g}")
+    assert errs[worst] <= 5e-2, (worst, errs[worst])
+    assert np.median(list(errs.values())) <= 5e-3
+
+
+def test_aa_step_bn_statistics_match(aa_step):
+    want, got = _leaves(aa_step["want"].model_state), _leaves(aa_step["got"]["model_state"])
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6, err_msg=k)
