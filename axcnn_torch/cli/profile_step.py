@@ -7,6 +7,7 @@
     python -m axcnn_torch.cli.profile_step --what=dp --ranks=2  # the R50 step on 2 cards
     python -m axcnn_torch.cli.profile_step --what=bl         # bl_resnet50 and its ablation
     python -m axcnn_torch.cli.profile_step --what=flops      # their forward FLOPs (no card)
+    python -m axcnn_torch.cli.profile_step --what=crc        # the host's CRC32C rates (no card)
 
 ``step``: ``assemble_resnet50`` at full width, 1001 classes, batch 128, bf16,
 random uint8 images on the card, the train step as ``make_train_step``
@@ -24,7 +25,11 @@ batch 128, then in the same process its ablation (``bl_alpha = bl_beta =
 0``: the same recipe on plain stages), each measured as ``step`` is, with
 the forward GFLOPs of one image of each (``flops``: those alone, counted
 by ``torch.utils.flop_counter.FlopCounterMode`` on the meta device, so
-with no card; convolutions and matmuls only).
+with no card; convolutions and matmuls only). ``crc``: the MB/s of
+``data.tfrecord.crc32c`` (numpy lanes) and of the byte loop it replaced
+(``crc32c_bytewise``) on seeded bytes on the host CPU, with no card: the
+lanes on 4 kB to 16 MB, each the best of 3 passes over at least 8 MB, the
+byte loop on 1 MB.
 
 After three warm-up steps, ``--untraced`` steps are timed one by one on the
 host clock: the wall until the step's loss reached the host (a synchronize
@@ -267,10 +272,34 @@ def _measure_dp(ranks: int, untraced: int, steps: int) -> dict:
     return {"ranks": ranks, **results.get()}
 
 
+def crc_rates() -> dict:
+    """``--what=crc``: MB/s of the CRC32C lanes by input size and of the
+    byte loop, on the host CPU (module docstring)."""
+    from axcnn_torch.data.tfrecord import crc32c, crc32c_bytewise
+
+    data = np.random.default_rng(SEED).integers(0, 256, 16 << 20, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    want = crc32c_bytewise(data[:1 << 20])
+    bytewise = (1 << 20) / 1e6 / (time.perf_counter() - t0)
+    assert crc32c(data[:1 << 20]) == want
+    lanes = {}
+    for n in (4 << 10, 64 << 10, 1 << 20, 16 << 20):
+        reps = max(1, (8 << 20) // n)
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                crc32c(data[:n])
+            best = min(best, time.perf_counter() - t0)
+        lanes[n] = n * reps / 1e6 / best
+    return {"bytewise_mb_per_s": bytewise, "lanes_mb_per_s": lanes,
+            "speedup": {n: r / bytewise for n, r in lanes.items()}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--what", choices=("step", "dropblock", "kd", "remat", "dp", "bl",
-                                           "flops"), default="step")
+                                           "flops", "crc"), default="step")
     parser.add_argument("--ranks", type=int, default=2, help="cards for --what=dp")
     parser.add_argument("--steps", type=int, default=3, help="steps in the traced window")
     parser.add_argument("--untraced", type=int, default=20, help="steps timed untraced")
@@ -280,6 +309,10 @@ def main(argv=None) -> int:
         print(json.dumps({"profile": "flops", "label": args.label, "image_size": 224,
                           "forward_gflops_per_image": {k: forward_gflops(c) for k, c in
                                                        _bl_models().items()}}), flush=True)
+        return 0
+    if args.what == "crc":
+        print(json.dumps({"profile": "crc", "label": args.label, "host": "cpu", **crc_rates()}),
+              flush=True)
         return 0
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)

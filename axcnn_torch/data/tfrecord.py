@@ -13,12 +13,15 @@ codec is the bootstrap reader and the golden-test writer.
 CRC verification is optional (off by default for speed on the hot path; the
 C++ loader does it in hardware-accelerated code).
 
-The port's own copy of ``axcnn/data/tfrecord.py``, unchanged, so that the port runs
-without the JAX package installed.
+The port's own copy of ``axcnn/data/tfrecord.py``, so that the port runs
+without the JAX package installed. It writes and reads the same bytes; its
+CRC32C runs in numpy lanes (``crc32c``) beside the byte loop
+(``crc32c_bytewise``), which gives the same values.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import struct
 from typing import Iterator
@@ -26,32 +29,117 @@ from typing import Iterator
 import numpy as np
 
 # ---------------------------------------------------------------------------
-# crc32c (Castagnoli), table-driven
+# crc32c (Castagnoli)
+#
+# ``crc32c_bytewise`` is the table-driven byte loop, the plain version.
+# ``crc32c`` splits an input of at least _LANES_MIN_BYTES into K equal lanes
+# of L bytes and runs the K registers in lockstep in numpy, 4 bytes a step
+# (slicing-by-4, its four 256-entry tables merged into two 65,536-entry
+# ones). The register is linear over GF(2): the CRC register after lanes
+# 0..k is "advance the register after lanes 0..k-1 by L zero bytes" XOR
+# lane k's own register from 0. That advance is a fixed 32x32 bit matrix,
+# applied through four 256-entry tables of its columns, so the lanes fold
+# in K table steps. The tail past K*L bytes takes the byte loop.
 # ---------------------------------------------------------------------------
 
+_CRC_POLY = 0x82F63B78
+_LANES_MIN_BYTES = 1024
 _CRC_TABLE = []
 
 
 def _crc_table():
     global _CRC_TABLE
     if not _CRC_TABLE:
-        poly = 0x82F63B78
         tbl = []
         for n in range(256):
             c = n
             for _ in range(8):
-                c = (c >> 1) ^ poly if c & 1 else c >> 1
+                c = (c >> 1) ^ _CRC_POLY if c & 1 else c >> 1
             tbl.append(c)
         _CRC_TABLE = tbl
     return _CRC_TABLE
 
 
-def crc32c(data: bytes) -> int:
+def _crc_update(crc: int, data) -> int:
     tbl = _crc_table()
-    crc = 0xFFFFFFFF
     for b in data:
         crc = tbl[(crc ^ b) & 0xFF] ^ (crc >> 8)
-    return crc ^ 0xFFFFFFFF
+    return crc
+
+
+def crc32c_bytewise(data: bytes) -> int:
+    """CRC32C one byte at a time: the plain version of :func:`crc32c`."""
+    return _crc_update(0xFFFFFFFF, data) ^ 0xFFFFFFFF
+
+
+@functools.lru_cache(maxsize=1)
+def _word_tables():
+    """Slicing-by-4's tables T0..T3, merged in pairs: the register after one
+    4-byte step from ``r`` is ``lo[r & 0xFFFF] ^ hi[r >> 16]``."""
+    t = [np.array(_crc_table(), np.uint32)]
+    for _ in range(3):
+        t.append((t[-1] >> 8) ^ t[0][t[-1] & 0xFF])
+    lo = (t[2][:, None] ^ t[3][None, :]).ravel()
+    hi = (t[0][:, None] ^ t[1][None, :]).ravel()
+    return lo, hi
+
+
+def _apply_bits(cols, x: int) -> int:
+    y, i = 0, 0
+    while x:
+        if x & 1:
+            y ^= cols[i]
+        x >>= 1
+        i += 1
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _advance_tables(nbytes: int):
+    """Four 256-entry tables of the linear map "advance the register by
+    ``nbytes`` zero bytes": the image of ``x`` is the XOR of table ``k``
+    at byte ``k`` of ``x``. The map's 32 columns come from squaring the
+    one-byte map."""
+    tbl = _crc_table()
+    step = [tbl[(1 << i) & 0xFF] ^ ((1 << i) >> 8) for i in range(32)]
+    cols = [1 << i for i in range(32)]
+    while nbytes:
+        if nbytes & 1:
+            cols = [_apply_bits(step, c) for c in cols]
+        step = [_apply_bits(step, c) for c in step]
+        nbytes >>= 1
+    return [[_apply_bits(cols[8 * k:8 * k + 8], b) for b in range(256)] for k in range(4)]
+
+
+def _lane_bytes(n: int) -> int:
+    """A power of two near sqrt(n / 8), in [64, 4096]: it balances the
+    lockstep's steps (L / 4) against the fold's (n / L)."""
+    return 1 << min(12, max(6, round(np.log2(max(n / 8, 1)) / 2)))
+
+
+def crc32c(data) -> int:
+    """CRC32C (Castagnoli) of ``data`` (bytes-like): the byte loop's value,
+    computed in numpy lanes for inputs of at least ``_LANES_MIN_BYTES``."""
+    n = len(data)
+    if n < _LANES_MIN_BYTES:
+        return crc32c_bytewise(data)
+    lane = _lane_bytes(n)
+    k = n // lane
+    words = np.frombuffer(data, "<u4", count=k * lane // 4).reshape(k, lane // 4).T.copy()
+    lo_t, hi_t = _word_tables()
+    reg = np.zeros(k, np.uint32)
+    lo, hi = np.empty(k, np.intp), np.empty(k, np.intp)
+    for w in words:
+        reg ^= w
+        np.bitwise_and(reg, 0xFFFF, out=lo, casting="unsafe")
+        np.right_shift(reg, 16, out=hi, casting="unsafe")
+        np.take(lo_t, lo, out=reg)
+        reg ^= hi_t[hi]
+    z0, z1, z2, z3 = _advance_tables(lane)
+    crc = 0xFFFFFFFF
+    for r in reg.tolist():
+        crc = z0[crc & 0xFF] ^ z1[(crc >> 8) & 0xFF] ^ z2[(crc >> 16) & 0xFF] ^ z3[crc >> 24] ^ r
+    return _crc_update(crc, memoryview(data)[k * lane:]) ^ 0xFFFFFFFF
 
 
 def masked_crc32c(data: bytes) -> int:

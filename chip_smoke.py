@@ -143,7 +143,26 @@ points and checks them:
     1-2, ``main_classification --runtime.eval_imagenet_c`` on the card in
     fp32 from that run's checkpoint: the mce line equals ``compute_mce`` of
     the per-set lines, and each set's top-1 equals the port's CPU run;
-29. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
+29. tf_import: a full-width ``assemble_resnet50`` TF1 checkpoint (1001
+    classes; every variable under its TF-official name, EMA shadows,
+    Momentum slots, ``global_step``) written as TF's V2 bundle in two data
+    shards (``_write_tf_bundle``), imported on the host without TensorFlow
+    with and without ``use_ema``: every tensor bit for bit what was written;
+    seconds and MB/s of each import; the EMA import in a channels_last
+    model on the card gives b128 bf16 logits bit for bit those of a model
+    that took the same tensors through ``load_weights``, with 3 BlurPool
+    launches a forward; saved as a port checkpoint, ``predict`` serves it
+    (``tf_import_serve``: its top-5 lines equal the restored EMA's);
+30. fgvc_finetune: a Food-101-layout tree (101 classes, 3 train and 1 test
+    JPEG a class, up to 512 px on the long side) built into ``train`` and
+    ``validation`` shards by ``python -m axcnn_torch.data.build_tfrecords
+    --layout=food101`` and read back (counts, labels), then
+    ``main_classification --config=finetune_fgvc`` at full width, b256,
+    bf16, 12 steps and its eval, warm-started from the imported checkpoint:
+    before the first update every non-head tensor equals the imported EMA
+    and the 101-way head its fresh init; finite losses; 3 + 3 + 9 + 9
+    launches a step; step walls, img/s, peak memory;
+31. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
     card, NCCL), global b256, bf16, 10 steps: finite losses, img/s per card
     and in total. On a machine with one card it prints ``"ran": false``.
 
@@ -158,6 +177,7 @@ import glob
 import io
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -217,6 +237,11 @@ BLUR_SIZE_SHAPES = [(4, 28, 28, 64), (3, 15, 17, 24), (2, 9, 8, 6)]
 AA_STEPS, AA_IMAGES = 12, 256  # device-AA training: steps, 256^2 JPEGs in the train set
 INT8_CONVS = 71  # convs of an assembled R50 forward: stem 3, 16 blocks x 4, 4 projections
 MCE_IMAGES, MCE_SEVERITIES = 8, (1, 2)
+TF_GLOBAL_STEP = 400_000  # the step a published model.ckpt-* carries
+TF_SHARDS = 2
+FGVC_CLASSES, FGVC_TRAIN, FGVC_TEST = 101, 3, 1  # Food-101's classes; images a class
+FGVC_STEPS, FGVC_BATCH = 12, 256  # finetune_fgvc's batch
+FGVC_LONG_SIDE = 512  # the published Food-101 images' longest side
 L2_FLUSH_BYTES = 256 << 20  # timing inputs cycle through at least this much (H100 L2: 50 MB)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory bandwidth (datasheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (datasheet)
@@ -1170,9 +1195,10 @@ def _predict_lines(logits, paths):
             for p, pr in zip(paths, probs)]
 
 
-def serve_ckpt_phase(model_dir, tmp):
-    """``predict`` on the resumed run's checkpoint against the restored EMA
-    state's own ``eval_logits`` on the same decoded batch."""
+def serve_ckpt_phase(model_dir, tmp, phase="serve_ckpt"):
+    """``predict`` on the checkpoint in ``model_dir`` (the resumed run's; in
+    ``tf_import``, the imported one's) against the restored EMA state's own
+    ``eval_logits`` on the same decoded batch."""
     from axcnn_torch.ckpt.checkpoint import CheckpointManager
     from axcnn_torch.cli import predict
     from axcnn_torch.core.dtypes import BF16_POLICY
@@ -1201,7 +1227,7 @@ def serve_ckpt_phase(model_dir, tmp):
     want = _predict_lines(logits.cpu().numpy(), paths)
     ok = (got == want and "random init" not in err.getvalue()
           and counts == _launches(3, 0, 0))
-    emit("serve_ckpt", images=len(paths), step=state.step, launches=counts,
+    emit(phase, images=len(paths), step=state.step, launches=counts,
          top5_equal=got == want, first=got[0], want_first=want[0], ok=ok)
     if not ok:
         raise AssertionError("serving the checkpoint disagrees with its restored state")
@@ -2225,6 +2251,354 @@ def mce_phase(smi, model_dir, tmp):
     return card["counts"]
 
 
+def _proto_field(out, number, value):
+    """Append protobuf field ``number``: a varint for an int, else bytes."""
+    from axcnn_torch.data.tfrecord import _write_varint
+
+    if isinstance(value, int):
+        _write_varint(out, number << 3)
+        _write_varint(out, value)
+    else:
+        _write_varint(out, number << 3 | 2)
+        _write_varint(out, len(value))
+        out.extend(value)
+
+
+def _table_bytes(entries):
+    """A LevelDB-style table of ``entries`` (sorted ``(key, value)`` bytes),
+    as TF writes a bundle's index: one uncompressed data block (keys
+    prefix-compressed, a restart every 16 entries), an empty metaindex block,
+    an index block holding the data block's handle under its last key, each
+    block followed by its type byte and masked CRC32C, then the 48-byte
+    footer. Scaffolding for ``tf_import`` and the tests, not a package
+    feature."""
+    from axcnn_torch.ckpt.tf_bundle import TABLE_MAGIC
+    from axcnn_torch.data.tfrecord import _write_varint, masked_crc32c
+
+    def block(items):
+        out, restarts, prev = bytearray(), [], b""
+        for i, (key, value) in enumerate(items):
+            shared = 0
+            if i % 16:
+                while shared < min(len(prev), len(key)) and prev[shared] == key[shared]:
+                    shared += 1
+            else:
+                restarts.append(len(out))
+            for n in (shared, len(key) - shared, len(value)):
+                _write_varint(out, n)
+            out += key[shared:] + value
+            prev = key
+        restarts = restarts or [0]
+        return bytes(out) + struct.pack(f"<{len(restarts) + 1}I", *restarts, len(restarts))
+
+    table = bytearray()
+
+    def put(contents):
+        handle = bytearray()
+        _write_varint(handle, len(table))
+        _write_varint(handle, len(contents))
+        table.extend(contents + b"\0" + struct.pack("<I", masked_crc32c(contents + b"\0")))
+        return bytes(handle)
+
+    data = put(block(entries))
+    meta = put(block([]))
+    index = put(block([(entries[-1][0], data)]))
+    return bytes(table) + (meta + index).ljust(40, b"\0") + struct.pack("<Q", TABLE_MAGIC)
+
+
+def _write_tf_bundle(prefix, tensors, *, shards=TF_SHARDS, header=None):
+    """``tensors`` ({name: float32 or int64 array}) as TF's V2 checkpoint
+    bundle: ``<prefix>.index`` and ``shards`` data files, the tensors dealt
+    to the shards in name order, each with its masked CRC32C. ``header``
+    replaces the ``BundleHeaderProto`` bytes (tests). Scaffolding for
+    ``tf_import`` and the tests, not a package feature."""
+    from axcnn_torch.data.tfrecord import masked_crc32c
+
+    dtypes = {np.dtype(np.float32): 1, np.dtype(np.int64): 9}
+    if header is None:
+        header = bytearray()
+        _proto_field(header, 1, shards)  # num_shards; endianness 0: little
+        _proto_field(header, 3, bytes([0x08, 0x01]))  # version {producer: 1}
+    entries = [(b"", bytes(header))]
+    files = [open(f"{prefix}.data-{s:05d}-of-{shards:05d}", "wb") for s in range(shards)]
+    try:
+        for i, name in enumerate(sorted(tensors, key=str.encode)):
+            a = np.ascontiguousarray(tensors[name])
+            data = a.astype(a.dtype.newbyteorder("<")).tobytes()
+            shard, f = i % shards, files[i % shards]
+            shape = bytearray()
+            for d in a.shape:
+                dim = bytearray()
+                _proto_field(dim, 1, d)
+                _proto_field(shape, 2, bytes(dim))
+            entry = bytearray()
+            _proto_field(entry, 1, dtypes[a.dtype])
+            _proto_field(entry, 2, bytes(shape))
+            _proto_field(entry, 3, shard)
+            _proto_field(entry, 4, f.tell())
+            _proto_field(entry, 5, len(data))
+            entry += b"\x35" + struct.pack("<I", masked_crc32c(data))  # 6: fixed32
+            f.write(data)
+            entries.append((name.encode(), bytes(entry)))
+    finally:
+        for f in files:
+            f.close()
+    with open(prefix + ".index", "wb") as f:
+        f.write(_table_bytes(entries))
+
+
+def _tf_values(cfg, seed):
+    """Seeded values, in TF's layouts, for every variable of ``cfg``'s model
+    under its TF-official name (He-scaled kernels, BN scales in [0.5, 1.5],
+    bn3's in [0.1, 0.3]), an EMA shadow of each trainable one that differs
+    from it, its ``Momentum`` slot, and ``global_step`` (int64): what a
+    reference ``Saver`` checkpoint holds."""
+    from axcnn_torch.ckpt.tf_import import EMA_SUFFIX, expected_tf_names
+
+    rng = np.random.default_rng(seed)
+    out = {"global_step": np.array(TF_GLOBAL_STEP, np.int64)}
+    for tf_name, key, shape in expected_tf_names(cfg):
+        leaf = tf_name.rsplit("/", 1)[1]
+        if leaf == "kernel":
+            v = rng.standard_normal(shape, np.float32) * np.float32(
+                (2.0 / np.prod(shape[:-1])) ** 0.5)
+        elif leaf == "gamma":
+            lo, hi = (0.1, 0.3) if key.endswith("bn3.weight") else (0.5, 1.5)
+            v = rng.uniform(lo, hi, shape).astype(np.float32)
+        elif leaf == "moving_variance":
+            v = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        else:  # beta, moving_mean, bias
+            v = 0.1 * rng.standard_normal(shape, np.float32)
+        out[tf_name] = v
+        if not leaf.startswith("moving_"):
+            out[tf_name + EMA_SUFFIX] = v * np.float32(0.98) + np.float32(0.01) * np.sign(v)
+            out[tf_name + "/Momentum"] = 0.01 * rng.standard_normal(shape, np.float32)
+    return out
+
+
+def tf_import_phase(smi, import_dir, tmp):
+    """A reference TF1 checkpoint to the port's serving and fine-tuning: a
+    full-width ``assemble_resnet50`` bundle (1001 classes) written under
+    TF-official names (``_write_tf_bundle``: TF_SHARDS data shards, EMA
+    shadows, Momentum slots, ``global_step``) is imported on the host with
+    and without ``use_ema``: every tensor equal to what was written, bit for
+    bit. The EMA import, loaded into a channels_last model on the card, gives
+    b128 bf16 logits bit for bit those of a model that took the same tensors
+    through ``load_weights``, with 3 BlurPool launches a forward. Saved as a
+    port checkpoint (the raw import as the parameters, the EMA import as the
+    EMA) in ``import_dir``, it serves through ``predict``
+    (``serve_ckpt_phase``)."""
+    from axcnn_torch.ckpt.checkpoint import CheckpointManager, load_weights
+    from axcnn_torch.ckpt.convert import _to_torch_layout
+    from axcnn_torch.ckpt.tf_import import EMA_SUFFIX, expected_tf_names, import_tf_checkpoint
+    from axcnn_torch.core.dtypes import BF16_POLICY
+    from axcnn_torch.data.datasets import get_dataset
+    from axcnn_torch.data.preprocessing import normalize_device
+    from axcnn_torch.models.resnet import ResNet
+    from axcnn_torch.train.ema import ema_init
+    from axcnn_torch.train.optimizer import momentum_init
+    from axcnn_torch.train.train_step import TrainState
+
+    t_start = time.perf_counter()
+    cfg = _assembled_cfg()
+    values = _tf_values(cfg, SEED + 11)
+    bundle = os.path.join(tmp, "tf_ckpt")
+    os.makedirs(bundle, exist_ok=True)
+    prefix = os.path.join(bundle, f"model.ckpt-{TF_GLOBAL_STEP}")
+    t0 = time.perf_counter()
+    _write_tf_bundle(prefix, values)
+    write_s = time.perf_counter() - t0
+    with open(os.path.join(bundle, "checkpoint"), "w") as f:
+        f.write(f'model_checkpoint_path: "{os.path.basename(prefix)}"\n')
+    with torch.device("meta"):
+        template = ResNet(cfg).state_dict()
+    names = expected_tf_names(cfg)
+
+    def empty_model():
+        with torch.device("meta"):
+            model = ResNet(cfg)
+        return model.to_empty(device="cuda").to(memory_format=torch.channels_last).eval()
+
+    imports, exact = {}, {}
+    for use_ema in (False, True):
+        host = {k: torch.empty(v.shape) for k, v in template.items()}
+        t0 = time.perf_counter()
+        sd, missing = import_tf_checkpoint(bundle, cfg, host, use_ema=use_ema)
+        seconds = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+        exact[use_ema] = not missing and all(
+            torch.equal(sd[key], torch.from_numpy(np.ascontiguousarray(_to_torch_layout(
+                values[tf_name + EMA_SUFFIX if use_ema and tf_name + EMA_SUFFIX in values
+                       else tf_name]))))
+            for tf_name, key, _ in names)
+        imports[use_ema] = (sd, seconds, nbytes)
+    raw_sd, ema_sd = imports[False][0], imports[True][0]
+    ema_differs = any(not torch.equal(raw_sd[k], ema_sd[k]) for k in raw_sd)
+
+    info = get_dataset("imagenet")
+    direct, through = empty_model(), empty_model()
+    direct.load_state_dict(ema_sd)
+    params = {k for k, _ in through.named_parameters()}
+    load_weights(through, {k: v for k, v in ema_sd.items() if k in params},
+                 {k: v for k, v in ema_sd.items() if k not in params}, "the TF import")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    u8 = torch.randint(0, 256, (TIME_BATCH, 224, 224, 3), generator=gen, device="cuda",
+                       dtype=torch.uint8)
+    _zero_counts()
+    with torch.inference_mode():
+        x = normalize_device(u8, info.mean_rgb, info.stddev_rgb)
+        logits = [m(x, policy=BF16_POLICY) for m in (direct, through)]
+    torch.cuda.synchronize()
+    counts = _counts()
+    logits_equal = torch.equal(*logits)
+    finite = bool(torch.isfinite(logits[0]).all()) and logits[0].shape == (TIME_BATCH, 1001)
+
+    raw_model = empty_model()
+    raw_model.load_state_dict(raw_sd)
+    weights = dict(raw_model.named_parameters())
+    state = TrainState(model=raw_model, step=TF_GLOBAL_STEP, velocity=momentum_init(weights),
+                       ema=ema_init({k: p for k, p in direct.named_parameters()}))
+    mgr = CheckpointManager(os.path.join(import_dir, "checkpoints"),
+                            model_config=dataclasses.asdict(cfg))
+    mgr.save(state)
+    mgr.close()
+    served = serve_ckpt_phase(import_dir, tmp, phase="tf_import_serve")
+    (_, ema_s, ema_bytes), (_, raw_s, raw_bytes) = imports[True], imports[False]
+    ok = (all(exact.values()) and ema_differs and logits_equal and finite
+          and counts == _launches(6, 0, 0))
+    emit("tf_import", model="assemble_resnet50", classes=1001, tensors=len(values),
+         bundle_mb=sum(os.path.getsize(p) for p in glob.glob(prefix + ".*")) / 1e6,
+         shards=TF_SHARDS, write_s=write_s, import_ema_s=ema_s,
+         import_ema_mb_per_s=ema_bytes / 1e6 / ema_s, import_raw_s=raw_s,
+         import_raw_mb_per_s=raw_bytes / 1e6 / raw_s, exact=exact, ema_differs=ema_differs,
+         logits_equal=logits_equal, launches=counts, served=served,
+         phase_s=time.perf_counter() - t_start, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("the TF import phase failed")
+    return counts, served, ema_sd
+
+
+def _food101_tree(root, seed):
+    """A tree in the published Food-101 archive's layout:
+    ``images/<class>/<id>.jpg`` (seeded JPEGs up to FGVC_LONG_SIDE px on the
+    long side), ``meta/classes.txt``, ``meta/train.txt`` and ``meta/test.txt``
+    (``<class>/<id>`` lines); FGVC_CLASSES classes of FGVC_TRAIN train and
+    FGVC_TEST test images. Returns the class names."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    classes = [f"dish_{i:03d}" for i in range(FGVC_CLASSES)]
+    split = {"train": [], "test": []}
+    os.makedirs(os.path.join(root, "meta"), exist_ok=True)
+    for c in classes:
+        os.makedirs(os.path.join(root, "images", c))
+        for i in range(FGVC_TRAIN + FGVC_TEST):
+            long, short = FGVC_LONG_SIDE, int(rng.integers(FGVC_LONG_SIDE // 2, FGVC_LONG_SIDE + 1))
+            h, w = (long, short) if rng.integers(2) else (short, long)
+            yy, xx = np.mgrid[0:h, 0:w]
+            a, b = rng.uniform(0.2, 1.0, 2)
+            base = np.stack([yy * a * 255 / h, xx * b * 255 / w,
+                             np.full((h, w), rng.uniform(0, 255))], -1)
+            img = np.clip(base + rng.integers(0, 48, base.shape), 0, 255).astype(np.uint8)
+            image_id = f"{int(rng.integers(1 << 20)):07d}"
+            Image.fromarray(img).save(os.path.join(root, "images", c, image_id + ".jpg"),
+                                      quality=90)
+            split["train" if i < FGVC_TRAIN else "test"].append(f"{c}/{image_id}")
+    for name, lines in (("classes", classes), *split.items()):
+        with open(os.path.join(root, "meta", f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return classes
+
+
+def fgvc_finetune_phase(smi, import_dir, imported, tmp):
+    """The warm-started fine-tune of the imported checkpoint: a Food-101
+    tree (``_food101_tree``), its ``train`` and ``validation`` shards built
+    by ``python -m axcnn_torch.data.build_tfrecords --layout=food101
+    --dataset=food101`` and read back (record counts, labels), then
+    ``main_classification --config=finetune_fgvc`` at full width, b256,
+    bf16, FGVC_STEPS steps and its eval, from the import's checkpoint. Before
+    the first update every non-head weight and BN statistic must equal the
+    imported EMA (``imported``) and the 101-way head its fresh init (the
+    warm start skips ``head.``, as the reference's ``_warm_start`` does);
+    every loss finite; the kernels 3 + 3 + 9 + 9 times a step."""
+    from axcnn_torch.data.datasets import get_dataset
+    from axcnn_torch.data.tfrecord import (
+        TFRecordReader, count_records, list_shards, parse_example)
+    from axcnn_torch.train import loop
+
+    t_start = time.perf_counter()
+    tree, records = os.path.join(tmp, "food101"), os.path.join(tmp, "food101_records")
+    t0 = time.perf_counter()
+    classes = _food101_tree(tree, SEED + 12)
+    tree_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for split, shards in (("train", 4), ("test", 2)):
+        subprocess.run([sys.executable, "-m", "axcnn_torch.data.build_tfrecords",
+                        "--layout=food101", "--dataset=food101", f"--input_dir={tree}",
+                        f"--output_dir={records}", f"--split={split}",
+                        f"--num_shards={shards}"], check=True, capture_output=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    build_s = time.perf_counter() - t0
+    read = {}
+    for prefix, per_class in (("train", FGVC_TRAIN), ("validation", FGVC_TEST)):
+        shards = list_shards(records, prefix)
+        labels = []
+        for shard in shards:
+            for payload in TFRecordReader(shard, verify_crc=True):
+                ex = parse_example(payload)
+                label, text = ex["image/class/label"][0], ex["image/class/text"][0].decode()
+                assert classes[label] == text, (label, text)
+                labels.append(label)
+        counts_ok = (sum(count_records(p) for p in shards) == len(labels)
+                     and sorted(labels) == sorted(list(range(FGVC_CLASSES)) * per_class))
+        read[prefix] = dict(shards=len(shards), records=len(labels), labels_ok=counts_ok)
+
+    warm = {}
+    real_warm_start = loop._warm_start
+
+    def spy(state, cfg):
+        warm["head"] = {k: v.detach().cpu().clone()
+                        for k, v in state.model.head.state_dict().items()}
+        state = real_warm_start(state, cfg)
+        warm["after"] = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+        return state
+
+    run_dir = os.path.join(tmp, "fgvc")
+    argv = ["--config=finetune_fgvc", f"--data.data_dir={records}",
+            f"--train.pretrained_checkpoint={os.path.join(import_dir, 'checkpoints')}",
+            f"--train.train_steps={FGVC_STEPS}", f"--train.batch_size={FGVC_BATCH}",
+            "--train.log_every=1", "--runtime.num_devices=1", f"--runtime.model_dir={run_dir}"]
+    with mock.patch.object(loop, "_warm_start", spy):
+        metrics, counts, seconds, peak, logged = _run_cli(argv)
+    after = warm["after"]
+    warm_equal = all(torch.equal(after[k], imported[k].cpu()) for k in after
+                     if not k.startswith("head."))
+    head_fresh = (after["head.weight"].shape[0] == get_dataset("food101").num_classes
+                  and all(torch.equal(after[f"head.{k}"], v) for k, v in warm["head"].items()))
+    train = [r for r in logged if r["tag"] == "train"]
+    losses = [r["loss"] for r in train]
+    walls = _step_walls(train)
+    eval_batches = -(-FGVC_CLASSES * FGVC_TEST // FGVC_BATCH)
+    want = _launches(3 * FGVC_STEPS + 3 * eval_batches, 3 * FGVC_STEPS, 9 * FGVC_STEPS)
+    ok = ([r["step"] for r in train] == list(range(1, FGVC_STEPS + 1))
+          and all(np.isfinite(losses)) and metrics["count"] == FGVC_CLASSES * FGVC_TEST
+          and all(r["labels_ok"] for r in read.values()) and warm_equal and head_fresh
+          and counts == want)
+    emit("fgvc_finetune", model="assemble_resnet50", preset="finetune_fgvc", dataset="food101",
+         classes=FGVC_CLASSES, batch=FGVC_BATCH, dtype="bf16", steps=FGVC_STEPS,
+         records=read, tree_s=tree_s, build_s=build_s, warm_start_equals_import=warm_equal,
+         head_fresh=head_fresh, first_loss=losses[0], last_loss=losses[-1],
+         mean_step_ms=float(walls.mean()) * 1e3, step_ms_min=float(walls.min()) * 1e3,
+         step_ms_max=float(walls.max()) * 1e3, train_img_per_s=FGVC_BATCH / float(walls.mean()),
+         max_memory_allocated_gib=peak / 2 ** 30,
+         launches_per_step={k: v / FGVC_STEPS for k, v in counts.items()}, launches=counts,
+         expected=want, eval=metrics, seconds=seconds, phase_s=time.perf_counter() - t_start,
+         card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("the FGVC fine-tune phase failed")
+    return counts
+
+
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
     ("fwd", ("fwd",), "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
@@ -2271,6 +2645,10 @@ def main():
         paths["int8_serve"], _ = int8_serve_phase(smi)
         paths["export"] = export_phase(smi, train_dir, tmp)
         paths["mce"] = mce_phase(smi, train_dir, tmp)
+        import_dir = os.path.join(tmp, "tf_import")
+        paths["tf_import"], paths["tf_import_serve"], imported = tf_import_phase(
+            smi, import_dir, tmp)
+        paths["fgvc_finetune"] = fgvc_finetune_phase(smi, import_dir, imported, tmp)
         dp_nccl_phase(smi, tmp, single)
     for _, keys, name, *_ in KERNELS:
         for k in keys:

@@ -4,9 +4,12 @@
 preprocessing, TFRecords, AutoAugment, the C++ loader's bindings, the
 loaders, metric logging, the watchdog), so it runs where ``axcnn`` is not
 installed. Each copy must give what its original gives on the same seeded
-inputs. An import guard then runs the port's CLIs in a process that refuses
-every import of ``axcnn`` and ``jax``, and an AST scan finds no such import
-in any file of the port or in ``chip_smoke.py``.
+inputs. An import guard then runs the port's CLIs, its TF1-checkpoint
+import and its TFRecord builder in a process that refuses every import of
+``axcnn``, ``jax`` and ``tensorflow``, and an AST scan finds no import of
+``axcnn`` or ``jax`` in any file of the port or in ``chip_smoke.py``, and
+none of ``tensorflow`` outside the opt-in TensorBoard writer of
+``utils/logging.py``.
 """
 
 import ast
@@ -147,7 +150,7 @@ def test_synthetic_loader_matches_reference(seed):
 
 @pytest.fixture(scope="module")
 def shards(tmp_path_factory):
-    from axcnn.data.build_tfrecords import write_shards
+    from axcnn_torch.data.build_tfrecords import write_shards
 
     tmp = tmp_path_factory.mktemp("host_data")
     rng = np.random.default_rng(0)
@@ -248,23 +251,34 @@ def test_hang_watchdog_fires(mod):
     assert mod.HANG_EXIT_CODE == 42
 
 
-# -- the port runs without axcnn and jax --------------------------------------
+# -- the port runs without axcnn, jax and tensorflow ---------------------------
 
 _GUARD = """
-import importlib.abc, sys
+import importlib.abc, importlib.machinery, sys
 
-class _Refuse(importlib.abc.MetaPathFinder):
+class _Refuse(importlib.abc.MetaPathFinder, importlib.abc.Loader):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top == "axcnn" or top == "jax" or top.startswith("jax"):
+        if top == "axcnn" or top.startswith("jax"):
             raise ModuleNotFoundError(f"refused: {name}")
+        if top == "tensorflow":
+            # a spec with no origin, whose loading raises: torch._dynamo
+            # probes tensorflow with find_spec and skips such a spec
+            return importlib.machinery.ModuleSpec(name, self)
         return None
+
+    def create_module(self, spec):
+        raise ModuleNotFoundError(f"refused: {spec.name}")
+
+    def exec_module(self, module):
+        pass
 
 sys.meta_path.insert(0, _Refuse())
 """
 
 _CHECK = """
-bad = [m for m in sys.modules if m.split(".")[0] == "axcnn" or m.startswith("jax")]
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("axcnn", "tensorflow") or m.startswith("jax")]
 assert not bad, bad
 print("ok")
 """
@@ -309,15 +323,46 @@ recs = [json.loads(l) for l in open(os.path.join(tmp, "metrics.jsonl"))]
 assert [r["step"] for r in recs if r["tag"] == "train"] == [1, 2], recs
 assert os.path.exists(os.path.join(tmp, "checkpoints", "2.pt"))
 """,
+    "tf_import_and_build": """
+import os, tempfile
+import numpy as np, torch
+from PIL import Image
+import chip_smoke
+from axcnn_torch.ckpt.tf_import import import_tf_checkpoint
+from axcnn_torch.data import build_tfrecords
+from axcnn_torch.data.tfrecord import count_records, list_shards
+from axcnn_torch.models.resnet import ModelConfig, ResNet
+tmp = tempfile.mkdtemp()
+cfg = ModelConfig(use_resnet_d=True, use_se_block=True, use_sk_block=True,
+                  anti_alias_type="sconv", width_multiplier=0.125, num_classes=10)
+chip_smoke._write_tf_bundle(os.path.join(tmp, "model.ckpt-1"), chip_smoke._tf_values(cfg, 0))
+open(os.path.join(tmp, "checkpoint"), "w").write('model_checkpoint_path: "model.ckpt-1"')
+model = ResNet(cfg)
+state_dict, missing = import_tf_checkpoint(tmp, cfg, model.state_dict(), use_ema=True)
+assert not missing
+model.load_state_dict(state_dict)
+with torch.inference_mode():
+    assert torch.isfinite(model.eval()(torch.zeros(1, 32, 32, 3))).all()
+for c in ("a", "b"):
+    os.makedirs(os.path.join(tmp, "src", "train", c))
+    for i in range(3):
+        Image.fromarray(np.full((8, 8, 3), i, np.uint8)).save(
+            os.path.join(tmp, "src", "train", c, f"{i}.jpg"))
+build_tfrecords.main([f"--input_dir={tmp}/src", f"--output_dir={tmp}/rec", "--num_shards=2",
+                      "--dataset=food101"])
+assert sum(count_records(p) for p in list_shards(f"{tmp}/rec", "train")) == 6
+""",
 }
 
 
 @pytest.mark.parametrize("case", sorted(_CASES))
 def test_port_runs_with_axcnn_and_jax_refused(case):
-    """A process whose import system refuses ``axcnn``, ``axcnn.*`` and
-    ``jax*`` imports every module of the port and ``chip_smoke``, serves a
-    JPEG through ``predict`` and trains 2 steps through the training CLI,
-    on the CPU at width 0.125, 64x64."""
+    """A process whose import system refuses ``axcnn``, ``axcnn.*``,
+    ``jax*`` and ``tensorflow`` imports every module of the port and
+    ``chip_smoke``, serves a JPEG through ``predict``, trains 2 steps
+    through the training CLI (on the CPU at width 0.125, 64x64), imports a
+    TF1 bundle (``chip_smoke._write_tf_bundle``'s, width 0.125) and builds
+    TFRecord shards."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run([sys.executable, "-c", _GUARD + _CASES[case] + _CHECK],
@@ -328,6 +373,11 @@ def test_port_runs_with_axcnn_and_jax_refused(case):
 
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_file_imports_no_axcnn_or_jax(path):
+    """Nor ``tensorflow``, but in the TensorBoard writer that
+    ``utils/logging.py`` imports only when asked to."""
+    banned = {"axcnn", "jax", "jaxlib"}
+    if path != "axcnn_torch/utils/logging.py":
+        banned.add("tensorflow")
     tree = ast.parse((REPO / path).read_text(), filename=path)
     bad = []
     for node in ast.walk(tree):
@@ -338,5 +388,5 @@ def test_port_file_imports_no_axcnn_or_jax(path):
         else:
             continue
         bad += [f"{path}:{node.lineno} {n}" for n in names
-                if n.split(".")[0] in ("axcnn", "jax", "jaxlib")]
+                if n.split(".")[0] in banned]
     assert not bad, bad

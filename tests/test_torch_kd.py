@@ -31,6 +31,7 @@ JAX reference, on the CPU.
 """
 
 import contextlib
+import copy
 import dataclasses
 
 import jax
@@ -425,24 +426,35 @@ PRESET_LR = dict(base_lr=0.1 * 1024 / 256, total_steps=PRESET_STEPS,
 PRESET_KD = dict(kd_temp=1.0, kd_alpha=1.0)
 
 
-def _trajectory(kd_kw):
-    """Three KD steps under accumulation from the reference's fresh init
-    (``zero_gamma``: every bn3 gamma 0, velocity 0), a new batch each step,
-    at ``PRESET_LR``: the reference's and the port's losses and final states,
-    both in float64, the port's with the reference's draws."""
-    step_kw = {**STEP_KW, "total_steps": PRESET_STEPS}
-    trees = _teacher_trees(83)
-    jstate = j_create_train_state(jax.random.key(86), JModelConfig(**CFG))
+@pytest.fixture(scope="module")
+def trajectory_start():
+    """What every trajectory starts from, made once: the reference's fresh
+    init (``zero_gamma``: every bn3 gamma 0, velocity 0), the teacher's
+    trees, a new batch for each step, and the port's float64 copy of the
+    init (a trajectory steps a deep copy of it)."""
+    jstate = jax.device_get(j_create_train_state(jax.random.key(86), JModelConfig(**CFG)))
     batches = []
     for k in range(PRESET_STEPS):
         rng = np.random.default_rng(90 + k)
         batches.append({"images": rng.integers(0, 256, (N, 64, 64, 3), dtype=np.uint8),
                         "labels": rng.integers(0, 10, N).astype(np.int32)})
     with _float64():
-        j = jax.tree.map(_f64, jax.device_get(jstate))
+        port = _port_state(jstate, torch.float64)
+    return dict(jstate=jstate, trees=_teacher_trees(83), batches=batches, port=port)
+
+
+def _trajectory(kd_kw, start):
+    """Three KD steps under accumulation from ``start`` (the
+    ``trajectory_start`` fixture), at ``PRESET_LR``: the reference's and the
+    port's losses and final states, both in float64, the port's with the
+    reference's draws."""
+    step_kw = {**STEP_KW, "total_steps": PRESET_STEPS}
+    jstate, trees, batches = start["jstate"], start["trees"], start["batches"]
+    with _float64():
+        j = jax.tree.map(_f64, jstate)
         jstep = _reference_step("kd_accum", trees, lr_kw=PRESET_LR, step_kw=step_kw,
                                 kd_kw=kd_kw)
-        t = _port_state(jstate, torch.float64)
+        t = copy.deepcopy(start["port"])
         tstep = make_train_step(ModelConfig(**CFG), lr_schedule=t_lr(**PRESET_LR),
                                 policy=Policy(torch.float64, torch.float64), **step_kw,
                                 teacher=_port_teacher(*trees, torch.float64),
@@ -456,19 +468,19 @@ def _trajectory(kd_kw):
             want.append(float(jm["loss"]))
             got.append(float(tm["loss"]))
         got_state = jax.tree.map(np.asarray, train_state_to_axcnn(t))  # its casts re-pointed
-    old = jax.tree.map(_f64, jax.device_get(jstate))
+    old = jax.tree.map(_f64, jstate)
     return dict(old=old, want=jax.tree.map(np.asarray, j), want_losses=want,
                 got=got_state, got_losses=got)
 
 
 @pytest.mark.parametrize("kd_alpha", [1.0, 0.0])
-def test_kd_accum_losses_follow_the_reference_over_three_steps(kd_alpha):
+def test_kd_accum_losses_follow_the_reference_over_three_steps(trajectory_start, kd_alpha):
     """The KD step under accumulation, three steps at the learning rates of
     the KD preset's 3-step run, from a fresh init: in float64 the port's loss
     at every step, and its parameters and velocity after the last, agree with
     the reference's to <= 1e-6. ``kd_alpha=0`` is the control without the KD
     term."""
-    run = _trajectory({**PRESET_KD, "kd_alpha": kd_alpha})
+    run = _trajectory({**PRESET_KD, "kd_alpha": kd_alpha}, trajectory_start)
     print(f"kd_alpha={kd_alpha} losses: reference {run['want_losses']}, "
           f"port {run['got_losses']}")
     np.testing.assert_allclose(run["got_losses"], run["want_losses"], rtol=1e-6)

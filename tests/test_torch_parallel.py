@@ -135,6 +135,9 @@ def _rank_main(rank, world, port, workdir):
         out = {leg: _port_step(inputs, leg, rank) for leg in LEGS}
     finally:
         mesh.shutdown()
+    # this rank's shard in one process, for the sync_bn=False test: taken
+    # here, beside the reference's compiles, not after them
+    out["fp64_nosync_single"] = _port_step(inputs, "fp64_nosync", rank, group=None)
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
 
 
@@ -288,7 +291,7 @@ def dp_runs(tmp_path_factory):
                                                   cfg=BL_CFG if leg.startswith("bl") else CFG))
         got[leg] = dict(tree=jax.tree.map(lambda a: np.asarray(a, np.float64), tree),
                         metrics=r0["metrics"], ranks=[r[leg] for r in ranks])
-    got["inputs"] = workdir / "inputs.pt"
+    got["nosync_singles"] = [r["fp64_nosync_single"] for r in ranks]
     return want, got
 
 
@@ -416,8 +419,7 @@ def test_dp_without_sync_bn_averages_two_one_process_steps(dp_runs):
     tensor <= 1e-10: the two sides sum in other orders and thread splits)."""
     import torch as t
 
-    inputs = t.load(dp_runs[1]["inputs"], weights_only=False)
-    singles = [_port_step(inputs, "fp64_nosync", r, group=None) for r in range(WORLD)]
+    singles = dp_runs[1]["nosync_singles"]  # rank r's shard, one process (_rank_main)
     got = dp_runs[1]["fp64_nosync"]["ranks"][0]
     np.testing.assert_allclose(got["metrics"]["loss"],
                                np.mean([m["metrics"]["loss"] for m in singles]), rtol=1e-12)
