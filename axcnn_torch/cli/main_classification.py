@@ -30,6 +30,11 @@ Usage, with the reference's argv grammar and presets:
     ... --runtime.model_dir=/tmp/run1 --runtime.eval_only --train.dtype=int8 \\
         --runtime.export_dir=/tmp/run1/export_int8
 
+    # spatial partitioning: image H split over 2 cards (a 448x448 fine-tune),
+    # D x 2 ranks for D data shards:
+    ... --config=finetune_fgvc --data.image_size=448 --runtime.spatial_partitions=2 \\
+        --runtime.num_devices=2
+
     # ImageNet-C mCE of what a run saved (axcnn_torch.data.build_imagenet_c
     # writes the corrupted sets):
     ... --runtime.model_dir=/tmp/run1 --runtime.eval_imagenet_c \\
@@ -50,7 +55,10 @@ batch. With ``--runtime.platform=cpu`` the N ranks run on the host over
 Gloo. Under a launcher that sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR`` and ``MASTER_PORT`` (``torchrun --nproc-per-node=N -m
 axcnn_torch.cli.main_classification ...``), each process is one rank and
-starts nothing. If a rank fails, the run ends with a non-zero exit code and
+starts nothing. With ``--runtime.spatial_partitions=S`` the N ranks form
+``N / S`` data shards of ``S`` ranks each, which split the images' H
+(``axcnn_torch.parallel.spatial``); on the CPU N defaults to S. If a rank
+fails, the run ends with a non-zero exit code and
 that rank's traceback; the others are stopped. A rank that fails after
 another (most often at a collective that the first failure broke) waits
 ``PEER_GRACE_S`` before it exits, so that the first failure, the cause, is
@@ -70,24 +78,31 @@ PEER_GRACE_S = 10.0
 def num_ranks(cfg) -> int:
     """The ranks ``runtime.num_devices`` asks for: on the card, 0 means
     every visible card and more than the visible cards is refused; on the
-    CPU, 0 means one. The global batch must divide among them."""
+    CPU, 0 means one (``runtime.spatial_partitions`` with S > 1: S). The
+    spatial partitions must divide them and the image size pass the shard
+    rule, and the global batch must divide among the data shards."""
     import torch
 
+    from axcnn_torch.parallel.spatial import check_shard_rows
     from axcnn_torch.train.loop import resolve_device
 
     n = cfg.runtime.num_devices
+    spatial = max(cfg.runtime.spatial_partitions, 1)
+    check_shard_rows(cfg.data.image_size, spatial)
     if n < 0:
         raise ValueError(f"runtime.num_devices must be >= 0, got {n}")
     if resolve_device(cfg.runtime.platform).type == "cpu":
-        n = max(n, 1)
+        n = n or spatial
     else:
         cards = torch.cuda.device_count()
         if n > cards:
             raise ValueError(f"runtime.num_devices={n} but {cards} CUDA card(s) are visible")
         n = n or cards
-    if cfg.train.batch_size % n:
-        raise ValueError(f"global batch {cfg.train.batch_size} not divisible by {n} "
-                         "data-parallel ranks")
+    if n % spatial:
+        raise ValueError(f"{n} devices not divisible by spatial={spatial}")
+    if cfg.train.batch_size % (n // spatial):
+        raise ValueError(f"global batch {cfg.train.batch_size} not divisible by "
+                         f"{n // spatial} data-parallel ranks")
     return n
 
 
@@ -141,12 +156,13 @@ def _run(cfg, *, local_rank: int = 0):
 
 def main(argv=None):
     from axcnn_torch.parallel import mesh
-    from axcnn_torch.train.loop import resolve_device
+    from axcnn_torch.train.loop import check_ported, resolve_device
     from axcnn_torch.utils.config import parse_cli
 
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = parse_cli(argv)
     print(cfg.to_json(), file=sys.stderr)
+    check_ported(cfg)  # before any rank starts
     if "WORLD_SIZE" in os.environ:  # one rank under a launcher
         local_rank = int(os.environ.get("LOCAL_RANK", 0))
         mesh.init_distributed(resolve_device(cfg.runtime.platform, local_rank))

@@ -5,6 +5,8 @@
     python -m axcnn_torch.cli.profile_step --what=kd         # the R152 KD step
     python -m axcnn_torch.cli.profile_step --what=remat      # the R50 step, remat=blocks
     python -m axcnn_torch.cli.profile_step --what=dp --ranks=2  # the R50 step on 2 cards
+    python -m axcnn_torch.cli.profile_step --what=spatial --ranks=2 --image_size=448
+                                                             # H split over 2 cards
     python -m axcnn_torch.cli.profile_step --what=bl         # bl_resnet50 and its ablation
     python -m axcnn_torch.cli.profile_step --what=flops      # their forward FLOPs (no card)
     python -m axcnn_torch.cli.profile_step --what=crc        # the host's CRC32C rates (no card)
@@ -14,7 +16,11 @@ random uint8 images on the card, the train step as ``make_train_step``
 builds it (mixup 0.2, label smoothing 0.1); ``remat``: the same step with
 ``model.remat=blocks``; ``dp``: the same step data-parallel, one rank a
 card over NCCL, batch 128 a rank (rank 0 measures; every rank runs the
-same steps). ``dropblock``: the R50 step's
+same steps); ``spatial``: the same step with each image's H split over
+``--ranks`` cards (``axcnn_torch.parallel.spatial``; one data shard, the
+batch's images at full H on every rank, rank 0 measures). ``--image_size``
+(224 by default) sets the images' side for ``step``, ``remat``, ``dp`` and
+``spatial``. ``dropblock``: the R50 step's
 nine DropBlock sites alone (6 at 14x14x1024 and 3 at 7x7x2048, batch 128,
 bf16, channels_last), each run forward and then backward through
 ``axcnn_torch.ops.dropblock.dropblock``; one repetition is one step's worth.
@@ -186,7 +192,7 @@ def _bl_models():
     return {"bl": bl, "ablation": preset_model("bl_resnet50", bl_alpha=0, bl_beta=0)}
 
 
-def _step_runner(cfg, *, kd: bool = False, group=None):
+def _step_runner(cfg, *, kd: bool = False, group=None, spatial=None, image_size: int = 224):
     from axcnn_torch.core.dtypes import BF16_POLICY
     from axcnn_torch.models.resnet import ResNet
     from axcnn_torch.train.schedules import make_lr_schedule
@@ -206,10 +212,12 @@ def _step_runner(cfg, *, kd: bool = False, group=None):
     state = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
                                device="cuda", use_ema=True)
     step = make_train_step(cfg, lr_schedule=make_lr_schedule(
-        base_lr=0.05, total_steps=100, warmup_steps=0), total_steps=100, group=group, **kw)
+        base_lr=0.05, total_steps=100, warmup_steps=0), total_steps=100, group=group,
+        spatial=spatial, **kw)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    batch = {"images": torch.randint(0, 256, (batch_size, 224, 224, 3), generator=gen,
-                                     device="cuda", dtype=torch.uint8),
+    shape = (batch_size, image_size, image_size, 3)
+    batch = {"images": torch.randint(0, 256, shape, generator=gen, device="cuda",
+                                     dtype=torch.uint8),
              "labels": torch.randint(0, 1001, (batch_size,), generator=gen, device="cuda")}
     box = [state]
 
@@ -242,34 +250,39 @@ def _dropblock_runner():
 
 
 def _dp_rank(rank: int, world: int, coordinator: str, untraced: int, steps: int,
-             results) -> None:
-    """One rank of ``--what=dp`` on card ``rank``; rank 0 hands back its
-    measurement."""
+             image_size: int, spatial: bool, results) -> None:
+    """One rank of ``--what=dp`` (or ``spatial``: the H of every image split
+    over the ranks) on card ``rank``; rank 0 hands back its measurement."""
     from axcnn_torch.parallel import mesh
+    from axcnn_torch.parallel.spatial import make_spatial_context
 
     mesh.init_distributed(torch.device("cuda", rank), rank=rank, world_size=world,
                           coordinator=coordinator)
     try:
+        ctx = make_spatial_context(world) if spatial else None
         result = _measure(*_step_runner(preset_model("assemble_resnet50"),
-                                        group=mesh.data_group()), untraced, steps)
+                                        group=mesh.data_group(), spatial=ctx,
+                                        image_size=image_size), untraced, steps)
     finally:
         mesh.shutdown()
     if rank == 0:
         results.put(result)
 
 
-def _measure_dp(ranks: int, untraced: int, steps: int) -> dict:
+def _measure_dp(ranks: int, untraced: int, steps: int, image_size: int,
+                spatial: bool = False) -> dict:
     import torch.multiprocessing as mp
 
     from axcnn_torch.cli.main_classification import _free_port
 
     if torch.cuda.device_count() < ranks:
-        raise SystemExit(f"profile_step: --what=dp needs {ranks} cards, "
+        raise SystemExit(f"profile_step: --what=dp|spatial needs {ranks} cards, "
                          f"{torch.cuda.device_count()} visible")
     results = mp.get_context("spawn").SimpleQueue()
     mp.start_processes(_dp_rank, nprocs=ranks, start_method="spawn",
-                       args=(ranks, f"127.0.0.1:{_free_port()}", untraced, steps, results))
-    return {"ranks": ranks, **results.get()}
+                       args=(ranks, f"127.0.0.1:{_free_port()}", untraced, steps, image_size,
+                             spatial, results))
+    return {"ranks": ranks, "image_size": image_size, **results.get()}
 
 
 def crc_rates() -> dict:
@@ -298,9 +311,11 @@ def crc_rates() -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--what", choices=("step", "dropblock", "kd", "remat", "dp", "bl",
-                                           "flops", "crc"), default="step")
-    parser.add_argument("--ranks", type=int, default=2, help="cards for --what=dp")
+    parser.add_argument("--what", choices=("step", "dropblock", "kd", "remat", "dp", "spatial",
+                                           "bl", "flops", "crc"), default="step")
+    parser.add_argument("--ranks", type=int, default=2, help="cards for --what=dp|spatial")
+    parser.add_argument("--image_size", type=int, default=224,
+                        help="the images' side for --what=step|remat|dp|spatial")
     parser.add_argument("--steps", type=int, default=3, help="steps in the traced window")
     parser.add_argument("--untraced", type=int, default=20, help="steps timed untraced")
     parser.add_argument("--label", default="", help="a name for the tree measured")
@@ -319,8 +334,9 @@ def main(argv=None) -> int:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout
-    if args.what == "dp":
-        result = _measure_dp(args.ranks, args.untraced, args.steps)
+    if args.what in ("dp", "spatial"):
+        result = _measure_dp(args.ranks, args.untraced, args.steps, args.image_size,
+                             spatial=args.what == "spatial")
     elif args.what == "bl":
         result = {}
         for name, cfg in _bl_models().items():
@@ -334,7 +350,8 @@ def main(argv=None) -> int:
             runner = _step_runner(preset_model("assemble_resnet152_kd"), kd=True)
         else:
             runner = _step_runner(preset_model(
-                "assemble_resnet50", remat="blocks" if args.what == "remat" else "none"))
+                "assemble_resnet50", remat="blocks" if args.what == "remat" else "none"),
+                image_size=args.image_size)
         result = _measure(*runner, args.untraced, args.steps)
     print(json.dumps({"profile": args.what, "label": args.label, "dtype": "bf16",
                       "card": smi.splitlines()[0], **result}), flush=True)

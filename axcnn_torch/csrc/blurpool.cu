@@ -18,6 +18,16 @@
 // do. With an odd extent the forward read a zero pad at x[H]; the transpose
 // never writes that position.
 //
+// Top padding 0 (pad_top, for a spatially partitioned shard whose first row
+// is the halo row the rank above sent): output row i reads input rows 2i,
+// 2i+1, 2i+2 and there are (H - 1) / 2 of them; W keeps its padding (1,1).
+// That is the padding-1 map one row further down, so both directions run
+// the padding-1 code on shifted rows: the forward's rows start at 2i - pad_top
+// (0 instead of -1), and the backward is the padding-1 transpose over a
+// virtual input of H + 1 rows whose gradient has a zero row on top, with
+// the virtual first dx row not written (blur_pool_bwd_reference does the
+// same). Each output row is then the unsharded kernel's, bit for bit.
+//
 // What bounds both: device-memory bytes. The forward reads x once and writes
 // a quarter of that (16 fp32 operations per output element); the backward
 // reads g and writes four times as much (3 operations per dx element). At
@@ -132,7 +142,8 @@ struct alignas(sizeof(T) * VEC) Pack {
 // x is (n, h, w, c), y is (n, ho, wo, c), both contiguous.
 template <typename T>
 __global__ void blur3_s2_thread_kernel(const T* __restrict__ x, T* __restrict__ y,
-                                       int h, int w, int c, int ho, int wo, long long total) {
+                                       int h, int w, int c, int ho, int wo, int pad_top,
+                                       long long total) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int ch = (int)(idx % c);
@@ -149,7 +160,7 @@ __global__ void blur3_s2_thread_kernel(const T* __restrict__ x, T* __restrict__ 
     float rows[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const int p = 2 * i - 1 + a;
+      const int p = 2 * i - pad_top + a;
       rows[a] = (p >= 0 && p < h && q >= 0 && q < w) ? to_f32(xn[((long long)p * w + q) * c]) : 0.0f;
     }
     t[b] = (rows[0] + 2.0f * rows[1] + rows[2]) * 0.25f;
@@ -157,9 +168,11 @@ __global__ void blur3_s2_thread_kernel(const T* __restrict__ x, T* __restrict__ 
   y[idx] = from_f32<T>((t[0] + 2.0f * t[1] + t[2]) * 0.25f);
 }
 
-// column pass of the backward at gradient row i for input column q
+// column pass of the backward at gradient row i for input column q; rows
+// outside [0, ho) are zeros
 template <typename T>
-__device__ __forceinline__ float bwd_row_t(const T* gn, int i, int q, int wo, int c) {
+__device__ __forceinline__ float bwd_row_t(const T* gn, int i, int q, int ho, int wo, int c) {
+  if (i < 0 || i >= ho) return 0.0f;
   const int j = q >> 1;
   const float a = to_f32(gn[((long long)i * wo + j) * c]);
   if ((q & 1) == 0) return 0.5f * a;
@@ -167,10 +180,12 @@ __device__ __forceinline__ float bwd_row_t(const T* gn, int i, int q, int wo, in
   return 0.25f * (a + b);
 }
 
-// g is (n, ho, wo, c), dx is (n, h, w, c), both contiguous.
+// g is (n, ho, wo, c), dx is (n, h, w, c), both contiguous; a dx row p is
+// row p + 1 - pad_top of the padding-1 transpose, whose gradient row i is
+// g's row i - (1 - pad_top).
 template <typename T>
 __global__ void blur3_s2_bwd_thread_kernel(const T* __restrict__ g, T* __restrict__ dx,
-                                           int h, int w, int c, int ho, int wo,
+                                           int h, int w, int c, int ho, int wo, int pad_top,
                                            long long total) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -181,14 +196,13 @@ __global__ void blur3_s2_bwd_thread_kernel(const T* __restrict__ g, T* __restric
   const int p = (int)(r % h);
   const long long n = r / h;
   const T* gn = g + n * ho * wo * (long long)c + ch;
-  const int i = p >> 1;
-  const float t0 = bwd_row_t(gn, i, q, wo, c);
+  const int sh = 1 - pad_top, v = p + sh, i = (v >> 1) - sh;
+  const float t0 = bwd_row_t(gn, i, q, ho, wo, c);
   float out;
-  if ((p & 1) == 0) {
+  if ((v & 1) == 0) {
     out = 0.5f * t0;
   } else {
-    const float t1 = (i + 1 < ho) ? bwd_row_t(gn, i + 1, q, wo, c) : 0.0f;
-    out = 0.25f * (t0 + t1);
+    out = 0.25f * (t0 + bwd_row_t(gn, i + 1, q, ho, wo, c));
   }
   dx[idx] = from_f32<T>(out);
 }
@@ -215,8 +229,10 @@ __device__ __forceinline__ void store16(void* dst, const P& v) {
 }
 
 struct TilePlan {
-  int h, w, c;          // the forward's input: x, or dx for the backward
-  int ho, wo;           // ceil(h/2), ceil(w/2)
+  int h, w, c;          // the forward's input x; for the backward the virtual dx (h + sh rows)
+  int ho, wo;           // the output's rows and ceil(w/2); the backward: ceil(h/2) (virtual)
+  int pad_top, sh;      // the top padding, 1 or 0, and sh = 1 - pad_top
+  int hr;               // dx's rows (the backward)
   int th, tw;           // a tile's output (forward) or gradient (backward) rows, cols
   int cb;               // channels per tile
   int n_cb, n_wb, n_hb; // tiles along C, columns, rows
@@ -314,7 +330,7 @@ __device__ __forceinline__ void tma_tiles(const CUtensorMap* map, T* __restrict_
     const Tile t = decode_tile(p, blockIdx.x + k * gridDim.x);
     mbar_arrive_expect_tx(&full[s], p.box_bytes);
     tma_load_4d(smem + s * p.stage_bytes, map, &full[s], t.c0, BWD ? t.j0 : 2 * t.j0 - 1,
-                BWD ? t.i0 : 2 * t.i0 - 1, t.n);
+                BWD ? t.i0 - p.sh : 2 * t.i0 - p.pad_top, t.n);
   };
   if (tid == 0) {
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -387,7 +403,9 @@ __device__ __forceinline__ void tma_tiles(const CUtensorMap* map, T* __restrict_
         }
       } else {
         const int pc = p.w * p.c;  // elements per dx row
-        T* dt = out + (((long long)t.n * p.h + 2 * t.i0) * p.w + 2 * t.j0) * p.c + ch;
+        // dx row 2 * (i0 + r) - sh; with sh = 1 the tile's first such row
+        // may be -1, which is not stored
+        T* dt = out + (((long long)t.n * p.hr + 2 * t.i0 - p.sh) * p.w + 2 * t.j0) * p.c + ch;
         for (int r = r0, q = c0; r < th;) {
           if (q < gv) {
             const T* pg = xs + (r * bw + q) * p.cb;
@@ -410,8 +428,10 @@ __device__ __forceinline__ void tma_tiles(const CUtensorMap* map, T* __restrict_
             }
             T* d = dt + (2 * r * pc + 2 * q * p.c);
             const bool col1 = 2 * (t.j0 + q) + 1 < p.w, row1 = 2 * (t.i0 + r) + 1 < p.h;
-            store16(d, o00);
-            if (col1) store16(d + p.c, o01);
+            if (2 * (t.i0 + r) >= p.sh) {
+              store16(d, o00);
+              if (col1) store16(d + p.c, o01);
+            }
             if (row1) {
               store16(d + pc, o10);
               if (col1) store16(d + pc + p.c, o11);
@@ -489,11 +509,14 @@ bool tma_route(const void* in, const void* out, int es, long long n, long long h
 
 // Tile sizes (see the header): `in_rows(th)` and `in_cols(tw)` are the box's
 // extents for th x tw output (forward) or gradient (backward) positions.
-bool tile_plan(TilePlan& p, long long n, int h, int w, int c, int es, bool bwd) {
-  p.h = h;
+bool tile_plan(TilePlan& p, long long n, int h, int w, int c, int es, bool bwd, int pad_top) {
+  p.pad_top = pad_top;
+  p.sh = 1 - pad_top;
+  p.hr = h;
+  p.h = bwd ? h + p.sh : h;
   p.w = w;
   p.c = c;
-  p.ho = (h + 1) / 2;
+  p.ho = bwd || pad_top ? (p.h + 1) / 2 : (h - 1) / 2;
   p.wo = (w + 1) / 2;
   const int cb_max = (bwd ? kBwdCbBytes : kFwdCbBytes) / es;
   p.cb = c < cb_max ? c : cb_max;
@@ -606,36 +629,36 @@ constexpr int kThreads = 256;
 
 template <typename T>
 int launch_thread(bool bwd, const void* in, void* out, int h, int w, int c, int ho, int wo,
-                  long long total, cudaStream_t stream) {
+                  int pad_top, long long total, cudaStream_t stream) {
   const long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   const T* x = static_cast<const T*>(in);
   T* y = static_cast<T*>(out);
   if (bwd)
     blur3_s2_bwd_thread_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, y, h, w, c, ho, wo, total);
+        x, y, h, w, c, ho, wo, pad_top, total);
   else
     blur3_s2_thread_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        x, y, h, w, c, ho, wo, total);
+        x, y, h, w, c, ho, wo, pad_top, total);
   return (int)cudaGetLastError();
 }
 
 // The forward (bwd = false: in = x (n, h, w, c), out = y) or the backward
-// (bwd = true: in = g (n, ceil(h/2), ceil(w/2), c), out = dx (n, h, w, c)),
-// both dense NHWC. *route is set to 1 for the TMA route, 0 for the
-// per-thread one.
+// (bwd = true: in = g (n, ho, ceil(w/2), c), out = dx (n, h, w, c)), both
+// dense NHWC, ho = ceil(h/2) for pad_top 1 and (h - 1) / 2 for 0. *route is
+// set to 1 for the TMA route, 0 for the per-thread one.
 int blur_dispatch(bool bwd, const void* in, void* out, int dtype, long long n, long long h,
-                  long long w, long long c, void* stream, int* route) {
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || h > INT_MAX || w > INT_MAX || c > INT_MAX ||
-      (dtype != 0 && dtype != 1))
+                  long long w, long long c, int pad_top, void* stream, int* route) {
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || h >= INT_MAX || w > INT_MAX || c > INT_MAX ||
+      (dtype != 0 && dtype != 1) || (pad_top != 0 && pad_top != 1) || (!pad_top && h < 3))
     return (int)cudaErrorInvalidValue;
   const int es = dtype == 0 ? 4 : 2;
-  const int ho = (int)((h + 1) / 2), wo = (int)((w + 1) / 2);
+  const int ho = (int)(pad_top ? (h + 1) / 2 : (h - 1) / 2), wo = (int)((w + 1) / 2);
   const long long in_h = bwd ? ho : h, in_w = bwd ? wo : w;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TilePlan p;
   if (tma_route(in, out, es, n, in_h, in_w, c) &&
-      tile_plan(p, n, (int)h, (int)w, (int)c, es, bwd)) {
+      tile_plan(p, n, (int)h, (int)w, (int)c, es, bwd, pad_top)) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
@@ -662,23 +685,26 @@ int blur_dispatch(bool bwd, const void* in, void* out, int dtype, long long n, l
   *route = 0;
   const long long total = n * (bwd ? h * w : (long long)ho * wo) * c;
   if (dtype == 0)
-    return launch_thread<float>(bwd, in, out, (int)h, (int)w, (int)c, ho, wo, total, s);
-  return launch_thread<__nv_bfloat16>(bwd, in, out, (int)h, (int)w, (int)c, ho, wo, total, s);
+    return launch_thread<float>(bwd, in, out, (int)h, (int)w, (int)c, ho, wo, pad_top, total, s);
+  return launch_thread<__nv_bfloat16>(bwd, in, out, (int)h, (int)w, (int)c, ho, wo, pad_top,
+                                      total, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x is (n, h, w, c), y is
-// (n, ceil(h/2), ceil(w/2), c), both contiguous.
+// (n, ho, ceil(w/2), c), both contiguous; pad_top 1: ho = ceil(h/2), pad_top
+// 0 (h >= 3): ho = (h - 1) / 2.
 extern "C" int axcnn_blur_pool3_s2(const void* x, void* y, int dtype, long long n, long long h,
-                                   long long w, long long c, void* stream, int* route) {
-  return blur_dispatch(false, x, y, dtype, n, h, w, c, stream, route);
+                                   long long w, long long c, int pad_top, void* stream,
+                                   int* route) {
+  return blur_dispatch(false, x, y, dtype, n, h, w, c, pad_top, stream, route);
 }
 
 // The backward. h, w are the forward INPUT's extents; g is
-// (n, ceil(h/2), ceil(w/2), c), dx is (n, h, w, c), both contiguous.
+// (n, ho, ceil(w/2), c) with ho as above, dx is (n, h, w, c), both contiguous.
 extern "C" int axcnn_blur_pool3_s2_bwd(const void* g, void* dx, int dtype, long long n,
-                                       long long h, long long w, long long c, void* stream,
-                                       int* route) {
-  return blur_dispatch(true, g, dx, dtype, n, h, w, c, stream, route);
+                                       long long h, long long w, long long c, int pad_top,
+                                       void* stream, int* route) {
+  return blur_dispatch(true, g, dx, dtype, n, h, w, c, pad_top, stream, route);
 }

@@ -32,10 +32,22 @@
 // reduction over integers, so it is exact, and the two kernels compute the
 // same mask.
 //
+// A window of rows (spatial partitioning: a rank holds rows [row0, row0 + h)
+// of a map of h_global rows): the pixel index is the global one,
+// (row0 + r) * W + c, and the centre region is tested in global rows, so the
+// window's mask is the global mask's rows, bit for bit. Such a window takes
+// the tiled kernel, which recomputes the centres of the rows above and below
+// it from the stateless hash: no halo exchange. Its counts are the window's;
+// the caller sums them over the spatial row.
+//
 // dropblock_apply_kernel replaces the apply that dropblock_pallas
 // (axcnn/pallas/dropblock.py:133-135) left to XLA, forward and backward:
 //
 //   scale = numel / (max(sum(counts), 1) * C)          fp32, in this order
+//
+// where numel and the counts may be the global batch's (spatial
+// partitioning: the counts of every data shard, the element count of the
+// whole batch), not only this tensor's n samples.
 //   y     = (x * mask[n, h, w]) * scale                forward
 //   dx    = (g * scale) * mask[n, h, w]                backward (autograd's order)
 //
@@ -108,14 +120,16 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
 }
 
 struct MaskGeom {
-  int h, w, bs, half0, half1;
+  int h, w, bs, half0, half1;  // h: the global map's rows
+  int row0;                    // the window's first global row
   float gamma;
   uint32_t key;
 };
 
-// the block centre at (r, c): drawn at rate gamma in the valid region, 0
-// elsewhere and outside the map
+// the block centre at the window's row r (global row row0 + r) and column
+// c: drawn at rate gamma in the valid region, 0 elsewhere and outside the map
 __device__ __forceinline__ bool centre_at(const MaskGeom& g, int r, int c) {
+  r += g.row0;
   if (r < g.half0 || r >= g.h - g.half1 || c < g.half0 || c >= g.w - g.half1) return false;
   const uint32_t bits = fmix32(g.key ^ (uint32_t)(r * g.w + c));
   return (float)(bits >> 8) * (1.0f / 16777216.0f) < g.gamma;
@@ -187,15 +201,18 @@ __global__ void dropblock_mask_kernel(const int32_t* __restrict__ seeds,
                  w, bs, centre, rowhit);
 }
 
-// tiles: rows [r0, r0 + rows) by columns [c0, c0 + cols); the row-max map
-// holds columns c0 - half0 .. c0 + cols - 1 + half1
+// tiles: rows [r0, r0 + rows) by columns [c0, c0 + cols) of the window's h
+// rows (global rows row0 .. row0 + h - 1 of h_global); the row-max map holds
+// columns c0 - half0 .. c0 + cols - 1 + half1
 __global__ void dropblock_mask_tiled_kernel(const int32_t* __restrict__ seeds,
                                             float gamma, float* __restrict__ mask,
                                             float* __restrict__ counts, int h, int w,
-                                            int bs, int tile_rows, int tile_cols) {
+                                            int bs, int tile_rows, int tile_cols, int row0,
+                                            int h_global) {
   __shared__ unsigned char rowhit[kRowhitBytes];
   const int n = blockIdx.x;
-  const MaskGeom g{h, w, bs, (bs - 1) / 2, bs / 2, gamma, fmix32((uint32_t)seeds[n])};
+  const MaskGeom g{h_global, w, bs, (bs - 1) / 2, bs / 2, row0, gamma,
+                   fmix32((uint32_t)seeds[n])};
   float* mask_n = mask + (long long)n * h * w;
   int kept = 0;
   for (int r0 = 0; r0 < h; r0 += tile_rows) {
@@ -238,6 +255,7 @@ struct ApplyArgs {
   void* dst;
   float numel;           // the element count as the plain version's fp32 value
   int n, c;
+  int n_counts;          // the counts' length (n, or the global batch's)
   long long units;       // vectors (or elements) in the tensor
   long long per_pixel;   // vectors (or elements) per pixel: C / (16 / itemsize), or C
   bool backward;
@@ -290,7 +308,7 @@ __device__ __forceinline__ float cta_scale(const ApplyArgs& args) {
   __shared__ float s_scale;
   if (threadIdx.x < 32) {
     long long sum = 0;
-    for (int k = threadIdx.x; k < args.n; k += 32)
+    for (int k = threadIdx.x; k < args.n_counts; k += 32)
       sum += (long long)load_mask<kSameLaunch>(args.counts + k);
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     if (threadIdx.x == 0)
@@ -472,48 +490,55 @@ int launch_fused(const FusedArgs& args, long long want, int sms, size_t smem,
 
 }  // namespace
 
-// seeds: (n,) int32 on the device; mask: (n, h, w) fp32; counts: (n,) fp32.
-// Requires 1 <= bs <= min(h, w) and h * w < 2^31 (the pixel index is an int
-// and a 32-bit hash input).
+// seeds: (n,) int32 on the device; mask: (n, h, w) fp32, rows row0 ..
+// row0 + h - 1 of a map of h_global rows (row0 = 0, h_global = h: the whole
+// map); counts: (n,) fp32, the window's. Requires 1 <= bs <= min(h_global, w)
+// and h_global * w < 2^31 (the pixel index is an int and a 32-bit hash
+// input).
 extern "C" int axcnn_dropblock_mask(const void* seeds, float gamma, void* mask,
                                     void* counts, long long n, long long h,
-                                    long long w, long long bs, void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || h * w > 0x7fffffffLL || bs < 1 || bs > h ||
-      bs > w || n > 0x7fffffffLL)
+                                    long long w, long long bs, long long row0,
+                                    long long h_global, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || row0 < 0 || row0 + h > h_global ||
+      h_global * w > 0x7fffffffLL || bs < 1 || bs > h_global || bs > w || n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int32_t* sd = static_cast<const int32_t*>(seeds);
   float* m = static_cast<float*>(mask);
   float* cn = static_cast<float*>(counts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (h * w <= kWholeMapHW) {
+  if (row0 == 0 && h == h_global && h * w <= kWholeMapHW) {
     dropblock_mask_kernel<<<(unsigned)n, kThreads, 0, st>>>(sd, gamma, m, cn, (int)h,
                                                                  (int)w, (int)bs);
     return (int)cudaGetLastError();
   }
   // the widest tile whose row with its halo fits, then as many rows as fit;
-  // bs <= min(h, w) <= 46340 < kRowhitBytes, so a tile is never empty
+  // bs <= min(h_global, w) <= 46340 < kRowhitBytes, so a tile is never empty
   const long long ext = (w + bs - 1 < kRowhitBytes) ? w + bs - 1 : kRowhitBytes;
   const long long rows = (kRowhitBytes / ext < h) ? kRowhitBytes / ext : h;
   dropblock_mask_tiled_kernel<<<(unsigned)n, kThreads, 0, st>>>(
-      sd, gamma, m, cn, (int)h, (int)w, (int)bs, (int)rows, (int)(ext - (bs - 1)));
+      sd, gamma, m, cn, (int)h, (int)w, (int)bs, (int)rows, (int)(ext - (bs - 1)), (int)row0,
+      (int)h_global);
   return (int)cudaGetLastError();
 }
 
 // src, dst: dense NHWC (channels_last) fp32 (dtype 0) or bf16 (dtype 1);
-// mask: (n, h*w) fp32; counts: (n,) fp32; numel: n*h*w*c as fp32. backward
-// 0 computes (src * mask) * scale, 1 computes (src * scale) * mask.
-// Requires n < 2^31 and c < 2^31 (ints in the kernel).
+// mask: (n, h*w) fp32; counts: (n_counts,) fp32; numel: the element count
+// the scale takes (n*h*w*c, or the global batch's) as fp32. backward 0
+// computes (src * mask) * scale, 1 computes (src * scale) * mask.
+// Requires n, n_counts and c < 2^31 (ints in the kernel).
 extern "C" int axcnn_dropblock_apply(const void* src, const void* mask, const void* counts,
                                      void* dst, int dtype, float numel, long long n,
-                                     long long hw, long long c, int backward, void* stream) {
-  if (n <= 0 || hw <= 0 || c <= 0 || n > 0x7fffffffLL || c > 0x7fffffffLL ||
-      (dtype != 0 && dtype != 1))
+                                     long long hw, long long c, long long n_counts,
+                                     int backward, void* stream) {
+  if (n <= 0 || hw <= 0 || c <= 0 || n_counts <= 0 || n > 0x7fffffffLL || c > 0x7fffffffLL ||
+      n_counts > 0x7fffffffLL || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const long long item = dtype == 1 ? 2 : 4;
   const bool vec = vector_units(src, dst, c, item);
   const long long per_pixel = vec ? c * item / 16 : c;
   const ApplyArgs args{src, static_cast<const float*>(mask), static_cast<const float*>(counts),
-                       dst, numel, (int)n, (int)c, n * hw * per_pixel, per_pixel, backward != 0};
+                       dst, numel, (int)n, (int)c, (int)n_counts, n * hw * per_pixel, per_pixel,
+                       backward != 0};
   const int sms = sm_count();
   if (sms < 0) return -sms;
   const long long per_cta = (long long)kApplyThreads * kApplyUnroll;
@@ -547,7 +572,8 @@ extern "C" int axcnn_dropblock_fused(const void* src, const void* seeds, float g
   const bool vec = vector_units(src, dst, c, item);
   const long long per_pixel = vec ? c * item / 16 : c;
   const FusedArgs args{{src, static_cast<const float*>(mask), static_cast<const float*>(counts),
-                        dst, numel, (int)n, (int)c, n * h * w * per_pixel, per_pixel, false},
+                        dst, numel, (int)n, (int)c, (int)n, n * h * w * per_pixel, per_pixel,
+                        false},
                        static_cast<const int32_t*>(seeds), gamma, (int)h, (int)w, (int)bs};
   const int sms = sm_count();
   if (sms < 0) return -sms;

@@ -19,10 +19,14 @@ def draw_lambda(rng: np.random.Generator, alpha: float, *,
     return max(lam, np.float32(1.0) - lam) if symmetric else lam
 
 
-def mixup_batch(images, labels, lam):
+def mixup_batch(images, labels, lam, partner=None):
     """Returns ``(mixed_images, labels_a, labels_b)`` for a host ``lam``
     (``np.float32`` as drawn; ``1 - lam`` is taken in its precision):
-    ``images * lam + images[::-1] * (1 - lam)`` in the images' dtype."""
+    ``images * lam + images[::-1] * (1 - lam)`` in the images' dtype.
+    ``partner``, an ``(images, labels)`` pair, is reversed in the batch's
+    place: under spatial partitioning data shard ``d`` of the global batch
+    pairs with the reverse of shard ``D - 1 - d``."""
     lam = np.asarray(lam)
-    mixed = images * float(lam) + images.flip(0) * float(1.0 - lam)
-    return mixed.to(images.dtype), labels, labels.flip(0)
+    p_images, p_labels = (images, labels) if partner is None else partner
+    mixed = images * float(lam) + p_images.flip(0) * float(1.0 - lam)
+    return mixed.to(images.dtype), labels, p_labels.flip(0)

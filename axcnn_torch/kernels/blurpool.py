@@ -11,6 +11,13 @@ The C entry points choose a route by shape: TMA tiles in shared memory
 where a tensor map can describe the input (16-byte aligned, C * itemsize a
 multiple of 16), one thread per element otherwise.
 
+``pad_top`` (1, the default, or 0) is the zero padding above the first row.
+0 is a spatially partitioned shard's blur: its first row is the halo row the
+rank above sent, so output row ``i`` reads input rows ``2i .. 2i+2`` and
+there are ``(H - 1) // 2`` of them, each bit for bit the unsharded
+kernel's; the backward then writes the halo row's gradient too, which the
+exchange returns to its owner. W is always padded (1, 1).
+
 ``axcnn::blur_pool3_s2`` (``blur_pool3_s2``) is the forward as a
 ``torch.library`` custom op, the form a traced program can hold: its CUDA
 implementation is the kernel's launch (``blur_pool_cuda``), its CPU one the
@@ -44,9 +51,9 @@ ROUTES = {"fwd_tma": 0, "fwd_thread": 0, "bwd_tma": 0, "bwd_thread": 0, "general
 BWD_G_NOT_CHANNELS_LAST = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# both C entry points: (in, out, dtype, n, h, w, c, stream, *route)
+# both C entry points: (in, out, dtype, n, h, w, c, pad_top, stream, *route)
 ENTRY_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, *[ctypes.c_longlong] * 4,
-                  ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+                  ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
 
 
 def check_blur_args(stride: int, filter_size: int) -> None:
@@ -58,9 +65,20 @@ def check_blur_args(stride: int, filter_size: int) -> None:
             f"filter_size={filter_size}, stride={stride})")
 
 
-def _blur3_s2_rows(x: torch.Tensor) -> torch.Tensor:
+def out_rows(h: int, pad_top: int = 1) -> int:
+    """The forward's output rows for ``h`` input rows: ``ceil(h/2)`` with
+    top padding 1, ``(h - 1) // 2`` with 0."""
+    return (h + 1) // 2 if pad_top else (h - 1) // 2
+
+
+def _blur3_s2_rows(x: torch.Tensor, pad_top: int = 1) -> torch.Tensor:
     """Blur [1,2,1]/4 with stride 2 along dim -2, zero padding (1, 1):
-    ``t[i] = (x[2i-1] + 2 x[2i] + x[2i+1]) / 4``."""
+    ``t[i] = (x[2i-1] + 2 x[2i] + x[2i+1]) / 4``; with ``pad_top=0``,
+    ``t[i] = (x[2i] + 2 x[2i+1] + x[2i+2]) / 4``, no padding."""
+    if not pad_top:
+        ho = out_rows(x.shape[-2], 0)
+        return (x[..., 0:2 * ho:2, :] + 2.0 * x[..., 1:2 * ho:2, :]
+                + x[..., 2:2 * ho + 1:2, :]) * 0.25
     if x.shape[-2] % 2:
         x = F.pad(x, (0, 0, 0, 1))
     e, o = x[..., 0::2, :], x[..., 1::2, :]
@@ -68,9 +86,9 @@ def _blur3_s2_rows(x: torch.Tensor) -> torch.Tensor:
     return (o_prev + 2.0 * e + o) * 0.25
 
 
-def blur_pool_reference(x: torch.Tensor) -> torch.Tensor:
+def blur_pool_reference(x: torch.Tensor, pad_top: int = 1) -> torch.Tensor:
     """Plain PyTorch BlurPool 3x3/2 on NCHW, in fp32, cast back once."""
-    t = _blur3_s2_rows(x.float())
+    t = _blur3_s2_rows(x.float(), pad_top)
     y = _blur3_s2_rows(t.transpose(-1, -2)).transpose(-1, -2)
     return y.to(x.dtype)
 
@@ -84,12 +102,19 @@ def _blur3_s2_rows_bwd(g: torch.Tensor, n: int) -> torch.Tensor:
     return torch.stack([e, o], dim=-2).flatten(-3, -2)[..., :n, :]
 
 
-def blur_pool_bwd_reference(g: torch.Tensor, in_hw) -> torch.Tensor:
+def blur_pool_bwd_reference(g: torch.Tensor, in_hw, pad_top: int = 1) -> torch.Tensor:
     """Plain PyTorch BlurPool 3x3/2 backward on NCHW: the cotangent of the
     output -> that of an input of spatial extent ``in_hw``. In fp32, columns
-    first, then rows (the Pallas kernel's order), cast back once."""
+    first, then rows (the Pallas kernel's order), cast back once. With
+    ``pad_top=0`` the rows are those of top padding 1 one row further down:
+    the transpose runs over ``h + 1`` rows with a zero gradient row on top
+    and drops its first row."""
     h, w = in_hw
     t = _blur3_s2_rows_bwd(g.float().transpose(-1, -2), w).transpose(-1, -2)
+    if not pad_top:
+        rows = (h + 2) // 2  # ceil((h + 1) / 2) gradient rows, zeros past g's
+        t = F.pad(t, (0, 0, 1, rows - 1 - t.shape[-2]))
+        return _blur3_s2_rows_bwd(t, h + 1)[..., 1:, :].to(g.dtype)
     return _blur3_s2_rows_bwd(t, h).to(g.dtype)
 
 
@@ -102,14 +127,15 @@ def _check_cuda_nchw(fn: str, x: torch.Tensor) -> None:
         raise ValueError(f"{fn} takes NCHW, got shape {tuple(x.shape)}")
 
 
-def _launch(name: str, kind: str, src: torch.Tensor, out: torch.Tensor, hw) -> None:
+def _launch(name: str, kind: str, src: torch.Tensor, out: torch.Tensor, hw,
+            pad_top: int) -> None:
     """Run entry point ``name`` from ``src`` into ``out``, both
     channels_last-contiguous, and count the launch by route."""
     n, c = src.shape[:2]
     route = ctypes.c_int(-1)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = entry(name, ENTRY_ARGTYPES)(src.data_ptr(), out.data_ptr(), _DTYPE_CODES[src.dtype],
-                                      n, *hw, c, stream, ctypes.byref(route))
+                                      n, *hw, c, pad_top, stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"{name} failed: error {err} (a CUDA error; 9999: no "
                            f"cuTensorMapEncodeTiled or cuCtxGetCurrent; 10000 + r: the encode "
@@ -117,62 +143,72 @@ def _launch(name: str, kind: str, src: torch.Tensor, out: torch.Tensor, hw) -> N
     ROUTES[f"{kind}_{'tma' if route.value == 1 else 'thread'}"] += 1
 
 
-def blur_pool_cuda(x: torch.Tensor, *, stride: int = 2,
-                   filter_size: int = 3) -> torch.Tensor:
+def _check_pad_top(pad_top: int) -> None:
+    if pad_top not in (0, 1):
+        raise ValueError(f"pad_top must be 0 or 1, got {pad_top}")
+
+
+def blur_pool_cuda(x: torch.Tensor, *, stride: int = 2, filter_size: int = 3,
+                   pad_top: int = 1) -> torch.Tensor:
     """Launch the CUDA kernel on ``x``; raise on anything it does not take."""
     global LAUNCHES
     check_blur_args(stride, filter_size)
+    _check_pad_top(pad_top)
     _check_cuda_nchw("blur_pool_cuda", x)
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("blur_pool_cuda needs a channels_last-contiguous input")
     n, c, h, w = x.shape
-    y = torch.empty((n, c, (h + 1) // 2, (w + 1) // 2), dtype=x.dtype,
+    y = torch.empty((n, c, out_rows(h, pad_top), (w + 1) // 2), dtype=x.dtype,
                     device=x.device, memory_format=torch.channels_last)
-    if x.numel() == 0:
+    if y.numel() == 0:
         return y
-    _launch("axcnn_blur_pool3_s2", "fwd", x, y, (h, w))
+    _launch("axcnn_blur_pool3_s2", "fwd", x, y, (h, w), pad_top)
     LAUNCHES += 1
     return y
 
 
-def blur_pool_bwd_cuda(g: torch.Tensor, in_hw) -> torch.Tensor:
-    """Launch the backward kernel: cotangent ``g`` (N, C, ceil(H/2),
-    ceil(W/2)) -> (N, C, H, W) for ``in_hw = (H, W)``. A ``g`` that is not
-    channels_last-contiguous is counted and copied into that layout first
-    (the train path hands over none). Launches on the current stream of the
-    calling thread, which for autograd is its backward thread."""
+def blur_pool_bwd_cuda(g: torch.Tensor, in_hw, pad_top: int = 1) -> torch.Tensor:
+    """Launch the backward kernel: cotangent ``g`` (N, C, ``out_rows(H,
+    pad_top)``, ceil(W/2)) -> (N, C, H, W) for ``in_hw = (H, W)``. A ``g``
+    that is not channels_last-contiguous is counted and copied into that
+    layout first (the train path hands over none). Launches on the current
+    stream of the calling thread, which for autograd is its backward
+    thread."""
     global BWD_LAUNCHES, BWD_G_NOT_CHANNELS_LAST
+    _check_pad_top(pad_top)
     _check_cuda_nchw("blur_pool_bwd_cuda", g)
     h, w = in_hw
     n, c, ho, wo = g.shape
-    if (ho, wo) != ((h + 1) // 2, (w + 1) // 2):
+    if (ho, wo) != (out_rows(h, pad_top), (w + 1) // 2):
         raise ValueError(f"gradient extent {(ho, wo)} does not match an input "
-                         f"of {(h, w)}")
+                         f"of {(h, w)} with top padding {pad_top}")
     if not g.is_contiguous(memory_format=torch.channels_last):
         BWD_G_NOT_CHANNELS_LAST += 1
         g = g.contiguous(memory_format=torch.channels_last)
+    if g.numel() == 0:
+        return torch.zeros((n, c, h, w), dtype=g.dtype, device=g.device,
+                           memory_format=torch.channels_last)
     dx = torch.empty((n, c, h, w), dtype=g.dtype, device=g.device,
                      memory_format=torch.channels_last)
-    if dx.numel() == 0:
-        return dx
-    _launch("axcnn_blur_pool3_s2_bwd", "bwd", g, dx, (h, w))
+    _launch("axcnn_blur_pool3_s2_bwd", "bwd", g, dx, (h, w), pad_top)
     BWD_LAUNCHES += 1
     return dx
 
 
 class BlurPool3S2(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient (the
-    counterpart of the reference's ``blur_pool_pallas_grad``). The filter is
-    a constant, so nothing but the input's extent is saved."""
+    counterpart of the reference's ``blur_pool_pallas_grad``), at top
+    padding ``pad_top`` (1 by default). The filter is a constant, so nothing
+    but the input's extent is saved."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.in_hw = tuple(x.shape[-2:])
-        return blur_pool_cuda(x)
+    def forward(ctx, x, pad_top=1):
+        ctx.in_hw, ctx.pad_top = tuple(x.shape[-2:]), pad_top
+        return blur_pool_cuda(x, pad_top=pad_top)
 
     @staticmethod
     def backward(ctx, g):
-        return blur_pool_bwd_cuda(g, ctx.in_hw)
+        return blur_pool_bwd_cuda(g, ctx.in_hw, ctx.pad_top), None
 
 
 @torch.library.custom_op("axcnn::blur_pool3_s2", mutates_args=(), device_types="cuda")

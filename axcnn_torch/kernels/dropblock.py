@@ -26,6 +26,15 @@ kernel's launches, ``APPLY_LAUNCHES`` and ``APPLY_BWD_LAUNCHES`` the apply
 kernel's by direction, ``FUSED_LAUNCHES`` the fused kernel's, and
 ``APPLY_NOT_CHANNELS_LAST`` the apply and fused calls whose tensor was not
 channels_last-contiguous and so was copied first.
+
+Spatial partitioning (a rank holds rows ``[row0, row0 + H)`` of every map of
+``h_global`` rows): the mask kernel and its plain version take ``row0`` and
+``h_global`` and draw the window's rows of the global mask, bit for bit
+(the hash's pixel index and the centre region are global), with the
+window's per-sample counts; the apply kernel and its plain versions take the
+counts of the global batch (any length) and its element count ``numel``,
+apart from the tensor's own N and numel. The fused kernel is not used there:
+the counts' sum over ranks sits between the mask and the apply.
 """
 
 from __future__ import annotations
@@ -49,11 +58,12 @@ MAX_INT32 = 2 ** 31 - 1  # the kernels index pixels (mask), samples and channels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry points' parameters, in order
+# (seeds, gamma, mask, counts, n, h, w, bs, row0, h_global, stream)
 MASK_ARGTYPES = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                 *[ctypes.c_longlong] * 4, ctypes.c_void_p]
-# (src, mask, counts, dst, dtype, numel, n, hw, c, backward, stream)
+                 *[ctypes.c_longlong] * 6, ctypes.c_void_p]
+# (src, mask, counts, dst, dtype, numel, n, hw, c, n_counts, backward, stream)
 APPLY_ARGTYPES = [*[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_float,
-                  *[ctypes.c_longlong] * 3, ctypes.c_int, ctypes.c_void_p]
+                  *[ctypes.c_longlong] * 4, ctypes.c_int, ctypes.c_void_p]
 # (src, seeds, gamma, dst, mask, counts, dtype, numel, n, h, w, c, bs, stream)
 FUSED_ARGTYPES = [*[ctypes.c_void_p] * 2, ctypes.c_float, *[ctypes.c_void_p] * 3, ctypes.c_int,
                   ctypes.c_float, *[ctypes.c_longlong] * 5, ctypes.c_void_p]
@@ -77,40 +87,59 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def hash_uniforms(seeds: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(N,) int32 seeds -> (N, H, W) fp32 uniforms in [0, 1), exactly as the
-    kernel draws them: ``fmix32(fmix32(seed) ^ pixel) >> 8`` times 2**-24."""
+def hash_uniforms(seeds: torch.Tensor, h: int, w: int, row0: int = 0) -> torch.Tensor:
+    """(N,) int32 seeds -> (N, H, W) fp32 uniforms in [0, 1) of rows
+    ``row0 .. row0 + h - 1``, exactly as the kernel draws them:
+    ``fmix32(fmix32(seed) ^ pixel) >> 8`` times 2**-24."""
     key = _fmix32(seeds.to(torch.int64) & _M32)
-    pix = torch.arange(h * w, dtype=torch.int64, device=seeds.device)
+    pix = torch.arange(row0 * w, (row0 + h) * w, dtype=torch.int64, device=seeds.device)
     bits = _fmix32(key[:, None] ^ pix[None, :])
     return ((bits >> 8).to(torch.float32) * 2.0 ** -24).view(-1, h, w)
 
 
-def check_mask_args(h: int, w: int, block_size: int) -> None:
-    if h * w > MAX_INT32:
+def check_mask_args(h: int, w: int, block_size: int, row0: int = 0,
+                    h_global: int | None = None) -> None:
+    """``h``: the window's rows, ``row0 .. row0 + h - 1`` of ``h_global``
+    (``h`` when None)."""
+    hg = h if h_global is None else h_global
+    if hg * w > MAX_INT32:
         raise ValueError(f"the DropBlock mask takes H*W <= {MAX_INT32} (the pixel index "
-                         f"is an int and a 32-bit hash input), got {h}x{w}")
-    if not 1 <= block_size <= min(h, w):
+                         f"is an int and a 32-bit hash input), got {hg}x{w}")
+    if not 1 <= block_size <= min(hg, w):
         raise ValueError(f"block_size must be in [1, min(H, W)], got "
-                         f"{block_size} for {h}x{w}")
+                         f"{block_size} for {hg}x{w}")
+    if row0 < 0 or row0 + h > hg:
+        raise ValueError(f"rows {row0}..{row0 + h - 1} are not rows of a map of {hg}")
 
 
 def dropblock_mask_reference(seeds: torch.Tensor, gamma, h: int, w: int,
-                             block_size: int, uniforms: torch.Tensor | None = None):
+                             block_size: int, uniforms: torch.Tensor | None = None, *,
+                             row0: int = 0, h_global: int | None = None):
     """Plain PyTorch keep-mask: ``(mask (N, H, W) fp32, counts (N,) fp32)``.
-    ``gamma`` is a float (fp32 on the host); ``uniforms`` (N, H, W), when
-    given, replace the hashed draws."""
-    check_mask_args(h, w, block_size)
+    ``gamma`` is a float (fp32 on the host); ``uniforms``, when given,
+    replace the hashed draws: (N, H, W), the whole map's. With ``row0`` and
+    ``h_global`` the mask is rows ``row0 .. row0 + h - 1`` of the map of
+    ``h_global`` rows, its counts those of the window (``uniforms`` are
+    then still the whole map's, (N, h_global, W))."""
+    hg = h if h_global is None else h_global
+    check_mask_args(h, w, block_size, row0, hg)
     bs = block_size
     half0, half1 = (bs - 1) // 2, bs // 2
-    u = hash_uniforms(seeds, h, w) if uniforms is None else uniforms.float()
-    row = torch.arange(h, device=u.device)[:, None]
+    # the centres of the rows the window's row-max reads, global rows
+    # row0 - half0 .. row0 + h - 1 + half1, clipped to the map; zeros past it
+    lo, hi = max(row0 - half0, 0), min(row0 + h + half1, hg)
+    if uniforms is None:
+        u = hash_uniforms(seeds, hi - lo, w, lo)
+    else:
+        u = uniforms.float()[:, lo:hi]
+    row = torch.arange(lo, hi, device=u.device)[:, None]
     col = torch.arange(w, device=u.device)[None, :]
-    valid = (row >= half0) & (row < h - half1) & (col >= half0) & (col < w - half1)
+    valid = (row >= half0) & (row < hg - half1) & (col >= half0) & (col < w - half1)
     centres = ((u < torch.tensor(gamma, dtype=torch.float32)) & valid).float()
     # separable max over offsets -half1..half0, each a window centred as
     # reduce_window's with padding (half0, half1)
-    hit = F.max_pool2d(F.pad(centres[:, None], (0, 0, half0, half1)), (bs, 1), 1)
+    centres = F.pad(centres[:, None], (0, 0, lo - (row0 - half0), row0 + h + half1 - hi))
+    hit = F.max_pool2d(centres, (bs, 1), 1)
     hit = F.max_pool2d(F.pad(hit, (half0, half1, 0, 0)), (1, bs), 1)[:, 0]
     mask = 1.0 - hit
     return mask, mask.sum(dim=(1, 2))
@@ -126,20 +155,21 @@ def dropblock_scale_reference(counts: torch.Tensor, numel: int, c: int) -> torch
     return numel / total_keep
 
 
-def dropblock_apply_reference(x: torch.Tensor, mask: torch.Tensor,
-                              counts: torch.Tensor) -> torch.Tensor:
+def dropblock_apply_reference(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor,
+                              numel: int | None = None) -> torch.Tensor:
     """Plain PyTorch apply on NCHW: ``(x * mask * scale)`` in fp32, cast back
-    once."""
-    scale = dropblock_scale_reference(counts, x.numel(), x.shape[1])
+    once. ``counts`` and ``numel`` (``x.numel()`` when None) are those the
+    scale takes: the global batch's under spatial partitioning."""
+    scale = dropblock_scale_reference(counts, x.numel() if numel is None else numel, x.shape[1])
     return (x.float() * mask[:, None] * scale).to(x.dtype)
 
 
-def dropblock_apply_bwd_reference(g: torch.Tensor, mask: torch.Tensor,
-                                  counts: torch.Tensor) -> torch.Tensor:
+def dropblock_apply_bwd_reference(g: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor,
+                                  numel: int | None = None) -> torch.Tensor:
     """Plain PyTorch apply backward: autograd's order through
     ``dropblock_apply_reference``, ``(g * scale) * mask`` in fp32, cast back
     once."""
-    scale = dropblock_scale_reference(counts, g.numel(), g.shape[1])
+    scale = dropblock_scale_reference(counts, g.numel() if numel is None else numel, g.shape[1])
     return (g.float() * scale * mask[:, None]).to(g.dtype)
 
 
@@ -163,16 +193,18 @@ def fused_route(h: int, w: int) -> bool:
 
 
 def dropblock_mask_cuda(seeds: torch.Tensor, gamma, h: int, w: int,
-                        block_size: int):
+                        block_size: int, *, row0: int = 0, h_global: int | None = None):
     """Launch the mask kernel; raise on anything it does not take. It
-    launches for any ``gamma``, 0 included (then nothing is dropped)."""
+    launches for any ``gamma``, 0 included (then nothing is dropped). With
+    ``row0`` and ``h_global``: the window of ``dropblock_mask_reference``."""
     global LAUNCHES
     if seeds.device.type != "cuda":
         raise ValueError(f"dropblock_mask_cuda needs CUDA seeds, got {seeds.device}")
     if seeds.dtype != torch.int32 or seeds.dim() != 1:
         raise TypeError(f"seeds must be (N,) int32, got {seeds.dtype} "
                         f"{tuple(seeds.shape)}")
-    check_mask_args(h, w, block_size)
+    hg = h if h_global is None else h_global
+    check_mask_args(h, w, block_size, row0, hg)
     seeds = seeds.contiguous()
     n = seeds.shape[0]
     mask = torch.empty((n, h, w), dtype=torch.float32, device=seeds.device)
@@ -182,7 +214,7 @@ def dropblock_mask_cuda(seeds: torch.Tensor, gamma, h: int, w: int,
     stream = torch.cuda.current_stream(seeds.device).cuda_stream
     err = entry("axcnn_dropblock_mask", MASK_ARGTYPES)(
         seeds.data_ptr(), float(gamma), mask.data_ptr(), counts.data_ptr(), n, h, w,
-        block_size, stream)
+        block_size, row0, hg, stream)
     if err != 0:
         raise RuntimeError(f"axcnn_dropblock_mask failed: CUDA error {err}")
     LAUNCHES += 1
@@ -203,15 +235,22 @@ def _check_int_sizes(x: torch.Tensor, kernel: str) -> None:
                          f"the kernel), got N={n}, C={c}")
 
 
-def _check_apply_args(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor) -> None:
+def _check_apply_args(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor,
+                      global_counts: bool) -> None:
     """Raise on what the apply kernel does not take: type, shape and size
-    first, then the device."""
+    first, then the device. ``global_counts``: the counts may be the global
+    batch's, of any length from 1 on."""
     _check_activation(x, "dropblock_apply_cuda")
     n, _, h, w = x.shape
     if mask.dtype != torch.float32 or tuple(mask.shape) != (n, h, w):
         raise ValueError(f"mask must be ({n}, {h}, {w}) float32, got {mask.dtype} "
                          f"{tuple(mask.shape)}")
-    if counts.dtype != torch.float32 or tuple(counts.shape) != (n,):
+    if global_counts:
+        if counts.dtype != torch.float32 or counts.dim() != 1 or not 1 <= counts.shape[0] \
+                <= MAX_INT32:
+            raise ValueError(f"counts must be (K,) float32 with 1 <= K <= {MAX_INT32}, got "
+                             f"{counts.dtype} {tuple(counts.shape)}")
+    elif counts.dtype != torch.float32 or tuple(counts.shape) != (n,):
         raise ValueError(f"counts must be ({n},) float32, got {counts.dtype} "
                          f"{tuple(counts.shape)}")
     _check_int_sizes(x, "apply")
@@ -231,15 +270,16 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropblock_apply_cuda(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor, *,
-                         backward: bool = False) -> torch.Tensor:
+                         backward: bool = False, numel: int | None = None) -> torch.Tensor:
     """Launch the apply kernel: forward ``(x * m) * s``, or with ``backward``
     the cotangent ``(x * s) * m``; raise on anything it does not take. A
     tensor that is not channels_last-contiguous is counted and copied into
     that layout first. The result is channels_last. Launches on the current
     stream of the calling thread, which for autograd is its backward
-    thread."""
+    thread. ``numel`` (the global batch's element count; ``x.numel()`` when
+    None) comes with the global batch's ``counts``, of any length."""
     global APPLY_LAUNCHES, APPLY_BWD_LAUNCHES
-    _check_apply_args(x, mask, counts)
+    _check_apply_args(x, mask, counts, numel is not None)
     x = _channels_last(x)
     mask, counts = mask.contiguous(), counts.contiguous()
     y = torch.empty_like(x, memory_format=torch.channels_last)
@@ -249,7 +289,8 @@ def dropblock_apply_cuda(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tens
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = entry("axcnn_dropblock_apply", APPLY_ARGTYPES)(
         x.data_ptr(), mask.data_ptr(), counts.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
-        float(x.numel()), n, h * w, c, int(backward), stream)
+        float(x.numel() if numel is None else numel), n, h * w, c, counts.shape[0],
+        int(backward), stream)
     if err != 0:
         raise RuntimeError(f"axcnn_dropblock_apply failed: CUDA error {err}")
     if backward:
@@ -303,17 +344,20 @@ def dropblock_fused_cuda(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size
 class DropBlockApply(torch.autograd.Function):
     """The apply kernel with itself, in backward order, as its gradient (the
     apply of ``dropblock_pallas``, which XLA differentiated). Only the mask
-    and the counts are saved; the scale is formed again in the backward."""
+    and the counts are saved; the scale is formed again in the backward.
+    ``numel``: with the global batch's counts, its element count."""
 
     @staticmethod
-    def forward(ctx, x, mask, counts):
+    def forward(ctx, x, mask, counts, numel=None):
         ctx.save_for_backward(mask, counts)
-        return dropblock_apply_cuda(x, mask, counts)
+        ctx.numel = numel
+        return dropblock_apply_cuda(x, mask, counts, numel=numel)
 
     @staticmethod
     def backward(ctx, g):
         mask, counts = ctx.saved_tensors
-        return dropblock_apply_cuda(g, mask, counts, backward=True), None, None
+        return dropblock_apply_cuda(g, mask, counts, backward=True, numel=ctx.numel), None, \
+            None, None
 
 
 class DropBlockFused(torch.autograd.Function):

@@ -33,6 +33,18 @@ alone (``ops.norm.replaying``), so they are updated once. ``remat="conv"``
 / ``"conv_nocse"`` are XLA name policies with no torch counterpart, and
 refused in training with that reason.
 
+Spatial partitioning (``spatial``, a
+``axcnn_torch.parallel.spatial.SpatialContext``): the images are this rank's
+rows of its data shard, and every windowed op takes its halo rows from the
+neighbouring shards (the 3x3 and dilated convs, the stem's max pool, the
+BlurPools), the pools sum over the spatial row (SE, SK, the head), and
+each DropBlock site is the global program's (its seeds drawn for the global
+batch, this data shard's slice taken; ``ops.dropblock``). The 1x1 convs,
+the ResNet-D shortcut's 2x2/2 average pool on even shards, BN's
+normalization, ReLU, the adds and the gates are row-local. Big-Little
+stages and ``remat`` are not taken with it (ROADMAP.md Queue A items 11b,
+11c).
+
 ``scan_blocks`` (a JAX compile-time lever with stacked weights) is refused
 with ``NotImplementedError`` (ROADMAP.md Queue A item 11). In eval,
 DropBlock is the identity and ``remat`` has no effect, as in the reference.
@@ -137,14 +149,15 @@ class Stem(nn.Module):
             self.add_module(f"conv{i}", Conv(k, cin, cout, stride=2 if i == 0 else 1))
             self.add_module(f"bn{i}", BatchNorm(cout, momentum=cfg.bn_momentum))
 
-    def forward(self, x, compute_dtype, train: bool = False, group=None, quantize=False):
+    def forward(self, x, compute_dtype, train: bool = False, group=None, quantize=False,
+                spatial=None):
         for i in range(self.depth):
-            x = getattr(self, f"conv{i}")(x, compute_dtype, quantize)
+            x = getattr(self, f"conv{i}")(x, compute_dtype, quantize, spatial)
             x = torch.relu(getattr(self, f"bn{i}")(x, train=train, group=group))
         if self.blur_max:
-            return blur_pool(max_pool_same(x, window=3, stride=1), stride=2,
-                             filter_size=self.filter_size)
-        return max_pool_same(x, window=3, stride=2)
+            return blur_pool(max_pool_same(x, window=3, stride=1, spatial=spatial), stride=2,
+                             filter_size=self.filter_size, spatial=spatial)
+        return max_pool_same(x, window=3, stride=2, spatial=spatial)
 
 
 class Block(nn.Module):
@@ -187,28 +200,30 @@ class Block(nn.Module):
         if cfg.use_se_block:
             self.se = SE(out_ch, ratio=cfg.se_ratio)
 
-    def _shortcut(self, x, cd, train, group, qc):
+    def _shortcut(self, x, cd, train, group, qc, sp):
         if not hasattr(self, "proj_conv"):
             return x
         if self.short_pool == "avg":
+            # 2x2/2 windows never cross an even shard's edge: row-local
             x = avg_pool_same(x, window=self.stride, stride=self.stride)
         elif self.short_pool == "blur":
-            x = blur_pool(x, stride=self.stride, filter_size=self.filter_size)
-        return self.proj_bn(self.proj_conv(x, cd, qc), train=train, group=group)
+            x = blur_pool(x, stride=self.stride, filter_size=self.filter_size, spatial=sp)
+        return self.proj_bn(self.proj_conv(x, cd, qc, sp), train=train, group=group)
 
-    def forward(self, x, compute_dtype, train: bool = False, group=None, quantize=False):
-        cd, qc = compute_dtype, quantize
-        shortcut = self._shortcut(x, cd, train, group, qc)
-        h = torch.relu(self.bn1(self.conv1(x, cd, qc), train=train, group=group))
+    def forward(self, x, compute_dtype, train: bool = False, group=None, quantize=False,
+                spatial=None):
+        cd, qc, sp = compute_dtype, quantize, spatial
+        shortcut = self._shortcut(x, cd, train, group, qc, sp)
+        h = torch.relu(self.bn1(self.conv1(x, cd, qc, sp), train=train, group=group))
         if hasattr(self, "sk"):
-            h = self.sk(h, cd, train=train, group=group, quantize=qc)
+            h = self.sk(h, cd, train=train, group=group, quantize=qc, spatial=sp)
         else:
-            h = torch.relu(self.bn2(self.conv2(h, cd, qc), train=train, group=group))
+            h = torch.relu(self.bn2(self.conv2(h, cd, qc, sp), train=train, group=group))
         if self.blur_mid:
-            h = blur_pool(h, stride=self.stride, filter_size=self.filter_size)
-        h = self.bn3(self.conv3(h, cd, qc), train=train, group=group)
+            h = blur_pool(h, stride=self.stride, filter_size=self.filter_size, spatial=sp)
+        h = self.bn3(self.conv3(h, cd, qc, sp), train=train, group=group)
         if hasattr(self, "se"):
-            h = self.se(h)
+            h = self.se(h, sp)
         return torch.relu(h + shortcut.to(h.dtype))
 
 
@@ -234,9 +249,9 @@ class BLStage(nn.Module):
         self.little_proj = Conv(1, ch, out_ch)
         self.little_proj_bn = BatchNorm(out_ch, momentum=cfg.bn_momentum)
 
-    def forward(self, x, compute_dtype, train: bool = False, group=None, quantize=False, *,
-                remat: bool = False):
-        args = (compute_dtype, train, group, quantize)
+    def forward(self, x, compute_dtype, train: bool = False, group=None, quantize=False,
+                spatial=None, *, remat: bool = False):
+        args = (compute_dtype, train, group, quantize, spatial)
         x = _region(self.entry, x, *args, remat=remat)
         big = x
         for block in self.big.values():
@@ -283,7 +298,7 @@ class ResNet(nn.Module):
     def forward(self, images, *, train: bool = False,
                 policy: Policy = DEFAULT_POLICY, rng: RngStream | None = None,
                 progress: float = 1.0, dropblock_uniforms: dict | None = None,
-                group=None):
+                group=None, spatial=None):
         """NHWC float images -> fp32 logits (N, num_classes).
 
         ``train=True`` normalizes with batch statistics and updates the BN
@@ -294,8 +309,16 @@ class ResNet(nn.Module):
         ``dropblock/stage{s}/block{b}``, and is required when training with
         DropBlock; a Big-Little stage's site is ``dropblock/stage{s}/out``.
         ``dropblock_uniforms`` maps site names to (N, H, W) uniforms for the
-        plain path (tests)."""
+        plain path (tests). ``spatial`` (module docstring): ``images`` are
+        this rank's rows; the uniforms are then the whole maps'
+        (N, H_global, W), and each site's seeds are drawn for the
+        ``D * N`` images of the global batch, of which this data shard takes
+        its ``N``."""
         cfg = self.cfg
+        if spatial is not None and (cfg.use_bl or (train and cfg.remat != "none")):
+            raise NotImplementedError(
+                "spatial partitioning takes neither Big-Little stages nor remat (ROADMAP.md "
+                "Queue A items 11b, 11c)")
         if train and cfg.remat in ("conv", "conv_nocse"):
             raise NotImplementedError(
                 f"remat={cfg.remat!r} is an XLA name policy (save only the tagged conv "
@@ -307,14 +330,19 @@ class ResNet(nn.Module):
             raise ValueError("training with DropBlock requires rng")
         kp = dropblock_keep_prob(progress, cfg.dropblock_keep_prob)
         uniforms = dropblock_uniforms or {}
-        args = (policy.compute_dtype, train, group, policy.quantize_conv)
+        args = (policy.compute_dtype, train, group, policy.quantize_conv, spatial)
         # NHWC -> NCHW view: the memory stays NHWC, i.e. channels_last
         x = policy.cast_to_compute(images).permute(0, 3, 1, 2)
         x = _region(self.stem, x, *args, remat=remat)
+
+        # (data index, data shards): the seeds are drawn for the global batch
+        d, shards = (0, 1) if spatial is None else (spatial.data_index, spatial.data_parts)
+
         def drop(x, site):
-            return dropblock(x, sample_seeds(rng.numpy(site), x.shape[0]), keep_prob=kp,
-                             block_size=cfg.dropblock_block_size, train=True,
-                             uniforms=uniforms.get(site))
+            n = x.shape[0]
+            seeds = sample_seeds(rng.numpy(site), n * shards)[d * n:(d + 1) * n]
+            return dropblock(x, seeds, keep_prob=kp, block_size=cfg.dropblock_block_size,
+                             train=True, uniforms=uniforms.get(site), spatial=spatial)
 
         for s in range(4):
             sname = f"stage{s + 1}"
@@ -329,7 +357,7 @@ class ResNet(nn.Module):
                 x = _region(block, x, *args, remat=remat)
                 if db_here:
                     x = drop(x, f"dropblock/{sname}/block{b}")
-        pooled = global_avg_pool(x)  # (N, C), in the compute dtype
+        pooled = global_avg_pool(x, spatial)  # (N, C), in the compute dtype
         # the head computes in fp32 at least (a float64 policy keeps float64)
         head_dtype = torch.promote_types(pooled.dtype, torch.float32)
         return self.head(pooled, compute_dtype=head_dtype).float()

@@ -16,6 +16,15 @@ binomial filter and TF fixed padding, in full fp32 for fp32 tensors (TF32
 off around each cuDNN call, the counterpart of ``Precision.HIGHEST``).
 ``kernels.blurpool.ROUTES["general"]`` counts its calls. There is no
 fallback and no switch.
+
+Under spatial partitioning (``spatial``, a
+``axcnn_torch.parallel.spatial.SpatialContext``) the blur takes its halo
+rows from the neighbouring shards (``pad_beg`` above, ``size - stride -
+pad_beg`` below, zeros at the image's border) and pads only W
+(``blur_pool_on_halo``). For 3x3/2 that is one row above and none below:
+the kernels' route with top padding 0 (``BlurPool3S2`` with ``pad_top=0``
+on the card, the plain version with it on the CPU), whose output rows are
+the unsharded kernel's, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 
 from axcnn_torch.kernels import blurpool as kblur
 from axcnn_torch.ops.conv import fixed_pad_amounts
+from axcnn_torch.parallel.spatial import halo_rows
 
 
 def _binomial(filter_size: int) -> np.ndarray:
@@ -47,8 +57,27 @@ def blur_kernel(filter_size: int = 3) -> np.ndarray:
     return (k2d / k2d.sum()).astype(np.float32)
 
 
-def blur_pool(x, *, stride: int = 2, filter_size: int = 3):
+def blur_halo(stride: int, filter_size: int) -> tuple[int, int]:
+    """The blur's halo rows from the shard above and below."""
+    return halo_rows(filter_size, stride, fixed_pad_amounts(filter_size)[0])
+
+
+def blur_pool_on_halo(xh, *, stride: int = 2, filter_size: int = 3):
+    """The blur on a shard that carries its halo rows (no padding along H):
+    3x3/2 through the kernels' route with top padding 0, every other size
+    through the general version."""
+    if (filter_size, stride) != (3, 2):
+        return blur_pool_general(xh, stride=stride, filter_size=filter_size, pad_rows=False)
+    if xh.device.type == "cpu":
+        return kblur.blur_pool_reference(xh, pad_top=0)
+    return kblur.BlurPool3S2.apply(xh, 0)
+
+
+def blur_pool(x, *, stride: int = 2, filter_size: int = 3, spatial=None):
     """Depthwise binomial blur + stride-``stride`` subsample."""
+    if spatial is not None:
+        xh = spatial.halo(x, *blur_halo(stride, filter_size))
+        return blur_pool_on_halo(xh, stride=stride, filter_size=filter_size)
     if (filter_size, stride) != (3, 2):
         return blur_pool_general(x, stride=stride, filter_size=filter_size)
     if not (torch.is_grad_enabled() and x.requires_grad):
@@ -93,19 +122,21 @@ class _DepthwiseBlur(torch.autograd.Function):
         return dx, None, None, None
 
 
-def blur_pool_general(x, *, stride: int, filter_size: int):
+def blur_pool_general(x, *, stride: int, filter_size: int, pad_rows: bool = True):
     """The reference's XLA BlurPool for any filter size in [1, 7] and any
     stride: a depthwise conv in ``x``'s dtype with the padding
-    ``fixed_pad_amounts(filter_size)`` (asymmetric for even sizes)."""
+    ``fixed_pad_amounts(filter_size)`` (asymmetric for even sizes); with
+    ``pad_rows=False`` (a shard that carries its halo rows) along W only."""
     c = x.shape[1]
     k = torch.from_numpy(blur_kernel(filter_size)).to(x.device, x.dtype)
     w = k.expand(c, 1, filter_size, filter_size).contiguous()
     beg, end = fixed_pad_amounts(filter_size)
     kblur.ROUTES["general"] += 1
+    hb, he = (beg, end) if pad_rows else (0, 0)
     if beg != end:
-        x = F.pad(x, (beg, end, beg, end))
-        beg = 0
-    return _DepthwiseBlur.apply(x, w, stride, beg)
+        x = F.pad(x, (beg, end, hb, he))
+        return _DepthwiseBlur.apply(x, w, stride, 0)
+    return _DepthwiseBlur.apply(x, w, stride, beg if pad_rows else (0, beg))
 
 
 def blur_pool_general_reference(x, *, stride: int, filter_size: int):

@@ -24,6 +24,12 @@ which it also leaves to its compiler. On the CPU: the plain version, the
 same integers through ``F.conv2d`` in float64, where every partial sum is an
 integer below 2^31 and so exact; the two agree bit for bit.
 ``INT8_MM_CALLS`` counts the card route's products.
+
+Under spatial partitioning (``spatial``, a
+``axcnn_torch.parallel.spatial.SpatialContext``) a conv takes its halo rows
+from the neighbouring shards (``pad_beg`` above, ``k_eff - stride - pad_beg``
+below, zeros at the image's border) and runs with no padding along H
+(``conv2d_on_halo``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from axcnn_torch.parallel.spatial import halo_rows
 
 # std of a standard normal truncated at +-2 sigma
 _TRUNC_STD = 0.87962566103423978
@@ -129,8 +137,21 @@ def dynamic_int8_conv(x, w, *, stride, dilation, padding, out_dtype):
     return (acc.to(torch.float32) * (sx * sw)[:, None, None]).to(out_dtype)
 
 
+def conv_halo(kernel_size: int, stride: int = 1, dilation: int = 1) -> tuple[int, int]:
+    """A conv's halo rows from the shard above and below."""
+    return halo_rows(dilation * (kernel_size - 1) + 1, stride,
+                     fixed_pad_amounts(kernel_size, dilation)[0])
+
+
+def conv2d_on_halo(xh, w, *, stride=1, dilation=1):
+    """The conv on a shard that carries its halo rows: TF fixed padding
+    along W only."""
+    beg, _ = fixed_pad_amounts(w.shape[-1], dilation)
+    return F.conv2d(xh, w, stride=stride, padding=(0, beg), dilation=dilation)
+
+
 def conv2d_fixed_padding(x, w, *, stride=1, dilation=1, compute_dtype=None,
-                         quantize=False):
+                         quantize=False, spatial=None):
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
@@ -140,6 +161,11 @@ def conv2d_fixed_padding(x, w, *, stride=1, dilation=1, compute_dtype=None,
     if beg != end:
         raise ValueError(f"even kernel size {w.shape[-1]} needs asymmetric "
                          "fixed padding, which no model here uses")
+    if spatial is not None:
+        if quantize:
+            raise NotImplementedError("the int8 conv takes no spatial partitioning")
+        xh = spatial.halo(x, *conv_halo(w.shape[-1], stride, dilation))
+        return conv2d_on_halo(xh, w, stride=stride, dilation=dilation)
     if quantize:
         return dynamic_int8_conv(x, w, stride=stride, dilation=dilation, padding=beg,
                                  out_dtype=x.dtype)
@@ -160,10 +186,10 @@ class Conv(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None):
         he_normal_(self.weight, generator)
 
-    def forward(self, x, compute_dtype=None, quantize=False):
+    def forward(self, x, compute_dtype=None, quantize=False, spatial=None):
         return conv2d_fixed_padding(x, self.weight, stride=self.stride,
-                                    dilation=self.dilation,
-                                    compute_dtype=compute_dtype, quantize=quantize)
+                                    dilation=self.dilation, compute_dtype=compute_dtype,
+                                    quantize=quantize, spatial=spatial)
 
 
 class Dense(nn.Module):

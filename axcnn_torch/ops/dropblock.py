@@ -18,6 +18,18 @@ mask and applies it; a larger map takes the mask kernel, then the apply
 kernel through ``DropBlockApply``. Either way the backward is the apply
 kernel in backward order. On the card a preset's site's device work is the
 seeds' copy and one launch each way. In eval DropBlock is the identity.
+
+Under spatial partitioning (``spatial``, a
+``axcnn_torch.parallel.spatial.SpatialContext``) the site is the global
+program's: ``bs`` and ``gamma`` come from the global H, the mask is the
+window of the global mask that this rank's rows are (no halo: the hash is
+stateless), the per-sample counts are summed over the spatial row and the
+data shards' gathered over the column, and the scale is
+``numel_global / (max(sum of the global batch's counts, 1) * C)`` (not
+data parallelism's per-shard scale). On the card that is the mask kernel
+over the window, then ``DropBlockApply`` with the global counts: the fused
+kernel cannot be used, as the counts' sum over ranks sits between the mask
+and the apply.
 """
 
 from __future__ import annotations
@@ -28,6 +40,26 @@ import torch
 from axcnn_torch.kernels.dropblock import (DropBlockApply, DropBlockFused,
                                            dropblock_apply_reference, dropblock_mask_cuda,
                                            dropblock_mask_reference, fused_route)
+
+
+def _spatial_dropblock(x, seeds, keep_prob, block_size, uniforms, spatial):
+    """The global program's site on this rank's rows (module docstring)."""
+    n, _, h, w = x.shape
+    row0, hg = spatial.rows(h)
+    bs = min(block_size, hg, w)
+    gamma = float(dropblock_gamma(keep_prob, bs, hg, w))
+    window = dict(row0=row0, h_global=hg)
+    if x.device.type == "cpu":
+        mask, counts = dropblock_mask_reference(seeds, gamma, h, w, bs, uniforms, **window)
+    else:
+        if uniforms is not None:
+            raise ValueError("uniforms are taken on the plain (CPU) path only")
+        mask, counts = dropblock_mask_cuda(seeds, gamma, h, w, bs, **window)
+    counts = spatial.global_counts(counts)
+    numel = x.numel() * spatial.parts * spatial.data_parts
+    if x.device.type == "cpu":
+        return dropblock_apply_reference(x, mask, counts, numel)
+    return DropBlockApply.apply(x, mask, counts, numel)
 
 
 def dropblock_keep_prob(progress, final_keep_prob: float) -> np.float32:
@@ -50,15 +82,18 @@ def sample_seeds(rng: np.random.Generator, n: int) -> np.ndarray:
 
 
 def dropblock(x, seeds, *, keep_prob, block_size: int = 7, train: bool,
-              uniforms=None):
+              uniforms=None, spatial=None):
     """``seeds``: (N,) int32 (numpy or tensor). ``uniforms`` (N, H, W), only
-    on the plain path, replace the hashed draws (the tests' hook)."""
+    on the plain path, replace the hashed draws (the tests' hook); under
+    ``spatial`` they are the whole map's, (N, H_global, W)."""
     if not train:
         return x
+    seeds = torch.as_tensor(seeds, dtype=torch.int32).to(x.device, non_blocking=True)
+    if spatial is not None:
+        return _spatial_dropblock(x, seeds, keep_prob, block_size, uniforms, spatial)
     _, _, h, w = x.shape
     bs = min(block_size, h, w)
     gamma = float(dropblock_gamma(keep_prob, bs, h, w))
-    seeds = torch.as_tensor(seeds, dtype=torch.int32).to(x.device, non_blocking=True)
     if x.device.type == "cpu":
         mask, counts = dropblock_mask_reference(seeds, gamma, h, w, bs, uniforms)
         return dropblock_apply_reference(x, mask, counts)

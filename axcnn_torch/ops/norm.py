@@ -15,6 +15,11 @@ per-rank ``[E[x], E[x^2]]`` over it (one differentiable all-reduce of a
 (2, C) tensor, whose backward averages the cotangent) before forming the
 variance, as the reference's ``pmean`` under ``sync_bn``; the variance is
 not an average of variances. ``nn.SyncBatchNorm`` is not used (hazard (a)).
+Under spatial partitioning the group is every rank of the ``(data,
+spatial)`` grid: the mean of the ranks' ``[E[x], E[x^2]]`` is the global
+batch's because each rank holds a shard of the same number of pixels (the
+shard rule splits H evenly), and every rank updates the moving statistics
+alike.
 
 Remat: a checkpointed region replays its forward in the backward. Inside
 ``replaying()`` the train forward leaves the moving statistics alone, so

@@ -22,8 +22,10 @@ class SE(nn.Module):
         self.fc1 = Dense(num_ch, mid, std=(2.0 / num_ch) ** 0.5)
         self.fc2 = Dense(mid, num_ch, std=(1.0 / mid) ** 0.5)
 
-    def forward(self, x):
-        z = global_avg_pool(x).float()  # (N, C)
+    def forward(self, x, spatial=None):
+        """``spatial``: the pool's mean is the whole image's, the same on
+        every rank of the spatial row; the gate multiplies this shard."""
+        z = global_avg_pool(x, spatial).float()  # (N, C)
         h = torch.relu(self.fc1(z))
         gate = torch.sigmoid(self.fc2(h)).to(x.dtype)
         return x * gate[:, :, None, None]

@@ -52,22 +52,25 @@ class SK(nn.Module):
         self.fc_select = Dense(d, NUM_BRANCHES * out_ch, std=(1.0 / d) ** 0.5)
 
     def forward(self, x, compute_dtype=None, *, train: bool = False, group=None,
-                quantize: bool = False):
+                quantize: bool = False, spatial=None):
         """``group``: the process group train-mode BN averages its statistics
         over (None: this rank's batch alone). ``quantize``: the branch convs
-        (or the merged one) through the dynamic int8 conv."""
+        (or the merged one) through the dynamic int8 conv. ``spatial``: the
+        convs take their halo rows (two for the dilated branch and the
+        merged 5x5) and the pooled ``u`` is the whole image's, so the
+        attention is the same on every rank of the spatial row."""
         if self.merged:
             h2 = conv2d_fixed_padding(x, merged_sk_weight(self.conv0.weight, self.conv1.weight),
                                       stride=self.stride, compute_dtype=compute_dtype,
-                                      quantize=quantize)
+                                      quantize=quantize, spatial=spatial)
             raw = [h2[:, :self.out_ch], h2[:, self.out_ch:]]
         else:
-            raw = [getattr(self, f"conv{b}")(x, compute_dtype, quantize)
+            raw = [getattr(self, f"conv{b}")(x, compute_dtype, quantize, spatial)
                    for b in range(NUM_BRANCHES)]
         branches = [torch.relu(getattr(self, f"bn{b}")(raw[b], train=train, group=group))
                     for b in range(NUM_BRANCHES)]
         u = branches[0] + branches[1]
-        z = self.fc_z(global_avg_pool(u).float())  # (N, d)
+        z = self.fc_z(global_avg_pool(u, spatial).float())  # (N, d)
         z = torch.relu(self.bn_z(z, train=train, group=group))
         logits = self.fc_select(z).view(-1, NUM_BRANCHES, self.out_ch)
         attn = torch.softmax(logits, dim=1).to(u.dtype)  # (N, B, C)

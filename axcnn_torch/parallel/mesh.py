@@ -92,11 +92,11 @@ def all_reduce_mean_(tensors, group) -> None:
         _all_reduce_(list(tensors), group, dist.ReduceOp.SUM, dist.get_world_size(group))
 
 
-def all_reduce_sum_(tensors, group) -> None:
-    """Sum ``tensors`` in place over ``group`` (``lax.psum``); no-op for
-    ``group=None``."""
+def all_reduce_sum_(tensors, group, divisor: int | None = None) -> None:
+    """Sum ``tensors`` in place over ``group`` (``lax.psum``), then divide
+    by ``divisor`` when given; no-op for ``group=None``."""
     if group is not None:
-        _all_reduce_(list(tensors), group, dist.ReduceOp.SUM)
+        _all_reduce_(list(tensors), group, dist.ReduceOp.SUM, divisor)
 
 
 def all_reduce_max(value: int, device, group) -> int:

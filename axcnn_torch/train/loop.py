@@ -39,10 +39,23 @@ agree on their number of eval batches. Rank 0 alone logs and saves; every
 rank waits at a barrier while it takes the save's snapshot. The LR and the
 schedules stay functions of the global batch.
 
-Refused with ``NotImplementedError`` until ported (ROADMAP.md): spatial
-partitioning; and, by design, DCN slices (``REFUSED``). ImageNet-C
-(``runtime.eval_imagenet_c``) is ``axcnn_torch.eval.imagenet_c``, which the
-CLI runs instead of this loop.
+Spatial partitioning (``runtime.spatial_partitions = S > 1``;
+``axcnn_torch.parallel.spatial``): the ``D * S`` ranks form the ``(data,
+spatial)`` grid, rank ``r`` at ``(r // S, r % S)``; ``S`` must divide the
+ranks and, across hosts, each host's ranks, and the image size must pass
+the shard rule (``check_shard_rows``), as the reference refuses what it
+cannot place. The two ranks of a data row read the same batch and augment
+it alike (the loaders take ``host_id = d`` of ``D``: their seeds depend on
+the record, not the rank), and each takes its rows inside the step. The
+step is the global-batch step, the eval sums over the data column, and the
+replicas' check, logging and saves are as with data parallelism.
+
+Refused with ``NotImplementedError`` until ported (``UNPORTED``, each with
+its ROADMAP.md Queue A item): spatial partitioning combined with Big-Little
+stages, remat, int8, device AutoAugment, a KD teacher, gradient
+accumulation or ImageNet-C; and, by design, DCN slices (``REFUSED``).
+ImageNet-C (``runtime.eval_imagenet_c``) is ``axcnn_torch.eval.imagenet_c``,
+which the CLI runs instead of this loop.
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ from axcnn_torch.data.pipeline import (EchoIterator, MultiProducerLoader, Synthe
                                        TFRecordImageLoader, device_prefetch)
 from axcnn_torch.models.resnet import ModelConfig
 from axcnn_torch.parallel import mesh
+from axcnn_torch.parallel.spatial import check_shard_rows, make_spatial_context
 from axcnn_torch.train.ema import ema_init
 from axcnn_torch.train.schedules import make_lr_schedule, scale_lr_for_batch
 from axcnn_torch.train.train_step import (
@@ -73,9 +87,26 @@ from axcnn_torch.utils.config import Config, resolve_preprocessing
 from axcnn_torch.utils.logging import MetricLogger, Throughput
 from axcnn_torch.utils.watchdog import HangWatchdog, exit_after
 
+def _spatial(c: Config) -> bool:
+    return c.runtime.spatial_partitions > 1
+
+
 # (what, its ROADMAP.md Queue A item, is it asked for) -- each refused until ported
 UNPORTED = (
-    ("runtime.spatial_partitions > 1", 11, lambda c: c.runtime.spatial_partitions > 1),
+    ("runtime.spatial_partitions > 1 with Big-Little stages", "11b",
+     lambda c: _spatial(c) and c.model.bl_alpha > 0),
+    ("runtime.spatial_partitions > 1 with model.remat", "11c",
+     lambda c: _spatial(c) and c.model.remat != "none"),
+    ("runtime.spatial_partitions > 1 with train.dtype=int8", "11d",
+     lambda c: _spatial(c) and c.train.dtype == "int8"),
+    ("runtime.spatial_partitions > 1 with data.autoaugment_device", "11e",
+     lambda c: _spatial(c) and c.data.autoaugment_device),
+    ("runtime.spatial_partitions > 1 with train.kd_teacher_checkpoint", "11f",
+     lambda c: _spatial(c) and bool(c.train.kd_teacher_checkpoint)),
+    ("runtime.spatial_partitions > 1 with train.grad_accum_steps > 1", "11g",
+     lambda c: _spatial(c) and c.train.grad_accum_steps > 1),
+    ("runtime.spatial_partitions > 1 with runtime.eval_imagenet_c", "11h",
+     lambda c: _spatial(c) and c.runtime.eval_imagenet_c),
 )
 # (what, why it is not ported, is it asked for) -- refused by design
 REFUSED = (
@@ -127,8 +158,9 @@ def _dataset_info(cfg: Config) -> DatasetInfo:
 
 def _make_loaders(cfg: Config, info: DatasetInfo, rank: int = 0, world: int = 1):
     """This rank's loaders: its share of the global batch from its shard
-    files (``host_id=rank``). The synthetic loader is the same on every
-    rank, as in the reference."""
+    files (``host_id=rank`` of ``world``; under spatial partitioning the data
+    index and the number of data shards). The synthetic loader is the same
+    on every rank, as in the reference."""
     bs = cfg.train.batch_size // world
     if cfg.data.use_synthetic_data:
         kw = dict(batch_size=bs, image_size=cfg.data.image_size,
@@ -294,9 +326,16 @@ def run(cfg: Config, *, local_rank: int = 0):
             f"runtime.num_devices={cfg.runtime.num_devices} but this process group has "
             f"{world} rank(s): start the run through axcnn_torch.cli.main_classification, "
             "which starts one rank per card")
-    if cfg.train.batch_size % world:
+    spatial = None
+    data_rank, data_world = rank, world
+    if _spatial(cfg):
+        check_shard_rows(cfg.data.image_size, cfg.runtime.spatial_partitions)
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        spatial = make_spatial_context(cfg.runtime.spatial_partitions, local_world=local)
+        data_rank, data_world = spatial.data_index, spatial.data_parts
+    if cfg.train.batch_size % data_world:
         raise ValueError(f"global batch {cfg.train.batch_size} not divisible by "
-                         f"{world} data-parallel ranks")
+                         f"{data_world} data-parallel ranks")
     info = _dataset_info(cfg)
     model = cfg.model
     if model.num_classes != info.num_classes:
@@ -340,14 +379,14 @@ def run(cfg: Config, *, local_rank: int = 0):
         use_ema=cfg.train.use_ema, ema_decay=cfg.train.ema_decay,
         teacher=_load_teacher(cfg, device), kd_temp=cfg.train.kd_temp,
         kd_alpha=cfg.train.kd_alpha, grad_accum_steps=cfg.train.grad_accum_steps,
-        group=group, autoaugment_fn=autoaugment_fn, **norm)
+        group=group, autoaugment_fn=autoaugment_fn, spatial=spatial, **norm)
     eval_step = make_eval_step(cfg.model, policy=policy, use_ema=cfg.train.use_ema,
-                               group=group, **norm)
+                               group=group, spatial=spatial, **norm)
     state = create_train_state(cfg.model,
                                generator=torch.Generator().manual_seed(cfg.train.seed),
                                device=device, use_ema=cfg.train.use_ema)
     state = _warm_start(state, cfg)
-    train_loader, eval_loader = _make_loaders(cfg, info, rank, world)
+    train_loader, eval_loader = _make_loaders(cfg, info, data_rank, data_world)
 
     ckpt = CheckpointManager(os.path.join(cfg.runtime.model_dir, "checkpoints"),
                              max_to_keep=cfg.runtime.keep_checkpoint_max,
@@ -373,7 +412,7 @@ def run(cfg: Config, *, local_rank: int = 0):
 
         return HangWatchdog(cfg.runtime.hang_watchdog_s, on_hang=on_hang).start()
 
-    eval_kw = dict(batch_size=cfg.train.batch_size // world, device=device,
+    eval_kw = dict(batch_size=cfg.train.batch_size // data_world, device=device,
                    prefetch=cfg.data.prefetch, group=group)
     if cfg.runtime.eval_only:
         eval_step_no = state.step

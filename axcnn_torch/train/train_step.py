@@ -19,6 +19,24 @@ rank, mixup's lambda from the stream before the fold (one lambda for the global 
 gradients, the loss, the BN moving statistics and the metrics
 ``train_top1`` and ``mixup_lam`` are averaged over the ranks, in one
 all-reduce for each dtype among them. DropBlock's scale stays each shard's.
+
+Spatial partitioning (``spatial``, a
+``axcnn_torch.parallel.spatial.SpatialContext``; ``group`` is then every
+rank of the ``D x S`` grid) is the reference's global-batch step
+(``axis_name=None``) split by hand: the batch is data shard ``d`` at full H;
+normalize, then this rank's rows; every draw comes from the step's global
+stream, not folded with the rank (one lambda; each DropBlock site's seeds
+for the global batch, of which the model takes this shard's); mixup pairs
+shard ``d`` with the reverse of shard ``D - 1 - d`` (``mixup_per_shard`` is
+ignored, as with ``axis_name=None``); BN averages over every rank; the
+DropBlock scale is the global batch's. The logits and the loss are the same
+on every rank of a spatial row, so each rank takes ``1/S`` of the loss into
+its backward; with the halo's and the pooled sum's transposes the sum of a
+row's gradients is its data shard's, and the gradients are summed over the
+grid and divided by ``D``: the one-rank step's. The loss, ``train_top1``
+and ``mixup_lam`` are averaged over the grid; the BN moving statistics are
+already equal on every rank. Gradient accumulation, the KD teacher and
+device AutoAugment are not taken with it.
 """
 
 from __future__ import annotations
@@ -79,7 +97,7 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
                     teacher: ResNet | None = None, kd_temp: float = 1.0,
                     kd_alpha: float = 1.0, mean_rgb=None, stddev_rgb=None,
                     grad_accum_steps: int = 1, group=None, sync_bn: bool = True,
-                    mixup_per_shard: bool = False, autoaugment_fn=None):
+                    mixup_per_shard: bool = False, autoaugment_fn=None, spatial=None):
     """Builds ``train_step(state, batch, root_seed) -> (state, metrics)``.
 
     ``batch`` = {'images': uint8 NHWC, 'labels': int N}, on the state's
@@ -111,9 +129,18 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
     ``group`` (a process group of several ranks; None: one process) makes
     it the data-parallel step of the module docstring; ``batch`` is then
     this rank's shard. With it, ``mixup_lam`` is a 0-d device tensor too.
+    With ``spatial`` as well it is the spatially partitioned step of the
+    module docstring; ``batch`` is then this rank's data shard at full H,
+    and the injected ``dropblock_uniforms`` are the shard's whole maps.
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
+    if spatial is not None and (grad_accum_steps > 1 or teacher is not None
+                                or autoaugment_fn is not None or group is None or not sync_bn):
+        raise NotImplementedError(
+            "the spatially partitioned step takes no gradient accumulation, KD teacher or "
+            "device AutoAugment, and needs the process group of every rank with sync-BN "
+            "(ROADMAP.md Queue A items 11e-11g)")
     A = grad_accum_steps
     bn_group = group if sync_bn else None
     mask = None
@@ -125,24 +152,28 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
         if autoaugment_fn is not None:
             images_u8 = autoaugment_fn(images_u8, None if aa_draws is not None
                                        else rng.numpy("autoaugment"), draws=aa_draws)
+        if spatial is not None:
+            images_u8 = spatial.slice_rows(images_u8)
         images = normalize_device(images_u8, mean_rgb, stddev_rgb)
         labels_b = None
         if mixup_alpha > 0:
             if lam is None:
                 lam = draw_lambda(mix_rng.numpy("mixup"), mixup_alpha,
                                   symmetric=mixup_symmetric)
-            images, labels_a, labels_b = mixup_batch(images, labels, lam)
+            partner = None if spatial is None else spatial.mirror(images, labels)
+            images, labels_a, labels_b = mixup_batch(images, labels, lam, partner)
         else:
             labels_a, lam = labels, np.float32(1.0)
-        logits = model(images, train=True, policy=policy, rng=rng,
-                       progress=progress, dropblock_uniforms=uniforms, group=bn_group)
+        logits = model(images, train=True, policy=policy, rng=rng, progress=progress,
+                       dropblock_uniforms=uniforms, group=bn_group, spatial=spatial)
         loss = softmax_ce_loss(logits, labels_a, labels_b, float(lam),
                                label_smoothing=label_smoothing)
         if teacher is not None:
             with torch.no_grad():
                 t_logits = teacher(images, policy=policy)
             loss = loss + kd_alpha * kd_loss(logits, t_logits, temperature=kd_temp)
-        loss.backward()
+        # a spatial row's S ranks hold the same loss: each backs 1/S of it
+        (loss if spatial is None else loss / spatial.parts).backward()
         with torch.no_grad():
             top1 = (logits.argmax(-1) == labels).float().mean()
         return loss.detach(), top1, np.float32(lam)
@@ -157,9 +188,11 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
             mask = decay_mask(model)
         step = state.step
         # the global stream is the same on every rank; the per-sample draws
-        # come from the rank's fold of it
+        # come from the rank's fold of it, except under spatial partitioning
+        # (the global program's draws)
         rng_global = RngStream(root_seed).fold_step(step)
-        rng = rng_global if group is None else rng_global.fold_shard(dist.get_rank(group))
+        rng = (rng_global if group is None or spatial is not None
+               else rng_global.fold_shard(dist.get_rank(group)))
         mix_rng = rng if mixup_per_shard else rng_global
         progress = np.float32(step) / np.float32(max(total_steps, 1))
         images, labels = batch["images"], batch["labels"]
@@ -197,7 +230,11 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
             torch._foreach_div_(list(grads.values()), float(A))
             loss, top1 = loss / A, top1 / A
         lam_mean = lam_sum / np.float32(A)
-        if group is not None:
+        if spatial is not None:
+            lam_mean = torch.tensor(lam_mean, device=loss.device)
+            all_reduce_sum_(grads.values(), group, divisor=spatial.data_parts)
+            all_reduce_mean_([loss, top1, lam_mean], group)
+        elif group is not None:
             lam_mean = torch.tensor(lam_mean, device=loss.device)
             all_reduce_mean_([*grads.values(), *model.buffers(), loss, top1, lam_mean], group)
 
@@ -219,15 +256,19 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
 
 
 def eval_logits(state: TrainState, images_u8, *, policy: Policy = DEFAULT_POLICY,
-                use_ema: bool = False, mean_rgb=None, stddev_rgb=None):
+                use_ema: bool = False, mean_rgb=None, stddev_rgb=None, spatial=None):
     """uint8 NHWC batch -> fp32 logits, with the EMA weights swapped in when
-    ``use_ema`` (the reference's EMA-swap scaffold)."""
+    ``use_ema`` (the reference's EMA-swap scaffold). ``spatial``: the batch
+    is a data shard at full H, of which the model takes this rank's rows;
+    the logits are the whole images'."""
+    if spatial is not None:
+        images_u8 = spatial.slice_rows(images_u8)
     x = normalize_device(images_u8, mean_rgb, stddev_rgb)
+    kw = {"policy": policy, "spatial": spatial}
     with torch.inference_mode():
         if use_ema and state.ema is not None:
-            return functional_call(state.model, state.ema, (x,),
-                                   {"policy": policy})
-        return state.model(x, policy=policy)
+            return functional_call(state.model, state.ema, (x,), kw)
+        return state.model(x, **kw)
 
 
 def topk_correct(logits, labels, ks=(1, 5)):
@@ -242,19 +283,23 @@ def topk_correct(logits, labels, ks=(1, 5)):
 
 
 def make_eval_step(cfg: ModelConfig, *, policy: Policy = DEFAULT_POLICY,
-                   use_ema: bool = False, mean_rgb=None, stddev_rgb=None, group=None):
+                   use_ema: bool = False, mean_rgb=None, stddev_rgb=None, group=None,
+                   spatial=None):
     """Builds ``eval_step(state, batch) -> metrics`` (sums + count, so the
     caller aggregates exactly over uneven final batches). ``cfg`` is the
     model config the state was built from. With a process ``group`` the
     sums are over every rank's batch (one all-reduce), so every rank must
-    call it equally often."""
+    call it equally often. With ``spatial`` the batch is the data shard at
+    full H, the logits are the same on every rank of a spatial row, and the
+    sums are over the data column only (a row's images are counted once)."""
+    if spatial is not None:
+        group = spatial.column_group
 
     def eval_step(state: TrainState, batch):
         if state.model.cfg != cfg:
             raise ValueError("eval_step built for another model config")
-        logits = eval_logits(state, batch["images"], policy=policy,
-                             use_ema=use_ema, mean_rgb=mean_rgb,
-                             stddev_rgb=stddev_rgb)
+        logits = eval_logits(state, batch["images"], policy=policy, use_ema=use_ema,
+                             mean_rgb=mean_rgb, stddev_rgb=stddev_rgb, spatial=spatial)
         labels = batch["labels"]
         # padded rows carry label -1: never correct, and masked out of loss/count
         valid = (labels >= 0).float()

@@ -164,7 +164,33 @@ points and checks them:
     launches a step; step walls, img/s, peak memory;
 31. dp_nccl: the training CLI with ``--runtime.num_devices=2`` (one rank a
     card, NCCL), global b256, bf16, 10 steps: finite losses, img/s per card
-    and in total. On a machine with one card it prints ``"ran": false``.
+    and in total. On a machine with one card it prints ``"ran": false``;
+32. spatial_kernel_check (with kernel_check): the kernels' spatial forms,
+    bit for bit against their plain versions, fp32 and bf16: BlurPool with
+    top padding 0 (a shard with its halo row on top) forward and backward
+    at the 448x448 shards' shapes, on both routes, the forward's rows also
+    against the unsharded kernel's; the mask over a window of rows (row0 >
+    0, windows that cut a block, bs 7 and 5) against the plain window and
+    the whole-map kernel's rows; the apply with the global batch's counts
+    and element count, forward and backward, NaNs included;
+    kernel_time also times those kernels at the 448x448 S = 2 shards'
+    shapes, b128 bf16, beside the same yardsticks (outside the summary's
+    sums, which stay one R50 step's);
+33. spatial_parity (needs two cards): a seeded full-width assembled R50,
+    fp32 with TF32 off, b4 at 128x128, one train step with DropBlock and
+    mixup active on ``(D, S) = (1, 2)`` over NCCL, beside the one-card step
+    and the CPU's float64 step from the same state, batch and draws: the
+    spatial step as near the float64 step as the one-card step is (loss,
+    every parameter, every BN statistic), the eval's counts equal; the
+    spatial kernels' launches;
+34. spatial_448: ``--config=finetune_fgvc`` at 448x448 on synthetic data,
+    bf16: on one card at b128 (peak memory, step wall), then (two cards)
+    the CLI's ranks with ``--runtime.spatial_partitions=2`` at b128 and b256:
+    finite losses, each card's peak memory, step walls, img/s, and the
+    launches of each kernel by path (BlurPool with top padding 0 3 + 3 a
+    step, the windowed mask, the forward apply and the apply backward 9 each,
+    no fused kernel). On a machine with one card the two-card parts print
+    ``"ran": false``.
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the result line.
@@ -242,6 +268,20 @@ TF_SHARDS = 2
 FGVC_CLASSES, FGVC_TRAIN, FGVC_TEST = 101, 3, 1  # Food-101's classes; images a class
 FGVC_STEPS, FGVC_BATCH = 12, 256  # finetune_fgvc's batch
 FGVC_LONG_SIDE = 512  # the published Food-101 images' longest side
+# spatial partitioning: the BlurPool inputs of a 448x448 R50 step's shard at
+# S = 2, with the halo row on top (56 + 1 rows of 112, ...), and a shape the
+# per-thread route takes
+SPATIAL_BLUR_SHAPES = [(TIME_BATCH, 57, 112, 128), (TIME_BATCH, 29, 56, 256),
+                       (TIME_BATCH, 15, 28, 512)]
+SPATIAL_BLUR_CHECKS = [(8,) + s[1:] for s in SPATIAL_BLUR_SHAPES] + [(3, 15, 17, 6)]
+# (H, W, bs, row0, rows): windows of a map; each cuts a block (the 448x448
+# sites' S = 2 shards first)
+SPATIAL_MASK_WINDOWS = [(28, 28, 7, 14, 14), (14, 14, 7, 7, 7), (28, 28, 5, 9, 7),
+                        (15, 17, 5, 4, 6)]
+# the 448x448 DropBlock sites' S = 2 shards: (N, rows, W, C), the map's H
+SPATIAL_APPLY_SHAPES = [((TIME_BATCH, 14, 28, 1024), 28), ((TIME_BATCH, 7, 14, 2048), 14)]
+SPATIAL_SIZE, SPATIAL_STEPS, SPATIAL_BATCHES = 448, 5, (128, 256)
+SPATIAL_PARITY_SIZE, SPATIAL_PARITY_BATCH = 128, 4
 L2_FLUSH_BYTES = 256 << 20  # timing inputs cycle through at least this much (H100 L2: 50 MB)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory bandwidth (datasheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (datasheet)
@@ -378,14 +418,15 @@ def _apply_inputs(shape, dtype, gen, offset=0, specials=True):
     return x, seeds, mask, counts
 
 
-def _apply_fns(mask, counts, backward):
-    """The apply kernel and its plain version, as functions of the input."""
+def _apply_fns(mask, counts, backward, numel=None):
+    """The apply kernel and its plain version, as functions of the input;
+    ``numel`` with the global batch's counts."""
     def kernel(t):
-        return kdrop.dropblock_apply_cuda(t, mask, counts, backward=backward)
+        return kdrop.dropblock_apply_cuda(t, mask, counts, backward=backward, numel=numel)
 
     def plain(t):
         ref = kdrop.dropblock_apply_bwd_reference if backward else kdrop.dropblock_apply_reference
-        return ref(t, mask, counts)
+        return ref(t, mask, counts, numel)
 
     return kernel, plain
 
@@ -593,19 +634,22 @@ def _bound_us(nbytes, ops):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def _blur_library(kind, c, hw, dtype):
+def _blur_library(kind, c, hw, dtype, pad_top=1):
     """One PyTorch call for the same function, used only as a yardstick:
     cuDNN's depthwise conv with the fixed binomial filter (exact in bf16),
-    or its transpose for the backward."""
+    or its transpose for the backward; with ``pad_top=0`` no padding along
+    H (a shard's halo row is its top padding)."""
     import torch.nn.functional as F
 
     k = torch.tensor([1.0, 2.0, 1.0], device="cuda") / 4
     wgt = (k[:, None] * k[None, :]).expand(c, 1, 3, 3).contiguous().to(dtype)
+    padding = (pad_top, 1)
     if kind == "fwd":
-        return lambda x: F.conv2d(x, wgt, stride=2, padding=1, groups=c)
+        return lambda x: F.conv2d(x, wgt, stride=2, padding=padding, groups=c)
     h, w = hw
-    pad = (h - (2 * ((h + 1) // 2) - 1), w - (2 * ((w + 1) // 2) - 1))
-    return lambda g: F.conv_transpose2d(g, wgt, stride=2, padding=1, output_padding=pad,
+    ho = kblur.out_rows(h, pad_top)
+    pad = (h - (2 * ho + 1 - 2 * pad_top), w - (2 * ((w + 1) // 2) - 1))
+    return lambda g: F.conv_transpose2d(g, wgt, stride=2, padding=padding, output_padding=pad,
                                         groups=c)
 
 
@@ -628,20 +672,26 @@ def kernel_time_phase(errs):
         tot["bound_by"].add(bound_by)
         tot["library_ms"] = None if lib is None else tot["library_ms"] + lib
 
-    for n, h, w, c in SLICE_SHAPES + BL_SHAPES:
+    # top padding 1, and 0 at the spatial shards' shapes (the halo row on top)
+    for (n, h, w, c), pt in ([(s, 1) for s in SLICE_SHAPES + BL_SHAPES]
+                             + [(s, 0) for s in SPATIAL_BLUR_SHAPES]):
+        ho, wo = kblur.out_rows(h, pt), (w + 1) // 2
         for kind in ("fwd", "bwd"):
             if kind == "fwd":
                 shape = (TIME_BATCH, h, w, c)
-                kernel, plain = kblur.blur_pool_cuda, kblur.blur_pool_reference
-                out_elems = TIME_BATCH * ((h + 1) // 2) * ((w + 1) // 2) * c
+                kernel = lambda x, pt=pt: kblur.blur_pool_cuda(x, pad_top=pt)  # noqa: E731
+                plain = lambda x, pt=pt: kblur.blur_pool_reference(x, pt)  # noqa: E731
+                out_elems = TIME_BATCH * ho * wo * c
                 ops = 16 * out_elems  # 3 row sums and 1 column sum of 4 ops each
             else:
-                shape = (TIME_BATCH, (h + 1) // 2, (w + 1) // 2, c)
-                kernel = lambda g, hw=(h, w): kblur.blur_pool_bwd_cuda(g, hw)  # noqa: E731
-                plain = lambda g, hw=(h, w): kblur.blur_pool_bwd_reference(g, hw)  # noqa: E731
+                shape = (TIME_BATCH, ho, wo, c)
+                kernel = lambda g, hw=(h, w), pt=pt: kblur.blur_pool_bwd_cuda(  # noqa: E731
+                    g, hw, pt)
+                plain = lambda g, hw=(h, w), pt=pt: kblur.blur_pool_bwd_reference(  # noqa: E731
+                    g, hw, pt)
                 out_elems = TIME_BATCH * h * w * c
                 ops = 3 * out_elems  # 12 ops per 2x2 block of dx
-            library = _blur_library(kind, c, (h, w), torch.bfloat16)
+            library = _blur_library(kind, c, (h, w), torch.bfloat16, pt)
             xs = _rotating(_nchw_input(shape, torch.bfloat16, gen))
             nbytes = xs[0].nbytes + out_elems * xs[0].element_size()
             bound, bound_by = _bound_us(nbytes, ops)
@@ -651,14 +701,15 @@ def kernel_time_phase(errs):
             got = kernel(xs[0])
             route = _route_of(kind, before)
             errs[kind] = max(errs[kind], _check_equal(
-                f"blur_pool3_s2_{kind}", shape, "bf16, timed input", got, want))
+                f"blur_pool3_s2_{kind}", shape, f"bf16, pad_top {pt}, timed input", got, want))
             del want, got
             copy, srcs = _copy_yardstick(nbytes, gen)
             t = _time_set({"plain": plain, "kernel": kernel, "library": library, "copy": copy},
                           xs, inputs={"copy": srcs})
             k, p, lib, cp = (t[n][0] for n in ("kernel", "plain", "library", "copy"))
-            emit("kernel_time", kernel=kind, shape_nhwc=list(shape), dtype="bf16", route=route,
-                 kernel_us=k * 1e3, plain_us=p * 1e3, library_us=lib * 1e3, copy_us=cp * 1e3,
+            emit("kernel_time", kernel=kind, shape_nhwc=list(shape), pad_top=pt, dtype="bf16",
+                 route=route, kernel_us=k * 1e3, plain_us=p * 1e3, library_us=lib * 1e3,
+                 copy_us=cp * 1e3,
                  bound_us=bound, bound_by=bound_by, pct_of_bound=100 * bound / (k * 1e3),
                  library_pct_of_bound=100 * bound / (lib * 1e3),
                  copy_pct_of_bound=100 * bound / (cp * 1e3), kernel_over_copy=k / cp,
@@ -669,37 +720,52 @@ def kernel_time_phase(errs):
                  library_max_abs_err_vs_plain=lib_err, bytes=nbytes, ops=ops,
                  rotating_inputs=len(xs), kernel_gb_per_s=nbytes / (k * 1e-3) / 1e9)
             del xs, srcs
-            if (n, h, w, c) in SLICE_SHAPES:  # the summary sums one R50 step's shapes
+            if pt and (n, h, w, c) in SLICE_SHAPES:  # the summary sums one R50 step's shapes
                 add(kind, k, p, bound, bound_by, lib)
-    for h, w, bs in MASK_TIME_SHAPES:
+    # whole maps, then the spatial shards' windows of rows
+    for h, w, bs, row0, rows in ([(h, w, bs, 0, h) for h, w, bs in MASK_TIME_SHAPES]
+                                 + SPATIAL_MASK_WINDOWS[:2]):
         # the mask kernel reads 512 bytes of seeds: there is no L2 to flush
         seeds = [_seeds(TIME_BATCH, gen) for _ in range(16)]
+        window = dict(row0=row0, h_global=h)
         t = _time_set({
-            "plain": lambda sd: kdrop.dropblock_mask_reference(sd, 0.02, h, w, bs),
-            "kernel": lambda sd: kdrop.dropblock_mask_cuda(sd, 0.02, h, w, bs)}, seeds)
+            "plain": lambda sd: kdrop.dropblock_mask_reference(sd, 0.02, rows, w, bs, **window),
+            "kernel": lambda sd: kdrop.dropblock_mask_cuda(sd, 0.02, rows, w, bs, **window)},
+            seeds)
         k, p = t["kernel"][0], t["plain"][0]
-        # seeds in; the fp32 mask and counts out. Per pixel about 14 ops (the
-        # fmix32 hash, the uniform, the compare) plus 2 * bs for the dilation
-        nbytes = TIME_BATCH * 4 + TIME_BATCH * h * w * 4 + TIME_BATCH * 4
-        bound, bound_by = _bound_us(nbytes, TIME_BATCH * h * w * (14 + 2 * bs))
-        emit("kernel_time", kernel="mask", shape=[TIME_BATCH, h, w, bs], gamma=0.02,
-             kernel_us=k * 1e3, plain_us=p * 1e3, library_us=None, bound_us=bound,
-             bound_by=bound_by, pct_of_bound=100 * bound / (k * 1e3),
+        # seeds in; the fp32 mask and counts out. About 14 ops (the fmix32
+        # hash, the uniform, the compare) for each centre the rows read (a
+        # window's and up to bs - 1 more, within the map), plus 2 * bs per
+        # pixel for the dilation
+        centres = min(row0 + rows + bs // 2, h) - max(row0 - (bs - 1) // 2, 0)
+        nbytes = TIME_BATCH * 4 + TIME_BATCH * rows * w * 4 + TIME_BATCH * 4
+        bound, bound_by = _bound_us(nbytes, TIME_BATCH * w * (14 * centres + 2 * bs * rows))
+        emit("kernel_time", kernel="mask", shape=[TIME_BATCH, h, w, bs],
+             rows=[row0, row0 + rows - 1], gamma=0.02, kernel_us=k * 1e3, plain_us=p * 1e3,
+             library_us=None, bound_us=bound, bound_by=bound_by,
+             pct_of_bound=100 * bound / (k * 1e3),
              kernel_runs_us=[v * 1e3 for v in t["kernel"][1]],
              plain_runs_us=[v * 1e3 for v in t["plain"][1]], bytes=nbytes)
-        add("mask", k, p, bound, bound_by, None)
-    for shape in APPLY_TIME_SHAPES:
+        if rows == h:
+            add("mask", k, p, bound, bound_by, None)
+    # this batch's counts, then (the spatial shards) a global batch of two
+    # data shards' counts and four shards' elements
+    for shape, shards in ([(s, 1) for s in APPLY_TIME_SHAPES]
+                          + [(s, 2) for s, _ in SPATIAL_APPLY_SHAPES]):
         n, h, w, c = shape
         x, _, mask, counts = _apply_inputs(shape, torch.bfloat16, gen, specials=False)
+        numel = None
+        if shards > 1:
+            counts, numel = torch.cat([counts] * shards), 2 * shards * x.numel()
         xs = _rotating(x)
         elems = x.numel()
         # bf16 in and out once each, the fp32 mask and counts read once; two
         # fp32 multiplies per element
-        nbytes = 2 * elems * x.element_size() + n * h * w * 4 + n * 4
+        nbytes = 2 * elems * x.element_size() + n * h * w * 4 + counts.numel() * 4
         bound, bound_by = _bound_us(nbytes, 2 * elems)
         copy, srcs = _copy_yardstick(nbytes, gen)
         for backward in (False, True):
-            kernel, plain = _apply_fns(mask, counts, backward)
+            kernel, plain = _apply_fns(mask, counts, backward, numel)
             kind = "apply_bwd" if backward else "apply_fwd"
             errs["apply"] = max(errs["apply"], _check_equal(
                 f"dropblock_{kind}", shape, "bf16, timed input", kernel(xs[0]), plain(xs[0]),
@@ -708,14 +774,16 @@ def kernel_time_phase(errs):
                           inputs={"copy": srcs})
             k, p, cp = (t[n][0] for n in ("kernel", "plain", "copy"))
             emit("kernel_time", kernel=kind, shape_nhwc=list(shape), dtype="bf16",
-                 kernel_us=k * 1e3, plain_us=p * 1e3, library_us=None, copy_us=cp * 1e3,
+                 counts=counts.numel(), numel=numel or elems, kernel_us=k * 1e3,
+                 plain_us=p * 1e3, library_us=None, copy_us=cp * 1e3,
                  bound_us=bound, bound_by=bound_by, pct_of_bound=100 * bound / (k * 1e3),
                  copy_pct_of_bound=100 * bound / (cp * 1e3), kernel_over_copy=k / cp,
                  kernel_runs_us=[v * 1e3 for v in t["kernel"][1]],
                  plain_runs_us=[v * 1e3 for v in t["plain"][1]],
                  copy_runs_us=[v * 1e3 for v in t["copy"][1]], bytes=nbytes, ops=2 * elems,
                  rotating_inputs=len(xs), kernel_gb_per_s=nbytes / (k * 1e-3) / 1e9)
-            add("apply", k, p, bound, bound_by, None)
+            if shards == 1:
+                add("apply", k, p, bound, bound_by, None)
         del xs, srcs
     for shape in APPLY_TIME_SHAPES:
         n, h, w, c = shape
@@ -2599,6 +2667,328 @@ def fgvc_finetune_phase(smi, import_dir, imported, tmp):
     return counts
 
 
+def spatial_kernel_check_phase(errs):
+    """The kernels' spatial forms against their plain versions, bit for bit
+    (module docstring, 32); ``errs`` takes the largest errors."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    cases = [(s, 0) for s in SPATIAL_BLUR_CHECKS] + [(MISALIGNED_SHAPE, 1)]
+    for shape, offset in cases:
+        n, h, w, c = shape  # h: the shard's rows with the halo row on top
+        for dtype in (torch.float32, torch.bfloat16):
+            case = f"{dtype}, pad_top 0" + (f", offset {offset}" if offset else "")
+            route = "tma" if _tma_legal(c, dtype) and not offset else "thread"
+            x = _nchw_input(shape, dtype, gen, offset)
+            before = dict(kblur.ROUTES)
+            got = kblur.blur_pool_cuda(x, pad_top=0)
+            torch.cuda.synchronize()
+            errs["fwd"] = max(errs["fwd"], _check_equal(
+                "blur_pool3_s2_fwd", shape, case, got, kblur.blur_pool_reference(x, pad_top=0)))
+            assert _route_of("fwd", before) == route, (shape, case)
+            g = _nchw_input((n, (h - 1) // 2, (w + 1) // 2, c), dtype, gen, offset)
+            before = dict(kblur.ROUTES)
+            got = kblur.blur_pool_bwd_cuda(g, (h, w), pad_top=0)
+            torch.cuda.synchronize()
+            errs["bwd"] = max(errs["bwd"], _check_equal(
+                "blur_pool3_s2_bwd", shape, case, got,
+                kblur.blur_pool_bwd_reference(g, (h, w), pad_top=0)))
+            assert _route_of("bwd", before) == route, (shape, case)
+            emit("kernel_route", kernel="fwd, bwd", shape=list(shape), case=case, route=route,
+                 expected=route, ok=True)
+            if offset or h % 2 == 0:
+                continue
+            # the second of two shards of a map of 2 * (h - 1) rows: its rows
+            # are the unsharded kernel's
+            full = _nchw_input((n, 2 * (h - 1), w, c), dtype, gen)
+            shard = full[:, :, h - 2:].contiguous(memory_format=torch.channels_last)
+            _check_equal("blur_pool3_s2_fwd", shape, f"{dtype}, pad_top 0 vs unsharded rows",
+                         kblur.blur_pool_cuda(shard, pad_top=0),
+                         kblur.blur_pool_cuda(full)[:, :, (h - 1) // 2:])
+    for h, w, bs, row0, rows in SPATIAL_MASK_WINDOWS:
+        for gamma in GAMMAS[1:]:
+            seeds = _seeds(TIME_BATCH, gen)
+            window = dict(row0=row0, h_global=h)
+            mask, counts = kdrop.dropblock_mask_cuda(seeds, gamma, rows, w, bs, **window)
+            whole, _ = kdrop.dropblock_mask_cuda(seeds, gamma, h, w, bs)
+            torch.cuda.synchronize()
+            want_m, want_c = kdrop.dropblock_mask_reference(seeds, gamma, rows, w, bs, **window)
+            shape, case = (TIME_BATCH, h, w, bs), f"rows {row0}-{row0 + rows - 1}, gamma={gamma}"
+            errs["mask"] = max(errs["mask"], _check_equal(
+                "dropblock_mask", shape, case, mask, want_m),
+                _check_equal("dropblock_mask.counts", shape, case, counts, want_c))
+            _check_equal("dropblock_mask", shape, f"{case}, vs the whole map's rows", mask,
+                         whole[:, row0:row0 + rows].contiguous())
+    for (shape, hg), offset in [(s, 0) for s in SPATIAL_APPLY_SHAPES] + [
+            (((4, 15, 17, 6), 30), 0), ((APPLY_MISALIGNED_SHAPE, 28), 1)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, _, mask, counts = _apply_inputs(shape, dtype, gen, offset)
+            # the global batch: (D, S) = (2, 2), the other data shard's counts
+            counts = torch.cat([counts, counts.flip(0)]) * 2
+            numel = 4 * x.numel()
+            case = f"{dtype}, global counts" + (f", offset {offset}" if offset else "")
+            for backward in (False, True):
+                ref = (kdrop.dropblock_apply_bwd_reference if backward
+                       else kdrop.dropblock_apply_reference)
+                got = kdrop.dropblock_apply_cuda(x, mask, counts, backward=backward, numel=numel)
+                torch.cuda.synchronize()
+                errs["apply"] = max(errs["apply"], _check_equal(
+                    f"dropblock_apply_{'bwd' if backward else 'fwd'}", shape, case, got,
+                    ref(x, mask, counts, numel), bits=True))
+
+
+def _spatial_launches(fwd, bwd, sites):
+    """Expected counts on a spatial path: BlurPool with top padding 0
+    forward and backward, and per DropBlock site the windowed mask, the
+    forward apply and the apply backward; no fused kernel."""
+    return {"fwd": fwd, "bwd": bwd, "mask": sites, "apply": sites, "apply_bwd": sites,
+            "fused": 0}
+
+
+def _spatial_parity_rank(rank, world, coordinator, workdir):
+    """One rank of ``spatial_parity`` on card ``rank`` over NCCL: the
+    spatial step from the payload's state, then the eval on its batch."""
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, set_fp32_precision
+    from axcnn_torch.parallel import mesh
+    from axcnn_torch.parallel.spatial import make_spatial_context
+    from axcnn_torch.train.train_step import create_train_state, make_eval_step
+
+    set_fp32_precision(DEFAULT_POLICY)
+    device = torch.device("cuda", rank)
+    mesh.init_distributed(device, rank=rank, world_size=world, coordinator=coordinator)
+    try:
+        ctx = make_spatial_context(world)
+        payload = torch.load(os.path.join(workdir, "spatial_in.pt"), weights_only=False)
+        cfg = _assembled_cfg()
+        state = create_train_state(cfg, generator=torch.Generator(), device=device)
+        state.model.load_state_dict(payload["model"])
+        state.velocity = {k: v.to(device) for k, v in payload["velocity"].items()}
+        state.ema = {k: v.to(device) for k, v in payload["ema"].items()}
+        state.step = payload["step"]
+        batch = {k: v.to(device) for k, v in payload["batch"].items()}
+        group = mesh.data_group()
+        _zero_counts()
+        state, metrics = _parity_step(cfg, group=group, spatial=ctx)(state, batch, SEED + 1)
+        ev = make_eval_step(cfg, use_ema=True, group=group, spatial=ctx)(state, batch)
+        torch.cuda.synchronize()
+        out = {"params": {k: p.detach().cpu() for k, p in state.model.named_parameters()},
+               "buffers": {k: b.cpu() for k, b in state.model.named_buffers()},
+               "metrics": {k: float(v) for k, v in metrics.items()},
+               "eval": {k: float(v) for k, v in ev.items()}, "launches": _counts()}
+    finally:
+        mesh.shutdown()
+    torch.save(out, os.path.join(workdir, f"spatial_rank{rank}.pt"))
+
+
+def _parity_step(cfg, **kw):
+    """``spatial_parity``'s step: step 5 of 10 (keep-prob 0.95), mixup,
+    label smoothing; ``kw`` passes the policy, the group, the context."""
+    from axcnn_torch.train.schedules import make_lr_schedule
+    from axcnn_torch.train.train_step import make_train_step
+
+    n = SPATIAL_PARITY_BATCH
+    return make_train_step(
+        cfg, lr_schedule=make_lr_schedule(base_lr=0.1 * n / 256, total_steps=10,
+                                          warmup_steps=2),
+        total_steps=10, label_smoothing=0.1, mixup_alpha=0.2, **kw)
+
+
+def spatial_parity_phase(smi, tmp):
+    """One spatial step on two cards against the one-card step and the
+    CPU's float64 step (module docstring, 33). At batch 4 two fp32 runs lie
+    ~1e-2 apart per leaf (ReLU and max-pool ties flip), so, as in
+    ``train_parity``, the spatial step must be as near the float64 step as
+    the one-card step is: loss within 1e-4 of it, the parameters' updates
+    and the BN statistics no more than 3x the one-card step's distance
+    (median and worst leaf)."""
+    import torch.multiprocessing as mp
+
+    from axcnn_torch.cli.main_classification import _free_port
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, Policy, set_fp32_precision
+    from axcnn_torch.train.train_step import create_train_state, make_eval_step
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("spatial_parity", ran=False, reason=f"{cards} card")
+        return None
+    set_fp32_precision(DEFAULT_POLICY)
+    n, size = SPATIAL_PARITY_BATCH, SPATIAL_PARITY_SIZE
+    cfg = _assembled_cfg()
+    cpu = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
+                             device="cpu", use_ema=True)
+    _perturb_bn(cpu.model, SEED)
+    cpu.step = 5
+    rng = np.random.default_rng(SEED + 5)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (n, size, size, 3),
+                                                     dtype=np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, 1001, n).astype(np.int64))}
+    old = {k: p.detach().clone() for k, p in cpu.model.named_parameters()}
+    old_bn = {k: b.clone() for k, b in cpu.model.named_buffers()}
+    torch.save({"model": cpu.model.state_dict(), "velocity": cpu.velocity, "ema": cpu.ema,
+                "step": cpu.step, "batch": batch}, os.path.join(tmp, "spatial_in.pt"))
+
+    card = _state_copy(cpu, "cuda")
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    card, m_card = _parity_step(cfg)(card, card_batch, SEED + 1)
+    ev_card = {k: float(v) for k, v in make_eval_step(cfg, use_ema=True)(card, card_batch).items()}
+    single = {k: p.detach().cpu() for k, p in card.model.named_parameters()}
+    single_bn = {k: b.cpu() for k, b in card.model.named_buffers()}
+    del card, card_batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mp.start_processes(_spatial_parity_rank, nprocs=2, start_method="spawn",
+                       args=(2, f"127.0.0.1:{_free_port()}", tmp))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"spatial_rank{r}.pt")) for r in range(2)]
+    sp = ranks[0]
+
+    cpu64 = _state_copy(cpu, "cpu")
+    cpu64.model.double()
+    cpu64.velocity = {k: v.double() for k, v in cpu64.velocity.items()}
+    cpu64.ema = {k: v.double() for k, v in cpu64.ema.items()}
+    to_float = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        cpu64, m_64 = _parity_step(cfg, policy=Policy(torch.float64, torch.float64))(
+            cpu64, batch, SEED + 1)
+    finally:
+        torch.Tensor.float = to_float
+    ref = {k: p.detach() for k, p in cpu64.model.named_parameters()}
+    ref_bn = {k: b for k, b in cpu64.model.named_buffers()}
+
+    med = lambda e: float(np.median(list(e.values())))  # noqa: E731
+    e_sp, e_one = _update_errors(old, sp["params"], ref), _update_errors(old, single, ref)
+    b_sp, b_one = (_update_errors(old_bn, sp["buffers"], ref_bn),
+                   _update_errors(old_bn, single_bn, ref_bn))
+    e_pair = _update_errors(old, sp["params"], single)
+    loss64 = m_64["loss"].item()
+    loss_rel = abs(sp["metrics"]["loss"] - loss64) / abs(loss64)
+    tol = dict(loss_rel=1e-4, median_vs_one_card=3.0, worst_vs_one_card=3.0)
+    want = _spatial_launches(3, 3, 9)
+    eval_equal = all(sp["eval"][k] == ev_card[k] for k in ("count", "top1", "top5"))
+    ok = (loss_rel <= tol["loss_rel"]
+          and med(e_sp) <= tol["median_vs_one_card"] * med(e_one)
+          and max(e_sp.values()) <= tol["worst_vs_one_card"] * max(e_one.values())
+          and max(b_sp.values()) <= tol["worst_vs_one_card"] * max(b_one.values())
+          and all(r["params"][k].equal(sp["params"][k]) for r in ranks for k in sp["params"])
+          and eval_equal and sp["eval"]["count"] == n
+          and all(r["launches"] == {**want, "fwd": 6} for r in ranks))
+    emit("spatial_parity", ran=True, ranks=2, grid="D1xS2", backend="nccl", batch=n,
+         image_size=size, dtype="fp32", tf32=False, loss_spatial=sp["metrics"]["loss"],
+         loss_one_card=m_card["loss"].item(), loss_fp64=loss64, loss_rel_spatial_vs_fp64=loss_rel,
+         mixup_lam=sp["metrics"].get("mixup_lam"),
+         spatial_vs_fp64={"median": med(e_sp), "worst": max(e_sp.values()),
+                          "worst_leaf": max(e_sp, key=e_sp.get)},
+         one_card_vs_fp64={"median": med(e_one), "worst": max(e_one.values())},
+         spatial_vs_one_card={"median": med(e_pair), "worst": max(e_pair.values())},
+         bn_spatial_vs_fp64={"median": med(b_sp), "worst": max(b_sp.values())},
+         bn_one_card_vs_fp64={"median": med(b_one), "worst": max(b_one.values())},
+         eval_spatial=sp["eval"], eval_one_card=ev_card, eval_counts_equal=eval_equal,
+         launches_per_rank=[r["launches"] for r in ranks],
+         expected={**want, "fwd": 6}, tolerance=tol, ranks_seconds=ranks_s, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("spatial_parity phase failed")
+    return sp["launches"]
+
+
+def _spatial_cli_rank(rank, world, coordinator, argv, workdir):
+    """One rank of the training CLI, as ``main_classification`` starts it
+    (its card, the process group, the run), that also keeps its card's peak
+    memory and its kernels' launches."""
+    from axcnn_torch.cli import main_classification
+    from axcnn_torch.parallel import mesh
+    from axcnn_torch.train.loop import resolve_device
+    from axcnn_torch.utils.config import parse_cli
+
+    cfg = parse_cli(argv)
+    device = resolve_device(cfg.runtime.platform, rank)
+    mesh.init_distributed(device, rank=rank, world_size=world, coordinator=coordinator)
+    try:
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            metrics = main_classification._run(cfg, local_rank=rank)
+        torch.cuda.synchronize(device)
+        out = {"metrics": metrics, "launches": _counts(), "routes": dict(kblur.ROUTES),
+               "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
+    finally:
+        mesh.shutdown()
+    with open(os.path.join(workdir, f"cli_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def spatial_448_phase(smi, tmp):
+    """``finetune_fgvc`` at 448x448 (module docstring, 34). Returns the
+    launches by path."""
+    import torch.multiprocessing as mp
+
+    from axcnn_torch.cli.main_classification import _free_port
+
+    def argv(batch, run_dir, *extra):
+        return ["--config=finetune_fgvc", "--data.use_synthetic_data",
+                f"--data.image_size={SPATIAL_SIZE}", f"--train.train_steps={SPATIAL_STEPS}",
+                f"--train.batch_size={batch}", "--train.log_every=1",
+                f"--runtime.model_dir={os.path.join(tmp, run_dir)}", *extra]
+
+    def summary(records):
+        train = [r for r in records if r["tag"] == "train"]
+        walls = _step_walls(train)
+        return train, dict(losses=[r["loss"] for r in train],
+                           mean_step_ms=float(walls.mean()) * 1e3,
+                           step_ms_min=float(walls.min()) * 1e3,
+                           step_ms=[w * 1e3 for w in walls])
+
+    paths = {}
+    b1 = SPATIAL_BATCHES[0]
+    metrics, counts, seconds, peak, records = _run_cli(
+        argv(b1, "s448_one", "--runtime.num_devices=1"))
+    train, one = summary(records)
+    want = _launches(3 * SPATIAL_STEPS + 3 * 4, 3 * SPATIAL_STEPS, 9 * SPATIAL_STEPS)
+    ok = (len(train) == SPATIAL_STEPS and all(np.isfinite(one["losses"])) and counts == want)
+    one.update(peak_gib=peak / 2 ** 30, img_per_s=b1 / (one["mean_step_ms"] / 1e3))
+    emit("spatial_448", part="one card", image_size=SPATIAL_SIZE, batch=b1, dtype="bf16",
+         steps=SPATIAL_STEPS, **one, launches=counts, expected=want, eval=metrics,
+         seconds=seconds, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError("spatial_448 (one card) failed")
+    paths["spatial_448_one_card"] = counts
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("spatial_448", part="two cards", ran=False, reason=f"{cards} card")
+        return paths
+    for batch in SPATIAL_BATCHES:
+        run = f"s448_s2_b{batch}"
+        args = argv(batch, run, "--runtime.num_devices=2", "--runtime.spatial_partitions=2")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.start_processes(_spatial_cli_rank, nprocs=2, start_method="spawn",
+                           args=(2, f"127.0.0.1:{_free_port()}", args, tmp))
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"cli_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        with open(os.path.join(tmp, run, "metrics.jsonl")) as f:
+            train, two = summary([json.loads(line) for line in f])
+        want = _spatial_launches(3 * SPATIAL_STEPS + 3 * 4, 3 * SPATIAL_STEPS,
+                                 9 * SPATIAL_STEPS)
+        peaks = [r["peak_gib"] for r in ranks]
+        ok = (len(train) == SPATIAL_STEPS and all(np.isfinite(two["losses"]))
+              and all(r["launches"] == want for r in ranks)
+              and ranks[0]["metrics"]["count"] == 4 * batch
+              and not any(r["routes"]["fwd_thread"] or r["routes"]["bwd_thread"] for r in ranks))
+        emit("spatial_448", part="two cards", ran=True, grid="D1xS2", backend="nccl",
+             image_size=SPATIAL_SIZE, batch=batch, dtype="bf16", steps=SPATIAL_STEPS, **two,
+             img_per_s=batch / (two["mean_step_ms"] / 1e3), peak_gib_per_card=peaks,
+             peak_over_one_card_b128=[p / one["peak_gib"] for p in peaks],
+             launches_per_rank=[r["launches"] for r in ranks], expected=want,
+             routes=ranks[0]["routes"], eval=ranks[0]["metrics"], seconds=seconds, card=smi,
+             ok=ok)
+        if not ok:
+            raise AssertionError(f"spatial_448 (two cards, b{batch}) failed")
+        paths[f"spatial_448_s2_b{batch}"] = ranks[0]["launches"]
+    return paths
+
+
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
     ("fwd", ("fwd",), "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
@@ -2617,6 +3007,7 @@ def main():
     smi = device_phase()
     build_phase()
     errs = kernel_check_phase()
+    spatial_kernel_check_phase(errs)
     paths = {"big_sites": big_sites_phase(errs)}
     times = kernel_time_phase(errs)
     paths["serve"] = serve_phase()
@@ -2650,6 +3041,10 @@ def main():
             smi, import_dir, tmp)
         paths["fgvc_finetune"] = fgvc_finetune_phase(smi, import_dir, imported, tmp)
         dp_nccl_phase(smi, tmp, single)
+        parity = spatial_parity_phase(smi, tmp)
+        if parity is not None:
+            paths["spatial_parity"] = parity
+        paths.update(spatial_448_phase(smi, tmp))
     for _, keys, name, *_ in KERNELS:
         for k in keys:
             if not any(counts[k] for counts in paths.values()):

@@ -809,3 +809,86 @@ def test_int8_card_route_matches_plain_on_card(shape):
     torch.cuda.synchronize()
     assert kconv.INT8_MM_CALLS == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# spatial partitioning: BlurPool with top padding 0, the windowed mask, the
+# apply with the global batch's counts
+# ---------------------------------------------------------------------------
+
+def test_spatial_kernel_arguments_are_refused_on_the_cpu():
+    """The wrappers refuse a top padding other than 0 or 1 and a window
+    outside its map before they touch a device or the library."""
+    x = _nchw((2, 9, 8, 8), 40)
+    with pytest.raises(ValueError, match="pad_top must be 0 or 1"):
+        kblur.blur_pool_cuda(x, pad_top=2)
+    with pytest.raises(ValueError, match="pad_top must be 0 or 1"):
+        kblur.blur_pool_bwd_cuda(x, (18, 16), pad_top=-1)
+    with pytest.raises(ValueError, match="are not rows of a map of 14"):
+        kdrop.dropblock_mask_reference(torch.zeros(2, dtype=torch.int32), 0.1, 7, 14, 7,
+                                       row0=8, h_global=14)
+    with pytest.raises(ValueError, match="block_size must be in"):
+        kdrop.dropblock_mask_reference(torch.zeros(2, dtype=torch.int32), 0.1, 4, 14, 7,
+                                       row0=0, h_global=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 57, 112, 128), (2, 15, 28, 512), (3, 9, 17, 96),
+                                   (3, 15, 17, 6), (1, 8, 9, 64)])
+def test_pad_top_zero_kernels_match_plain_on_card(shape, dtype):
+    """Top padding 0 (a shard with its halo row on top), both directions and
+    both routes, bit for bit against the plain versions; where the rows are
+    an even shard's and its halo row, the forward's rows are the unsharded
+    kernel's."""
+    _cuda()
+    n, h, w, c = shape
+    x = _nchw(shape, 41, "cuda", dtype).contiguous(memory_format=torch.channels_last)
+    for kind in ("fwd", "bwd"):
+        before = dict(kblur.ROUTES)
+        if kind == "fwd":
+            got, want = kblur.blur_pool_cuda(x, pad_top=0), kblur.blur_pool_reference(x, 0)
+        else:
+            g = _nchw((n, (h - 1) // 2, (w + 1) // 2, c), 42, "cuda", dtype)
+            got = kblur.blur_pool_bwd_cuda(g, (h, w), pad_top=0)
+            want = kblur.blur_pool_bwd_reference(g, (h, w), pad_top=0)
+        torch.cuda.synchronize()
+        assert _route_launched(kind, before) == ("tma" if _tma_legal(c, dtype) else "thread")
+        assert torch.equal(got, want), kind
+    if h % 2:  # a shard of h - 1 (even) rows and its halo row: the second of two
+        full = _nchw((n, 2 * (h - 1), w, c), 43, "cuda", dtype)
+        shard = full[:, :, h - 2:].contiguous(memory_format=torch.channels_last)
+        assert torch.equal(kblur.blur_pool_cuda(shard, pad_top=0),
+                           kblur.blur_pool_cuda(full)[:, :, (h - 1) // 2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,bs,row0,rows", [(28, 28, 7, 14, 14), (14, 14, 7, 7, 7),
+                                              (28, 28, 5, 9, 7), (160, 160, 7, 40, 80)])
+def test_windowed_mask_kernel_matches_plain_on_card(h, w, bs, row0, rows):
+    _cuda()
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (16,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(44)).cuda()
+    window = dict(row0=row0, h_global=h)
+    mask, counts = kdrop.dropblock_mask_cuda(seeds, 0.05, rows, w, bs, **window)
+    whole, _ = kdrop.dropblock_mask_cuda(seeds, 0.05, h, w, bs)
+    want_m, want_c = kdrop.dropblock_mask_reference(seeds, 0.05, rows, w, bs, **window)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, want_m) and torch.equal(counts, want_c)
+    assert torch.equal(mask, whole[:, row0:row0 + rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backward", [False, True])
+def test_apply_with_global_counts_matches_plain_on_card(dtype, backward):
+    _cuda()
+    x = _nchw((4, 7, 14, 64), 45, "cuda", dtype).contiguous(memory_format=torch.channels_last)
+    seeds = torch.arange(4, dtype=torch.int32, device="cuda")
+    mask, counts = kdrop.dropblock_mask_cuda(seeds, 0.1, 7, 14, 5, row0=7, h_global=14)
+    counts = torch.cat([counts, counts + 3.0, counts])  # three data shards' counts
+    numel = 6 * x.numel()
+    ref = kdrop.dropblock_apply_bwd_reference if backward else kdrop.dropblock_apply_reference
+    got = kdrop.dropblock_apply_cuda(x, mask, counts, backward=backward, numel=numel)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(ref(x, mask, counts, numel)))

@@ -108,16 +108,29 @@ def test_cli_trains_on_tfrecords(producers, tmp_path):
     assert [r["tag"] for r in _records(model_dir)] == ["train", "eval"]
 
 
-# one command-line flag for each entry of the loop's lists of refusals
+SPATIAL = "--runtime.spatial_partitions=2"
+# the command-line flags for each entry of the loop's lists of refusals
 REFUSED_FLAGS = {
-    "runtime.spatial_partitions > 1": "--runtime.spatial_partitions=2",
-    "runtime.dcn_slices > 1": "--runtime.dcn_slices=2",
+    "runtime.spatial_partitions > 1 with Big-Little stages":
+        (SPATIAL, "--model.bl_alpha=2", "--model.bl_beta=4"),
+    "runtime.spatial_partitions > 1 with model.remat": (SPATIAL, "--model.remat=blocks"),
+    "runtime.spatial_partitions > 1 with train.dtype=int8": (SPATIAL, "--train.dtype=int8"),
+    "runtime.spatial_partitions > 1 with data.autoaugment_device":
+        (SPATIAL, "--data.autoaugment_device"),
+    "runtime.spatial_partitions > 1 with train.kd_teacher_checkpoint":
+        (SPATIAL, "--train.kd_teacher_checkpoint=/nonexistent"),
+    "runtime.spatial_partitions > 1 with train.grad_accum_steps > 1":
+        (SPATIAL, "--train.grad_accum_steps=2"),
+    "runtime.spatial_partitions > 1 with runtime.eval_imagenet_c":
+        (SPATIAL, "--runtime.eval_imagenet_c"),
+    "runtime.dcn_slices > 1": ("--runtime.dcn_slices=2",),
 }
 # options that were refused until ported; the loop now takes each
 PORTED_FLAGS = {
     "data.autoaugment_device": "--data.autoaugment_device",
     "runtime.export_dir": "--runtime.export_dir=/nonexistent",
     "runtime.eval_imagenet_c": "--runtime.eval_imagenet_c",
+    "runtime.spatial_partitions": SPATIAL,
 }
 
 
@@ -130,7 +143,7 @@ def test_unported_option_is_refused(what, tmp_path):
     """Not ported yet: the ROADMAP item; refused by design (``REFUSED``):
     the reason, which names its ROADMAP item too."""
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        tcli.main([*SMALL, "--runtime.platform=cpu", REFUSED_FLAGS[what],
+        tcli.main([*SMALL, "--runtime.platform=cpu", *REFUSED_FLAGS[what],
                    f"--runtime.model_dir={tmp_path}"])
     if what in {w for w, _, _ in UNPORTED}:
         item = {w: i for w, i, _ in UNPORTED}[what]
@@ -144,11 +157,43 @@ def test_unported_option_is_refused(what, tmp_path):
 
 @pytest.mark.parametrize("what", sorted(PORTED_FLAGS))
 def test_ported_option_is_not_refused(what):
-    """Options once refused until ported now pass the loop's check; only
-    spatial partitioning is left unported."""
+    """Options once refused until ported now pass the loop's check; what is
+    left unported is spatial partitioning combined with another option."""
     cfg = parse_cli([*SMALL, "--runtime.platform=cpu", PORTED_FLAGS[what]])
     check_ported(cfg)
-    assert [w for w, _, _ in UNPORTED] == ["runtime.spatial_partitions > 1"]
+    assert UNPORTED and all(w.startswith("runtime.spatial_partitions > 1 with ")
+                            for w, _, _ in UNPORTED)
+
+
+def test_cli_trains_spatially_partitioned_on_two_cpu_ranks(tmp_path):
+    """``--runtime.spatial_partitions=2`` on the CPU: two Gloo ranks split
+    each image's H (128 rows: 64 a rank), train two steps with finite
+    losses and evaluate, each eval image counted once."""
+    model_dir = str(tmp_path / "run")
+    metrics = tcli.main([
+        "--config=assemble_resnet50", "--data.use_synthetic_data", "--train.train_steps=2",
+        "--train.batch_size=4", "--data.image_size=128", "--model.width_multiplier=0.125",
+        "--train.log_every=1", "--runtime.platform=cpu", SPATIAL,
+        f"--runtime.model_dir={model_dir}"])
+    train = [r for r in _records(model_dir) if r["tag"] == "train"]
+    assert [r["step"] for r in train] == [1, 2]
+    assert all(torch.isfinite(torch.tensor(r["loss"])) for r in train)
+    assert metrics["count"] == 4 * 4  # the synthetic eval set: 4 batches of 4
+
+
+@pytest.mark.parametrize("flags,match", [
+    (("--data.image_size=96",), r"H % \(32\*S\) == 0 and H / \(32\*S\) >= 2"),
+    (("--data.image_size=128", "--runtime.num_devices=3"), "3 devices not divisible by spatial=2"),
+])
+def test_spatial_layout_it_cannot_take_is_refused(flags, match, tmp_path):
+    """Refused before any rank starts: an image the shard rule cannot
+    split, and ranks the spatial partitions do not divide."""
+    with pytest.raises(ValueError, match=match):
+        tcli.main(["--config=assemble_resnet50", "--data.use_synthetic_data",
+                   "--train.batch_size=4", "--model.width_multiplier=0.125",
+                   "--runtime.platform=cpu", SPATIAL, *flags,
+                   f"--runtime.model_dir={tmp_path}"])
+    assert not os.listdir(tmp_path)
 
 
 def test_unknown_platform_is_refused(tmp_path):
