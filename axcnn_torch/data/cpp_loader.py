@@ -6,30 +6,73 @@ order, determinism and checkpoint state (cheap, already golden-tested);
 C++ owns Example parse + JPEG decode + crop/resize/flip (the CPU-hot path),
 multithreaded and GIL-free (ctypes releases the GIL for the call).
 
-The library is built on demand by ``cpp/build.sh`` (g++ + libjpeg, both in
-the image); set ``AXCNN_NO_CPP=1`` to force the PIL path.
-
-The port's own copy of ``axcnn/data/cpp_loader.py``, unchanged, so that the port runs
-without the JAX package installed.
+The port's own copy of ``axcnn/data/cpp_loader.py``, so that the port runs
+without the JAX package installed, with its own build. The reference's
+``cpp/build.sh`` links the system's libjpeg, whose headers or library a
+host may lack (a CUDA host with Pillow's wheel has neither). The port
+compiles the same sources, ``cpp/loader.cpp`` and ``cpp/autoaugment.cpp``,
+with the same flags, against the libjpeg that Pillow decodes with (the one
+its ``_imaging`` module loaded: the wheel's own copy, ABI 62) and the
+libjpeg-turbo headers of that ABI kept in ``axcnn_torch/data/libjpeg/``,
+into ``axcnn_torch/build/libaxcnn_loader.so`` at first use. A failed build
+raises ``RuntimeError`` with the compiler's stderr, and the first load
+decodes a probe JPEG and holds it to Pillow's pixels (the same library, so
+bit for bit); nothing falls back to another decoder. Set
+``AXCNN_NO_CPP=1`` to refuse the native path, or ``AXCNN_LOADER_SO`` to
+load another build (a sanitizer build of ``cpp/build.sh``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import io
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
 _LIB = None
-_CPP_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "cpp")
-_SO_PATH = os.path.join(_CPP_DIR, "build", "libaxcnn_loader.so")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CPP_DIR = os.path.join(os.path.dirname(_PKG), "cpp")
+_INCLUDE = os.path.join(_PKG, "data", "libjpeg")
+_SO_PATH = os.path.join(_PKG, "build", "libaxcnn_loader.so")
+_CXXFLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-Wall")
+
+
+def pillow_libjpeg() -> str:
+    """The path of the libjpeg that Pillow's ``_imaging`` module loaded."""
+    from PIL import _imaging  # noqa: F401 - loads Pillow's libjpeg
+
+    with open("/proc/self/maps") as f:
+        for line in f:
+            path = line.split()[-1]
+            if os.path.basename(path).startswith("libjpeg") and os.path.isfile(path):
+                return path
+    raise RuntimeError("Pillow's libjpeg is not loaded in this process: the native "
+                       "loader links the libjpeg Pillow decodes with")
 
 
 def _build():
-    subprocess.run(["bash", os.path.join(_CPP_DIR, "build.sh")],
-                   check=True, capture_output=True)
+    """Compile the native loader into ``_SO_PATH`` (through a temporary name,
+    so that concurrent builds never load a partial library)."""
+    libjpeg = pillow_libjpeg()
+    os.makedirs(os.path.dirname(_SO_PATH), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(_SO_PATH), suffix=".so")
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            ["g++", *_CXXFLAGS, f"-I{_INCLUDE}", os.path.join(_CPP_DIR, "loader.cpp"),
+             os.path.join(_CPP_DIR, "autoaugment.cpp"), "-o", tmp, libjpeg,
+             f"-Wl,-rpath,{os.path.dirname(libjpeg)}", "-lpthread"],
+            capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"the native loader's build failed (g++ exit "
+                               f"{proc.returncode}): {proc.stderr.strip()[:4000]}")
+        os.replace(tmp, _SO_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 _ABI_VERSION = 3
@@ -67,7 +110,6 @@ def get_lib():
         tmp = None
         if private_copy:
             import shutil
-            import tempfile
 
             fd, tmp = tempfile.mkstemp(prefix="axcnn_loader_", suffix=".so")
             os.close(fd)
@@ -82,12 +124,19 @@ def get_lib():
         handle.axcnn_version.restype = ctypes.c_int
         return handle
 
-    lib = _load(so_path, private_copy=so_path == _SO_PATH)
+    try:
+        lib = _load(so_path, private_copy=so_path == _SO_PATH)
+    except OSError:
+        if so_path != _SO_PATH:
+            raise
+        # a build from another host (its libjpeg elsewhere): build afresh
+        _build()
+        lib = _load(so_path, private_copy=True)
     if lib.axcnn_version() != _ABI_VERSION:
         if so_path != _SO_PATH:
             raise RuntimeError(
                 f"{so_path} has loader ABI {lib.axcnn_version()}, expected "
-                f"{_ABI_VERSION} — rebuild it with cpp/build.sh")
+                f"{_ABI_VERSION} — rebuild it")
         # stale default build from an older checkout: rebuild (safe — the
         # live mapping is the private copy, not the build output)
         _build()
@@ -120,7 +169,29 @@ def get_lib():
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     _LIB = lib
+    try:
+        _check_decode()
+    except BaseException:
+        _LIB = None
+        raise
     return lib
+
+
+def _check_decode() -> None:
+    """Decode a probe JPEG natively and hold it to Pillow's decode."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)).save(
+        buf, "JPEG", quality=90)
+    want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+    try:
+        same = np.array_equal(decode_jpeg_native(buf.getvalue(), max_side=64), want)
+    except ValueError:  # the decoder refused the probe
+        same = False
+    if not same:
+        raise RuntimeError("the native loader does not decode a probe JPEG as Pillow does: "
+                           f"is its libjpeg of another ABI than {_INCLUDE}'s headers?")
 
 
 def available() -> bool:

@@ -1,0 +1,160 @@
+"""What the library drives share: the device, the native loader they all
+require, the step loop and the held-out eval."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from axcnn_torch.ckpt.checkpoint import CheckpointManager
+from axcnn_torch.core.dtypes import BF16_POLICY
+from axcnn_torch.data import cpp_loader
+from axcnn_torch.data.pipeline import DevicePrefetch, TFRecordImageLoader
+from axcnn_torch.train.loop import evaluate
+from axcnn_torch.train.train_step import create_train_state, make_eval_step
+
+POLICY = BF16_POLICY  # every drive trains and evaluates in bf16, as the reference's
+
+
+def resolve_device(device=None) -> torch.device:
+    """None: the CUDA card, and exit with a message when there is none;
+    otherwise ``device`` as given (``"cpu"`` for the host). Nothing falls
+    back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise SystemExit("error: no CUDA device; pass --cpu to run on the host CPU")
+        return torch.device("cuda", 0)
+    device = torch.device(device)
+    return torch.device("cuda", 0) if device.type == "cuda" and device.index is None else device
+
+
+def resize_min_for(image_size: int) -> int:
+    """The eval geometry's shorter side: 256 at 224, as in the reference,
+    and in the same ratio at the small sizes of a test."""
+    return image_size * 256 // 224
+
+
+def native_loader(data_dir, info, *, batch: int, image_size: int, train: bool,
+                  autoaugment_type: str = "none", seed: int = 0,
+                  resize_min: int | None = None) -> TFRecordImageLoader:
+    """The C++ loader (AutoAugment in its threads); raises when it is not
+    the path that decodes, never falls back to the Python one. A failed
+    build of ``cpp/`` raises with the build's stderr."""
+    loader = TFRecordImageLoader(
+        data_dir, info, batch_size=batch, train=train, image_size=image_size,
+        resize_min=resize_min_for(image_size) if resize_min is None else resize_min,
+        autoaugment_type=autoaugment_type, seed=seed, num_workers=os.cpu_count() or 4,
+        use_native=True, drop_remainder=train)
+    want = cpp_loader.AA_POLICIES[autoaugment_type] if train else -1
+    if not loader.native_active or loader._aa_policy != want:
+        raise RuntimeError(f"the native loader is not the decode path (native "
+                           f"{loader.native_active}, AutoAugment policy {loader._aa_policy}, "
+                           f"wanted {want})")
+    return loader
+
+
+def run_steps(step_fn, state, loader, steps: int, *, root_seed: int, device, label: str,
+              log_every: int, log=print) -> tuple:
+    """``steps`` steps of ``step_fn`` on ``loader``'s batches through a
+    ``DevicePrefetch`` of 2. Logs steps 1, every ``log_every``-th and the
+    last (each a host sync on the loss). Returns (state, record): the
+    logged losses, the wall seconds, the median gap between steps on the
+    host's clock (the step rate once the queue of launches is full) and
+    whether every step's loss was finite."""
+    it = DevicePrefetch(iter(loader), device=device, size=2)
+    losses, stamps, logged = [], [], []
+    try:
+        t0 = time.perf_counter()
+        for step in range(1, steps + 1):
+            state, m = step_fn(state, next(it), root_seed)
+            losses.append(m["loss"])
+            stamps.append(time.perf_counter())
+            if step % log_every == 0 or step in (1, steps):
+                loss = float(m["loss"])
+                logged.append([step, loss])
+                log(f"[{label}] step {step:4d}: loss={loss:.4f} "
+                    f"train_top1={float(m['train_top1']):.3f} lr={float(m['lr']):.4f}")
+        all_losses = torch.stack(losses).float().cpu()  # waits for the last step
+        wall = time.perf_counter() - t0
+    finally:
+        it.close()
+    gaps = np.diff(stamps)
+    record = {"steps": steps, "seconds": wall, "logged_loss": logged,
+              "median_step_ms": float(np.median(gaps)) * 1e3 if len(gaps) else None,
+              "all_finite": bool(torch.isfinite(all_losses).all())}
+    log(f"[{label}] {steps} steps in {wall:.1f}s")
+    return state, record
+
+
+def evaluate_split(cfg, state, data_dir, info, *, use_ema: bool, batch: int, image_size: int,
+                   device, resize_min: int | None = None) -> dict:
+    """The EMA-swapped (``use_ema``) or raw eval of ``info``'s eval split:
+    {'top1': %, 'top5': %, 'loss', 'count'}."""
+    eval_step = make_eval_step(cfg, policy=POLICY, use_ema=use_ema,
+                               mean_rgb=info.mean_rgb, stddev_rgb=info.stddev_rgb)
+    loader = native_loader(data_dir, info, batch=batch, image_size=image_size, train=False,
+                           resize_min=resize_min)
+    return evaluate(eval_step, state, loader, batch_size=batch, device=device)
+
+
+def cached_train(directory: str, cfg, steps: int, *, use_ema: bool, device, train_fn,
+                 label: str, log=print):
+    """The trained state kept in ``directory`` (a port checkpoint and its
+    ``model_config.json``), else ``train_fn()``'s, saved there. A kept
+    state must have been trained for ``steps`` steps under ``cfg``: another
+    one raises ``ValueError`` rather than stand in for it. Returns (state,
+    the step loop's record, or None when the state was restored)."""
+    mgr = CheckpointManager(directory, max_to_keep=1)
+    want = json.loads(json.dumps(dataclasses.asdict(cfg), default=str))
+    if mgr.latest_step() is not None:
+        if mgr.model_config() != want:
+            raise ValueError(f"{directory} holds a state of another model config: "
+                             f"{mgr.model_config()} (wanted {want})")
+        state = create_train_state(cfg, generator=torch.Generator().manual_seed(0),
+                                   device=device, use_ema=use_ema)
+        state = mgr.restore(state)[0]
+        if state.step != steps:
+            raise ValueError(f"{directory} holds a state trained for {state.step} steps, "
+                             f"not {steps}: use another root")
+        log(f"[{label}] restored cached state at step {state.step}")
+        return state, None
+    state, record = train_fn()
+    mgr = CheckpointManager(directory, max_to_keep=1, model_config=want)
+    mgr.save(state, force=True)
+    mgr.close()
+    return state, record
+
+
+def add_size_args(parser, *, steps: int, batch: int, image_size: int) -> None:
+    """The options every drive takes, with the reference's constants as
+    defaults: ``--steps``, ``--batch``, ``--image_size``, ``--width``, and
+    ``--cpu`` (the host CPU instead of the card) and ``--no-check`` (print
+    the summary without asserting the bars); no ``--steps`` when ``steps``
+    is None."""
+    if steps is not None:
+        parser.add_argument("--steps", type=int, default=steps)
+    parser.add_argument("--batch", type=int, default=batch)
+    parser.add_argument("--image_size", type=int, default=image_size)
+    parser.add_argument("--width", type=float, default=1.0, help="width multiplier")
+    parser.add_argument("--cpu", action="store_true", help="run on the host CPU")
+    parser.add_argument("--no-check", dest="check", action="store_false",
+                        help="do not assert the bars")
+
+
+def missing_keys(summary: dict, keys) -> list:
+    """The key paths of ``keys`` (``"raw/top1"``: key ``top1`` under
+    ``raw``) that ``summary`` lacks."""
+    missing = []
+    for path in keys:
+        node = summary
+        for part in path.split("/"):
+            if not isinstance(node, dict) or part not in node:
+                missing.append(path)
+                break
+            node = node[part]
+    return missing

@@ -190,7 +190,24 @@ points and checks them:
     launches of each kernel by path (BlurPool with top padding 0 3 + 3 a
     step, the windowed mask, the forward apply and the apply backward 9 each,
     no fused kernel). On a machine with one card the two-card parts print
-    ``"ran": false``.
+    ``"ran": false``;
+35. drive_convergence: ``axcnn_torch.drives.convergence`` at the reference's
+    full budget: config 4 (``bn_momentum`` 0.9, ``ema_decay`` 0.99) at full
+    width, b64, 224x224, bf16, 300 steps on 4 x 64 generated JPEGs through
+    the native loader with AutoAugment v0, then the raw and EMA evals; the
+    drive asserts the reference's bars (raw top-1 >= 90, EMA >= raw - 1);
+    the kernels 3 + 3 + 9 + 9 times a step and 3 BlurPool forwards an eval
+    batch, on the TMA route; the training wall and median step;
+36. drives_cut: ``convergence_full``, ``ablation`` and ``kd`` through their
+    entry points at full width, b64, 224x224, bf16, cut to ``CUT`` (steps,
+    images a class, 3 corruptions at one severity), the bars not asserted
+    (``"bars_asserted": false``): every leg runs, every logged loss is
+    finite, each summary has the reference's keys, the ablation restores
+    the pretrain, and the kernels launch as each leg's steps and evals say
+    (R152 students 3 + 3 + 39 + 39 a step, the KD student's teacher 3 more
+    forwards a step); the KD drive's CLI legs run in processes of their own,
+    which report their counts and whether they loaded a teacher (only the
+    KD student does).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the result line.
@@ -283,6 +300,12 @@ SPATIAL_APPLY_SHAPES = [((TIME_BATCH, 14, 28, 1024), 28), ((TIME_BATCH, 7, 14, 2
 SPATIAL_SIZE, SPATIAL_STEPS, SPATIAL_BATCHES = 448, 5, (128, 256)
 SPATIAL_PARITY_SIZE, SPATIAL_PARITY_BATCH = 128, 4
 L2_FLUSH_BYTES = 256 << 20  # timing inputs cycle through at least this much (H100 L2: 50 MB)
+# drives_cut: the three long drives through their entry points, cut to
+# these sizes, bars not asserted (drive_convergence runs at its full budget)
+CUT = dict(pretrain_steps=40, ft_steps=10, n_train=32, n_eval=8, ft_n_train=16, ft_n_eval=8,
+           corruptions=("gaussian_noise", "fog", "contrast"), severities=(2,),
+           teacher_steps=40, student_steps=10, n_subset=12, scale_n_train=12, scale_n_eval=2)
+DRIVE_BATCH = 64  # every drive's batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory bandwidth (datasheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (datasheet)
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: longer than enqueueing 50 calls
@@ -2989,6 +3012,168 @@ def spatial_448_phase(smi, tmp):
     return paths
 
 
+def _eval_batches(count):
+    return -(-int(count) // DRIVE_BATCH)
+
+
+def drive_convergence_phase(smi, tmp):
+    """``axcnn_torch.drives.convergence`` at the reference's full budget
+    (config 4 at full width, b64, 224x224, bf16, 300 steps on 4 x 64
+    generated JPEGs through the native loader with AutoAugment v0), its bars
+    asserted by the drive: raw top-1 >= 90, EMA >= raw - 1. The kernels
+    3 + 3 + 9 + 9 times a step, plus 3 BlurPool forwards an eval batch."""
+    from axcnn_torch.drives import convergence
+
+    lines = []
+    _zero_counts()
+    t0 = time.perf_counter()
+    summary = convergence.run(os.path.join(tmp, "drive_convergence"), device="cuda",
+                              log=lines.append)
+    seconds = time.perf_counter() - t0
+    counts, routes = _counts(), dict(kblur.ROUTES)
+    steps, train = summary["steps"], summary["train"]
+    evals = sum(_eval_batches(summary[k]["count"]) for k in ("raw", "ema"))
+    want = _launches(3 * steps + 3 * evals, 3 * steps, 9 * steps)
+    ok = (counts == want and train["all_finite"] and summary["native_loader"]
+          and not (routes["fwd_thread"] or routes["bwd_thread"]))
+    emit("drive_convergence", model="assemble_resnet50 (config 4, bn_momentum 0.9)",
+         batch=summary["batch"], image_size=summary["image_size"], dtype="bf16", steps=steps,
+         raw=summary["raw"], ema=summary["ema"], bars_asserted=True,
+         train_s=train["seconds"], median_step_ms=train["median_step_ms"],
+         logged_loss=train["logged_loss"], native_loader=summary["native_loader"],
+         launches_per_step={k: (v - (3 * evals if k == "fwd" else 0)) / steps
+                            for k, v in counts.items()},
+         launches=counts, expected=want, routes=routes, seconds=seconds, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"drive_convergence: launches {counts}, expected {want}")
+    return counts
+
+
+# the training CLI of a KD-drive leg, counting the kernels' launches and the
+# teacher it loaded into <model_dir>/kernel_counts.json
+_COUNTING_CLI = """
+import json, os, sys
+from axcnn_torch.kernels import blurpool as kblur, dropblock as kdrop
+from axcnn_torch.train import loop
+loaded = []
+_load = loop._load_teacher
+def _counted(cfg, device):
+    teacher = _load(cfg, device)
+    loaded.append(teacher is not None)
+    return teacher
+loop._load_teacher = _counted
+from axcnn_torch.cli import main_classification
+main_classification.main(sys.argv[1:])
+model_dir = next(a.split("=", 1)[1] for a in sys.argv if a.startswith("--runtime.model_dir="))
+with open(os.path.join(model_dir, "kernel_counts.json"), "w") as f:
+    json.dump({"counts": {"fwd": kblur.LAUNCHES, "bwd": kblur.BWD_LAUNCHES,
+                          "mask": kdrop.LAUNCHES, "apply": kdrop.APPLY_LAUNCHES,
+                          "apply_bwd": kdrop.APPLY_BWD_LAUNCHES, "fused": kdrop.FUSED_LAUNCHES},
+               "teacher_loaded": loaded}, f)
+"""
+
+
+def _add(total, counts):
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+def drives_cut_phase(smi, tmp):
+    """``convergence_full``, ``ablation`` and ``kd`` through their entry
+    points (``main(argv)``) on the card, at full width, 224x224, b64, bf16,
+    cut to ``CUT``'s steps and image counts, the bars not asserted. Each leg
+    runs (the ablation restores ``convergence_full``'s pretrain), every
+    logged loss is finite, each summary has the reference's keys, and the
+    kernels launch as each leg's steps and evals say: R50 legs 3 + 3 + 9 + 9
+    a step, R152 students 3 + 3 + 39 + 39, the KD student 3 more BlurPool
+    forwards a step for its teacher, 3 a forward in every eval batch. The KD
+    legs are subprocesses (the literal CLI), run through ``_COUNTING_CLI``:
+    only the KD student loaded a teacher."""
+    from axcnn_torch.drives import ablation, common, convergence_full, kd
+
+    c = CUT
+    root = os.path.join(tmp, "drives_cut")
+    out, result, total = io.StringIO(), {}, {}
+    t_start = time.perf_counter()
+
+    def drive(name, module, argv, want):
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            summary = module.main([*argv, "--no-check"])
+        counts = _counts()
+        missing = common.missing_keys(summary, module.SUMMARY_KEYS)
+        result[name] = dict(summary=summary, seconds=time.perf_counter() - t0, launches=counts,
+                            expected=want, missing_keys=missing)
+        if missing or counts != want:
+            raise AssertionError(f"drives_cut {name}: missing {missing}, launches {counts}, "
+                                 f"expected {want}")
+        return summary, counts
+
+    full_steps = c["pretrain_steps"] + 2 * c["ft_steps"]
+    evals = 2 * _eval_batches(10 * c["n_eval"]) + 2 * _eval_batches(4 * c["ft_n_eval"])
+    full, counts = drive("convergence_full", convergence_full, [
+        root, f"--steps={c['pretrain_steps']}", f"--ft_steps={c['ft_steps']}",
+        f"--n_train={c['n_train']}", f"--n_eval={c['n_eval']}",
+        f"--ft_n_train={c['ft_n_train']}", f"--ft_n_eval={c['ft_n_eval']}"],
+        _launches(3 * full_steps + 3 * evals, 3 * full_steps, 9 * full_steps))
+    total = _add(total, counts)
+    records = full["train"]
+    assert all(records[k]["all_finite"] for k in ("pretrain", "warm", "cold")), records
+
+    sets = len(c["corruptions"]) * len(c["severities"])
+    asm_evals = (1 + sets) * _eval_batches(10 * c["n_eval"])
+    abl, counts = drive("ablation", ablation, [
+        root, f"--steps={c['pretrain_steps']}", f"--n_train={c['n_train']}",
+        f"--n_eval={c['n_eval']}", f"--corruptions={','.join(c['corruptions'])}",
+        f"--severities={','.join(map(str, c['severities']))}"],
+        _launches(3 * asm_evals, 0, 0))  # the vanilla R50 runs no hand-written kernel
+    total = _add(total, counts)
+    assert abl["train"]["assembled"] is None, "the ablation did not restore the pretrain"
+    assert abl["train"]["vanilla"]["all_finite"], abl["train"]
+
+    def counting(args):
+        return [sys.executable, "-c", _COUNTING_CLI, *args]
+
+    t_steps, s_steps = c["teacher_steps"], c["student_steps"]
+    k_evals = _eval_batches(50 * c["scale_n_eval"])
+    with mock.patch.object(kd, "cli_command", counting):
+        kd_summary, epilogue = drive("kd", kd, [
+            str(s_steps), os.path.join(root, "kd"), str(c["n_subset"]),
+            f"--teacher_steps={t_steps}",
+            f"--n_train={c['scale_n_train']}", f"--n_eval={c['scale_n_eval']}",
+            f"--scale_root={os.path.join(root, 'scale')}"],
+            _launches(3 * 2 * k_evals, 0, 0))  # the epilogue's raw and EMA evals
+    total = _add(total, epilogue)
+    legs = {}
+    for path in sorted(glob.glob(os.path.join(root, "kd", "*", "kernel_counts.json"))):
+        with open(path) as f:
+            legs[os.path.basename(os.path.dirname(path))] = json.load(f)
+    leg_want = {"teacher": (_launches(3 * t_steps + 3 * k_evals, 3 * t_steps, 9 * t_steps),
+                            [False])}
+    for tag in ("control", "kd", "control_lr0.2"):
+        fwd = 3 * s_steps * (2 if tag == "kd" else 1) + 3 * k_evals
+        leg_want[tag] = (_launches(fwd, 3 * s_steps, 39 * s_steps), [tag == "kd"])
+    by_tag = {}
+    for name, got in legs.items():
+        tag = "teacher" if name == "teacher" else next(
+            t for t in ("control_lr0.2", "control", "kd") if name.startswith(f"student_{t}_"))
+        by_tag[tag] = got
+        total = _add(total, got["counts"])
+    losses = kd_summary["train_loss"]
+    ok = (sorted(by_tag) == sorted(leg_want)
+          and all((by_tag[t]["counts"], by_tag[t]["teacher_loaded"]) == (w[0], w[1])
+                  for t, w in leg_want.items())
+          and sorted(losses) == sorted(leg_want)
+          and all(rec and all(np.isfinite([v for _, v in rec])) for rec in losses.values()))
+    result["kd"].update(legs=by_tag, expected_legs={t: w[0] for t, w in leg_want.items()})
+    emit("drives_cut", cut=c, bars_asserted=False, width=1.0, batch=DRIVE_BATCH, image_size=224,
+         dtype="bf16", drives=result, launches=total, seconds=time.perf_counter() - t_start,
+         card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"drives_cut kd legs: {by_tag}, expected {leg_want}")
+    return total
+
+
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
     ("fwd", ("fwd",), "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
@@ -3040,6 +3225,8 @@ def main():
         paths["tf_import"], paths["tf_import_serve"], imported = tf_import_phase(
             smi, import_dir, tmp)
         paths["fgvc_finetune"] = fgvc_finetune_phase(smi, import_dir, imported, tmp)
+        paths["drive_convergence"] = drive_convergence_phase(smi, tmp)
+        paths["drives_cut"] = drives_cut_phase(smi, tmp)
         dp_nccl_phase(smi, tmp, single)
         parity = spatial_parity_phase(smi, tmp)
         if parity is not None:

@@ -108,11 +108,19 @@ def test_autoaugment_matches_reference(policy, seed):
 
 
 def test_cpp_loader_bindings_match_reference():
-    """The same tables and the same ``cpp/`` directory (``cpp/build.sh``)."""
+    """The same tables and the same ``cpp/`` sources; the port builds them
+    into its own library, against the libjpeg Pillow decodes with, and its
+    native decode is Pillow's, bit for bit."""
     assert t_cpp.AA_POLICIES == j_cpp.AA_POLICIES and t_cpp.AA_OPS == j_cpp.AA_OPS
     assert t_cpp._ABI_VERSION == j_cpp._ABI_VERSION
     assert t_cpp._CPP_DIR == j_cpp._CPP_DIR == str(REPO / "cpp")
-    assert t_cpp._SO_PATH == j_cpp._SO_PATH
+    assert t_cpp._SO_PATH == str(REPO / "axcnn_torch" / "build" / "libaxcnn_loader.so")
+    assert os.path.basename(t_cpp.pillow_libjpeg()).startswith("libjpeg")
+    rng = np.random.default_rng(3)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (50, 70, 3), dtype=np.uint8)).save(buf, "JPEG")
+    want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+    np.testing.assert_array_equal(t_cpp.decode_jpeg_native(buf.getvalue(), max_side=128), want)
 
 
 # -- TFRecords and loaders ---------------------------------------------------
@@ -323,6 +331,15 @@ recs = [json.loads(l) for l in open(os.path.join(tmp, "metrics.jsonl"))]
 assert [r["step"] for r in recs if r["tag"] == "train"] == [1, 2], recs
 assert os.path.exists(os.path.join(tmp, "checkpoints", "2.pt"))
 """,
+    "drive_convergence": """
+import tempfile
+import torch
+from axcnn_torch.drives import convergence
+torch.set_num_threads(1)  # a toy run, beside other test workers
+s = convergence.main([tempfile.mkdtemp(), "--cpu", "--no-check", "--steps=2", "--batch=4",
+                      "--image_size=64", "--width=0.125", "--n_per_class=2"])
+assert s["raw"]["count"] == 8 and s["native_loader"] and s["train"]["all_finite"], s
+""",
     "tf_import_and_build": """
 import os, tempfile
 import numpy as np, torch
@@ -361,8 +378,9 @@ def test_port_runs_with_axcnn_and_jax_refused(case):
     ``jax*`` and ``tensorflow`` imports every module of the port and
     ``chip_smoke``, serves a JPEG through ``predict``, trains 2 steps
     through the training CLI (on the CPU at width 0.125, 64x64), imports a
-    TF1 bundle (``chip_smoke._write_tf_bundle``'s, width 0.125) and builds
-    TFRecord shards."""
+    TF1 bundle (``chip_smoke._write_tf_bundle``'s, width 0.125), builds
+    TFRecord shards and runs the convergence drive at a toy size through
+    the native loader."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run([sys.executable, "-c", _GUARD + _CASES[case] + _CHECK],
