@@ -34,6 +34,8 @@ Usage, with the reference's argv grammar and presets:
     # D x 2 ranks for D data shards:
     ... --config=finetune_fgvc --data.image_size=448 --runtime.spatial_partitions=2 \\
         --runtime.num_devices=2
+    # ... with every option of the one-card step, e.g. the memory levers:
+    ... --model.remat=blocks --train.grad_accum_steps=2 --data.autoaugment_device
 
     # ImageNet-C mCE of what a run saved (axcnn_torch.data.build_imagenet_c
     # writes the corrupted sets):

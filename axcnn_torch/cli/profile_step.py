@@ -7,6 +7,8 @@
     python -m axcnn_torch.cli.profile_step --what=dp --ranks=2  # the R50 step on 2 cards
     python -m axcnn_torch.cli.profile_step --what=spatial --ranks=2 --image_size=448
                                                              # H split over 2 cards
+    python -m axcnn_torch.cli.profile_step --what=spatial --ranks=2 --image_size=448 \
+        --remat=blocks --grad_accum_steps=2                  # ... with its memory levers
     python -m axcnn_torch.cli.profile_step --what=bl         # bl_resnet50 and its ablation
     python -m axcnn_torch.cli.profile_step --what=flops      # their forward FLOPs (no card)
     python -m axcnn_torch.cli.profile_step --what=crc        # the host's CRC32C rates (no card)
@@ -18,9 +20,11 @@ builds it (mixup 0.2, label smoothing 0.1); ``remat``: the same step with
 card over NCCL, batch 128 a rank (rank 0 measures; every rank runs the
 same steps); ``spatial``: the same step with each image's H split over
 ``--ranks`` cards (``axcnn_torch.parallel.spatial``; one data shard, the
-batch's images at full H on every rank, rank 0 measures). ``--image_size``
-(224 by default) sets the images' side for ``step``, ``remat``, ``dp`` and
-``spatial``. ``dropblock``: the R50 step's
+batch's images at full H on every rank, rank 0 measures), with
+``--remat=blocks`` and ``--grad_accum_steps=A`` (the batch of 128 as A
+micro-batches) if asked: the same step with and without remat splits off
+the replay's cost. ``--image_size`` (224 by default) sets the images' side
+for ``step``, ``remat``, ``dp`` and ``spatial``. ``dropblock``: the R50 step's
 nine DropBlock sites alone (6 at 14x14x1024 and 3 at 7x7x2048, batch 128,
 bf16, channels_last), each run forward and then backward through
 ``axcnn_torch.ops.dropblock.dropblock``; one repetition is one step's worth.
@@ -45,7 +49,8 @@ line: the untraced walls' median, minimum, mean and maximum, and per step
 of the window its wall, the device busy time (the union of the device
 events' intervals), the idle share (1 - busy / wall; the profiler lengthens
 the wall, so it overstates an untraced share), the device events, and
-device time by category and by the 12 largest kernels. The categories are
+device time by category and by the 12 largest kernels (``dp`` and
+``spatial``: and rank 0's peak allocated memory). The categories are
 matched on the kernel's name, so a copy or a cast counts as elementwise.
 Needs a CUDA card; measures whichever ``axcnn_torch`` is first on the path.
 """
@@ -192,14 +197,16 @@ def _bl_models():
     return {"bl": bl, "ablation": preset_model("bl_resnet50", bl_alpha=0, bl_beta=0)}
 
 
-def _step_runner(cfg, *, kd: bool = False, group=None, spatial=None, image_size: int = 224):
+def _step_runner(cfg, *, kd: bool = False, group=None, spatial=None, image_size: int = 224,
+                 grad_accum_steps: int = 1):
     from axcnn_torch.core.dtypes import BF16_POLICY
     from axcnn_torch.models.resnet import ResNet
     from axcnn_torch.train.schedules import make_lr_schedule
     from axcnn_torch.train.train_step import create_train_state, make_train_step
     from axcnn_torch.utils.config import load_preset
 
-    kw = dict(policy=BF16_POLICY, label_smoothing=0.1, mixup_alpha=0.2)
+    kw = dict(policy=BF16_POLICY, label_smoothing=0.1, mixup_alpha=0.2,
+              grad_accum_steps=grad_accum_steps)
     batch_size = BATCH
     if kd:
         preset = load_preset("assemble_resnet152_kd")
@@ -250,7 +257,8 @@ def _dropblock_runner():
 
 
 def _dp_rank(rank: int, world: int, coordinator: str, untraced: int, steps: int,
-             image_size: int, spatial: bool, results) -> None:
+             image_size: int, spatial: bool, remat: str, grad_accum_steps: int,
+             results) -> None:
     """One rank of ``--what=dp`` (or ``spatial``: the H of every image split
     over the ranks) on card ``rank``; rank 0 hands back its measurement."""
     from axcnn_torch.parallel import mesh
@@ -260,9 +268,12 @@ def _dp_rank(rank: int, world: int, coordinator: str, untraced: int, steps: int,
                           coordinator=coordinator)
     try:
         ctx = make_spatial_context(world) if spatial else None
-        result = _measure(*_step_runner(preset_model("assemble_resnet50"),
+        torch.cuda.reset_peak_memory_stats(rank)
+        result = _measure(*_step_runner(preset_model("assemble_resnet50", remat=remat),
                                         group=mesh.data_group(), spatial=ctx,
-                                        image_size=image_size), untraced, steps)
+                                        image_size=image_size,
+                                        grad_accum_steps=grad_accum_steps), untraced, steps)
+        result["peak_gib"] = torch.cuda.max_memory_allocated(rank) / 2 ** 30
     finally:
         mesh.shutdown()
     if rank == 0:
@@ -270,7 +281,7 @@ def _dp_rank(rank: int, world: int, coordinator: str, untraced: int, steps: int,
 
 
 def _measure_dp(ranks: int, untraced: int, steps: int, image_size: int,
-                spatial: bool = False) -> dict:
+                spatial: bool = False, remat: str = "none", grad_accum_steps: int = 1) -> dict:
     import torch.multiprocessing as mp
 
     from axcnn_torch.cli.main_classification import _free_port
@@ -281,8 +292,9 @@ def _measure_dp(ranks: int, untraced: int, steps: int, image_size: int,
     results = mp.get_context("spawn").SimpleQueue()
     mp.start_processes(_dp_rank, nprocs=ranks, start_method="spawn",
                        args=(ranks, f"127.0.0.1:{_free_port()}", untraced, steps, image_size,
-                             spatial, results))
-    return {"ranks": ranks, "image_size": image_size, **results.get()}
+                             spatial, remat, grad_accum_steps, results))
+    return {"ranks": ranks, "image_size": image_size, "remat": remat,
+            "grad_accum_steps": grad_accum_steps, **results.get()}
 
 
 def crc_rates() -> dict:
@@ -316,6 +328,10 @@ def main(argv=None) -> int:
     parser.add_argument("--ranks", type=int, default=2, help="cards for --what=dp|spatial")
     parser.add_argument("--image_size", type=int, default=224,
                         help="the images' side for --what=step|remat|dp|spatial")
+    parser.add_argument("--remat", choices=("none", "blocks"), default="none",
+                        help="model.remat for --what=dp|spatial")
+    parser.add_argument("--grad_accum_steps", type=int, default=1,
+                        help="micro-batches of the batch for --what=dp|spatial")
     parser.add_argument("--steps", type=int, default=3, help="steps in the traced window")
     parser.add_argument("--untraced", type=int, default=20, help="steps timed untraced")
     parser.add_argument("--label", default="", help="a name for the tree measured")
@@ -336,7 +352,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout
     if args.what in ("dp", "spatial"):
         result = _measure_dp(args.ranks, args.untraced, args.steps, args.image_size,
-                             spatial=args.what == "spatial")
+                             spatial=args.what == "spatial", remat=args.remat,
+                             grad_accum_steps=args.grad_accum_steps)
     elif args.what == "bl":
         result = {}
         for name, cfg in _bl_models().items():

@@ -24,6 +24,9 @@ whose coin came up: the counterpart of the reference's ``lax.switch`` and
 (each image's warp matrix) is computed on the host in float32, in the
 reference's order, and copied over with the indices of the selected images.
 ``draws=`` replaces the random draws (a test hands in the reference's).
+``rows=`` places the batch inside a larger one (a data shard of the global
+batch under spatial partitioning): the groups and the draws are then the
+larger batch's, and each image takes its own.
 
 Cutout is the reference's stand-in: a centred square (the v0 and imagenet
 policies do not use it).
@@ -267,10 +270,13 @@ def draw_autoaugment(rng: np.random.Generator, num_sub: int, groups: int, group_
 
 
 def make_device_autoaugment(policy_name: str = "v0", *, num_groups: int = 8):
-    """``fn(images_u8 NHWC, rng=None, *, draws=None) -> fp32 NHWC in [0,
-    255]`` on the images' device, or None for ``'none'``. ``rng`` (a numpy
-    Generator) makes the draws unless ``draws`` (``draw_autoaugment``'s
-    form, one entry per group) is given."""
+    """``fn(images_u8 NHWC, rng=None, *, draws=None, rows=None) -> fp32 NHWC
+    in [0, 255]`` on the images' device, or None for ``'none'``. ``rng`` (a
+    numpy Generator) makes the draws unless ``draws`` (``draw_autoaugment``'s
+    form, one entry per group) is given. ``rows = (start, total)``: the
+    images are rows ``[start, start + n)`` of a batch of ``total`` (a data
+    shard of the global batch under spatial partitioning); the groups and
+    the draws are then that batch's, and each image takes its own."""
     if policy_name in (None, "", "none"):
         return None
     try:
@@ -279,23 +285,30 @@ def make_device_autoaugment(policy_name: str = "v0", *, num_groups: int = 8):
         raise ValueError(f"unknown autoaugment_type {policy_name!r}; known: "
                          f"{sorted(POLICIES)} or 'none'") from None
 
-    def fn(images_u8: torch.Tensor, rng: np.random.Generator | None = None, *, draws=None):
+    def fn(images_u8: torch.Tensor, rng: np.random.Generator | None = None, *, draws=None,
+           rows=None):
         n = images_u8.shape[0]
-        g = num_groups_for(n, num_groups)
-        m = n // g
+        start, total = (0, n) if rows is None else rows
+        g = num_groups_for(total, num_groups)
+        m = total // g
         if draws is None:
             draws = draw_autoaugment(rng, len(policy), g, m)
         if len(draws) != g:
             raise ValueError(f"{len(draws)} AutoAugment draws for {g} groups")
         images = images_u8.to(torch.float32)
         for k, (sub, coins, signs) in enumerate(draws):
+            # the group's images [k*m, (k+1)*m) that lie in [start, start + n)
+            lo, hi = max(k * m, start), min((k + 1) * m, start + n)
+            if lo >= hi:
+                continue
+            part = slice(lo - k * m, hi - k * m)
             for j, (name, prob, mag) in enumerate(policy[sub]):
-                chosen = np.flatnonzero(coins[j] < _F32(prob))
+                chosen = np.flatnonzero(coins[j][part] < _F32(prob))
                 if chosen.size == 0:
                     continue
-                rows = _to_device(k * m + chosen, images.device)
-                out = OP_FNS[name](images.index_select(0, rows), mag, signs[j][chosen])
-                images.index_copy_(0, rows, out)
+                idx = _to_device(lo - start + chosen, images.device)
+                out = OP_FNS[name](images.index_select(0, idx), mag, signs[j][part][chosen])
+                images.index_copy_(0, idx, out)
         return images
 
     return fn

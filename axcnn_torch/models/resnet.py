@@ -41,9 +41,13 @@ BlurPools), the pools sum over the spatial row (SE, SK, the head), and
 each DropBlock site is the global program's (its seeds drawn for the global
 batch, this data shard's slice taken; ``ops.dropblock``). The 1x1 convs,
 the ResNet-D shortcut's 2x2/2 average pool on even shards, BN's
-normalization, ReLU, the adds and the gates are row-local. Big-Little
-stages and ``remat`` are not taken with it (ROADMAP.md Queue A items 11b,
-11c).
+normalization, ReLU, the adds and the gates are row-local. A Big-Little
+stage is too: under the shard rule its big branch holds exactly half of its
+shard's rows (H/8/S and H/16/S are even), so the merge's nearest-exact x2
+upsample and ``little_proj`` (1x1) are row-local, and the big branch's
+convs take their halos as a plain stage's do. With ``remat`` each region's
+replay reissues its collectives (halos, pooled sums, sync-BN) in the
+backward, in the same order on every rank, as all run the same program.
 
 ``scan_blocks`` (a JAX compile-time lever with stacked weights) is refused
 with ``NotImplementedError`` (ROADMAP.md Queue A item 11). In eval,
@@ -259,7 +263,7 @@ class BLStage(nn.Module):
         little = x
         for block in self.little.values():
             little = _region(block, little, *args, remat=remat)
-        little = self.little_proj_bn(self.little_proj(little, compute_dtype, quantize),
+        little = self.little_proj_bn(self.little_proj(little, compute_dtype, quantize, spatial),
                                      train=train, group=group)
         big_up = F.interpolate(big, size=little.shape[-2:], mode="nearest-exact")
         return torch.relu(big_up + little)
@@ -315,10 +319,6 @@ class ResNet(nn.Module):
         ``D * N`` images of the global batch, of which this data shard takes
         its ``N``."""
         cfg = self.cfg
-        if spatial is not None and (cfg.use_bl or (train and cfg.remat != "none")):
-            raise NotImplementedError(
-                "spatial partitioning takes neither Big-Little stages nor remat (ROADMAP.md "
-                "Queue A items 11b, 11c)")
         if train and cfg.remat in ("conv", "conv_nocse"):
             raise NotImplementedError(
                 f"remat={cfg.remat!r} is an XLA name policy (save only the tagged conv "

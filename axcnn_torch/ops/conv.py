@@ -29,7 +29,10 @@ Under spatial partitioning (``spatial``, a
 ``axcnn_torch.parallel.spatial.SpatialContext``) a conv takes its halo rows
 from the neighbouring shards (``pad_beg`` above, ``k_eff - stride - pad_beg``
 below, zeros at the image's border) and runs with no padding along H
-(``conv2d_on_halo``).
+(``conv2d_on_halo``). The int8 conv's activation scale is then the max over
+every rank (``SpatialContext.max_all``), the global batch's, as the
+reference's per-tensor max is under GSPMD; the shard with its halo rows is
+quantized with it and its accumulators are the unsharded conv's rows.
 """
 
 from __future__ import annotations
@@ -62,12 +65,16 @@ def he_normal_(w: torch.Tensor, generator: torch.Generator | None) -> torch.Tens
         return w.mul_(std / _TRUNC_STD)
 
 
-def quantize_int8(x, w):
+def quantize_int8(x, w, amax=None):
     """The reference's dynamic symmetric quantization of an NCHW input and
     an OIHW weight: ``(xq, sx, wq, sw)`` with int8 ``xq``/``wq``, the fp32
-    per-tensor scale ``sx`` (0-d) and per-output-channel scales ``sw``."""
+    per-tensor scale ``sx`` (0-d) and per-output-channel scales ``sw``.
+    ``amax`` (fp32, 0-d) replaces ``max|x|``: the whole tensor's, when ``x``
+    is a part of it."""
     xf, wf = x.to(torch.float32), w.to(torch.float32)
-    sx = torch.clamp_min(xf.abs().amax(), 1e-12) / 127.0
+    if amax is None:
+        amax = xf.abs().amax()
+    sx = torch.clamp_min(amax, 1e-12) / 127.0
     sw = torch.clamp_min(wf.abs().amax(dim=(1, 2, 3)), 1e-12) / 127.0
     xq = torch.round(xf / sx).to(torch.int8)  # max-abs scaling: already in range
     wq = torch.round(wf / sw[:, None, None, None]).to(torch.int8)
@@ -88,20 +95,22 @@ def int8_gemm_operands(xq, wq, *, stride, dilation, padding):
     matrix ``b`` (N, K), so that the accumulators are ``(a @ b.T)[:m, :o]``
     viewed as (n, ho, wo, o). M is padded past 16, K (the stem's 27
     included) and N to multiples of 8, with zeros, which change no sum
-    (``torch._int_mm``'s shape rules)."""
+    (``torch._int_mm``'s shape rules). ``padding``: both dims', or
+    ``(rows, columns)``."""
     n, c, h, w = xq.shape
     o, _, kh, kw = wq.shape
-    ho = (h + 2 * padding - dilation * (kh - 1) - 1) // stride + 1
-    wo = (w + 2 * padding - dilation * (kw - 1) - 1) // stride + 1
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    ho = (h + 2 * ph - dilation * (kh - 1) - 1) // stride + 1
+    wo = (w + 2 * pw - dilation * (kw - 1) - 1) // stride + 1
     m, k = n * ho * wo, kh * kw * c
     mp, kp, op = max(m, 17), -(-k // 8) * 8, -(-o // 8) * 8
     x = xq.permute(0, 2, 3, 1)  # NHWC; a view of a channels_last tensor
     if (kh, kw, stride, mp, kp) == (1, 1, 1, m, k) and x.is_contiguous():
         a = x.reshape(m, k)
     else:
-        if padding:
-            xp = x.new_zeros((n, h + 2 * padding, w + 2 * padding, c))
-            xp[:, padding:padding + h, padding:padding + w] = x
+        if ph or pw:
+            xp = x.new_zeros((n, h + 2 * ph, w + 2 * pw, c))
+            xp[:, ph:ph + h, pw:pw + w] = x
         else:
             xp = x.contiguous()
         sn, sh, sw, sc = xp.stride()
@@ -128,10 +137,18 @@ def int8_conv_acc_cuda(xq, wq, *, stride, dilation, padding):
     return acc[:m, :o].view(n, ho, wo, o).permute(0, 3, 1, 2)
 
 
-def dynamic_int8_conv(x, w, *, stride, dilation, padding, out_dtype):
+def dynamic_int8_conv(x, w, *, stride, dilation, padding, out_dtype, spatial=None):
     """The reference's ``_dynamic_int8_conv`` on NCHW ``x`` and OIHW ``w``
-    (module docstring); the device picks how the accumulators are made."""
-    xq, sx, wq, sw = quantize_int8(x, w)
+    (module docstring); the device picks how the accumulators are made.
+    ``spatial``: ``x`` is this rank's shard; the scale is every rank's max,
+    and the conv runs on the shard with its halo rows, padded along W only
+    (``padding`` is then the W padding)."""
+    amax = None
+    if spatial is not None:
+        amax = spatial.max_all(x.to(torch.float32).abs().amax())
+        x = spatial.halo(x, *conv_halo(w.shape[-1], stride, dilation))
+        padding = (0, padding)
+    xq, sx, wq, sw = quantize_int8(x, w, amax)
     acc_fn = int8_conv_acc_reference if x.device.type == "cpu" else int8_conv_acc_cuda
     acc = acc_fn(xq, wq, stride=stride, dilation=dilation, padding=padding)
     return (acc.to(torch.float32) * (sx * sw)[:, None, None]).to(out_dtype)
@@ -161,14 +178,12 @@ def conv2d_fixed_padding(x, w, *, stride=1, dilation=1, compute_dtype=None,
     if beg != end:
         raise ValueError(f"even kernel size {w.shape[-1]} needs asymmetric "
                          "fixed padding, which no model here uses")
-    if spatial is not None:
-        if quantize:
-            raise NotImplementedError("the int8 conv takes no spatial partitioning")
-        xh = spatial.halo(x, *conv_halo(w.shape[-1], stride, dilation))
-        return conv2d_on_halo(xh, w, stride=stride, dilation=dilation)
     if quantize:
         return dynamic_int8_conv(x, w, stride=stride, dilation=dilation, padding=beg,
-                                 out_dtype=x.dtype)
+                                 out_dtype=x.dtype, spatial=spatial)
+    if spatial is not None:
+        xh = spatial.halo(x, *conv_halo(w.shape[-1], stride, dilation))
+        return conv2d_on_halo(xh, w, stride=stride, dilation=dilation)
     return F.conv2d(x, w, stride=stride, padding=beg, dilation=dilation)
 
 

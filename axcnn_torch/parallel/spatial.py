@@ -32,6 +32,12 @@ owner's edge row. Pooled values are sums over the row (``sum_rows``, whose
 transpose is the same sum of the cotangents). The split between a shard's
 computation and the collective is kept so that the ops can be tested on
 shards cut from one tensor in one process.
+
+What spans data shards is regathered over the column: gradient
+accumulation's micro-batch ``i`` is rows ``[i*M, (i+1)*M)`` of the global
+batch (``M = N / A``), so each data rank takes its ``M / D`` rows of every
+micro-batch (``micro_batches``); the int8 conv's per-tensor scale is a max
+over the global batch (``max_all``).
 """
 
 from __future__ import annotations
@@ -195,6 +201,29 @@ class SpatialContext:
         if self.column_group is None:
             return counts
         return torch.cat(_gather(counts, self.column_group, self.data_parts))
+
+    def micro_batches(self, *tensors: torch.Tensor, steps: int) -> list[tuple]:
+        """This rank's part of each of ``steps`` micro-batches of the global
+        batch, whose data shard ``d`` the ``tensors`` are (``n`` rows each, a
+        multiple of ``steps``): micro-batch ``i`` is global rows ``[i*M,
+        (i+1)*M)`` with ``M = n*D / steps``, of which data rank ``d`` takes
+        rows ``[d*M/D, (d+1)*M/D)``. One all-gather over the column per
+        tensor, then slices; with ``D == 1`` slices alone."""
+        m = tensors[0].shape[0] // steps  # this rank's rows of each micro-batch: M / D
+        if self.column_group is not None:
+            tensors = [torch.cat(_gather(t, self.column_group, self.data_parts))
+                       for t in tensors]
+        firsts = [(i * self.data_parts + self.data_index) * m for i in range(steps)]
+        return [tuple(t[f:f + m] for t in tensors) for f in firsts]
+
+    def max_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` over every rank of the grid: over the
+        row, then over the column."""
+        t = t.clone()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.row_group)
+        if self.column_group is not None:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.column_group)
+        return t
 
     def mirror(self, *tensors: torch.Tensor) -> list[torch.Tensor]:
         """Each tensor as held by rank ``(D - 1 - d, s)``: mixup pairs the

@@ -48,12 +48,15 @@ cannot place. The two ranks of a data row read the same batch and augment
 it alike (the loaders take ``host_id = d`` of ``D``: their seeds depend on
 the record, not the rank), and each takes its rows inside the step. The
 step is the global-batch step, the eval sums over the data column, and the
-replicas' check, logging and saves are as with data parallelism.
+replicas' check, logging and saves are as with data parallelism. It takes
+every option the one-rank step takes: Big-Little stages, remat, gradient
+accumulation, device AutoAugment, a KD teacher (run on each rank's rows;
+its architecture meets the shard rule with the student's image size, which
+depends on H and S alone) and the int8 evaluation.
 
-Refused with ``NotImplementedError`` until ported (``UNPORTED``, each with
-its ROADMAP.md Queue A item): spatial partitioning combined with Big-Little
-stages, remat, int8, device AutoAugment, a KD teacher, gradient
-accumulation or ImageNet-C; and, by design, DCN slices (``REFUSED``).
+Refused with ``NotImplementedError`` until ported: what ``UNPORTED`` lists,
+each with its ROADMAP.md Queue A item (nothing now); and, by design
+(``REFUSED``), DCN slices and spatial partitioning with ImageNet-C.
 ImageNet-C (``runtime.eval_imagenet_c``) is ``axcnn_torch.eval.imagenet_c``,
 which the CLI runs instead of this loop.
 """
@@ -92,22 +95,7 @@ def _spatial(c: Config) -> bool:
 
 
 # (what, its ROADMAP.md Queue A item, is it asked for) -- each refused until ported
-UNPORTED = (
-    ("runtime.spatial_partitions > 1 with Big-Little stages", "11b",
-     lambda c: _spatial(c) and c.model.bl_alpha > 0),
-    ("runtime.spatial_partitions > 1 with model.remat", "11c",
-     lambda c: _spatial(c) and c.model.remat != "none"),
-    ("runtime.spatial_partitions > 1 with train.dtype=int8", "11d",
-     lambda c: _spatial(c) and c.train.dtype == "int8"),
-    ("runtime.spatial_partitions > 1 with data.autoaugment_device", "11e",
-     lambda c: _spatial(c) and c.data.autoaugment_device),
-    ("runtime.spatial_partitions > 1 with train.kd_teacher_checkpoint", "11f",
-     lambda c: _spatial(c) and bool(c.train.kd_teacher_checkpoint)),
-    ("runtime.spatial_partitions > 1 with train.grad_accum_steps > 1", "11g",
-     lambda c: _spatial(c) and c.train.grad_accum_steps > 1),
-    ("runtime.spatial_partitions > 1 with runtime.eval_imagenet_c", "11h",
-     lambda c: _spatial(c) and c.runtime.eval_imagenet_c),
-)
+UNPORTED = ()
 # (what, why it is not ported, is it asked for) -- refused by design
 REFUSED = (
     ("runtime.dcn_slices > 1",
@@ -115,6 +103,11 @@ REFUSED = (
      "network; NCCL picks its own topology across a host's cards, and the H100 "
      "machines have no DCN (ROADMAP.md Queue A item 11)",
      lambda c: c.runtime.dcn_slices > 1),
+    ("runtime.spatial_partitions > 1 with runtime.eval_imagenet_c",
+     "the ImageNet-C sets store 224^2 pixels, which never motivate spatial "
+     "partitioning; the reference refuses the same (axcnn/eval/imagenet_c.py) "
+     "(ROADMAP.md Queue A item 11h)",
+     lambda c: _spatial(c) and c.runtime.eval_imagenet_c),
 )
 
 

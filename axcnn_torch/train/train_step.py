@@ -35,8 +35,16 @@ its backward; with the halo's and the pooled sum's transposes the sum of a
 row's gradients is its data shard's, and the gradients are summed over the
 grid and divided by ``D``: the one-rank step's. The loss, ``train_top1``
 and ``mixup_lam`` are averaged over the grid; the BN moving statistics are
-already equal on every rank. Gradient accumulation, the KD teacher and
-device AutoAugment are not taken with it.
+already equal on every rank. Every option of the one-rank step is taken:
+with ``A`` micro-batches, micro-batch ``i`` is the global batch's rows
+``[i*M, (i+1)*M)`` (``M = N / A``), of which each data rank takes its
+``M / D`` (``SpatialContext.micro_batches``, a regather over the column),
+with one lambda, mixup's mirror inside it, DropBlock seeds drawn for its
+``M`` images and its global counts; device AutoAugment augments the data
+shard at full H, before its rows are cut, with the global (micro-)batch's
+groups and draws, the shard's images taking theirs (every rank of a row
+repeats that work); the KD teacher runs on the shard with the context (eval
+BN, row-summed pools), so its logits are the same on every rank of a row.
 """
 
 from __future__ import annotations
@@ -131,16 +139,17 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
     this rank's shard. With it, ``mixup_lam`` is a 0-d device tensor too.
     With ``spatial`` as well it is the spatially partitioned step of the
     module docstring; ``batch`` is then this rank's data shard at full H,
-    and the injected ``dropblock_uniforms`` are the shard's whole maps.
+    the injected ``dropblock_uniforms`` are the whole maps of this rank's
+    images (of each micro-batch), and ``aa_draws`` the global
+    (micro-)batch's.
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
-    if spatial is not None and (grad_accum_steps > 1 or teacher is not None
-                                or autoaugment_fn is not None or group is None or not sync_bn):
+    if spatial is not None and (group is None or not sync_bn):
         raise NotImplementedError(
-            "the spatially partitioned step takes no gradient accumulation, KD teacher or "
-            "device AutoAugment, and needs the process group of every rank with sync-BN "
-            "(ROADMAP.md Queue A items 11e-11g)")
+            "the spatially partitioned step needs the process group of every rank with "
+            "sync-BN: it is the global-batch step, whose BN statistics are the global "
+            "batch's")
     A = grad_accum_steps
     bn_group = group if sync_bn else None
     mask = None
@@ -150,8 +159,11 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
         """Forward and backward of one (micro-)batch; the gradients add up in
         ``.grad``. Returns (loss, top-1, lambda)."""
         if autoaugment_fn is not None:
+            # under spatial partitioning the draws are the global batch's
+            where = {} if spatial is None else {"rows": (
+                spatial.data_index * len(labels), spatial.data_parts * len(labels))}
             images_u8 = autoaugment_fn(images_u8, None if aa_draws is not None
-                                       else rng.numpy("autoaugment"), draws=aa_draws)
+                                       else rng.numpy("autoaugment"), draws=aa_draws, **where)
         if spatial is not None:
             images_u8 = spatial.slice_rows(images_u8)
         images = normalize_device(images_u8, mean_rgb, stddev_rgb)
@@ -170,7 +182,7 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
                                label_smoothing=label_smoothing)
         if teacher is not None:
             with torch.no_grad():
-                t_logits = teacher(images, policy=policy)
+                t_logits = teacher(images, policy=policy, spatial=spatial)
             loss = loss + kd_alpha * kd_loss(logits, t_logits, temperature=kd_temp)
         # a spatial row's S ranks hold the same loss: each backs 1/S of it
         (loss if spatial is None else loss / spatial.parts).backward()
@@ -203,6 +215,8 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
             if n % A:
                 raise ValueError(f"batch {n} not divisible by grad_accum_steps {A}")
             m = n // A
+            parts = ([(images[i * m:(i + 1) * m], labels[i * m:(i + 1) * m]) for i in range(A)]
+                     if spatial is None else spatial.micro_batches(images, labels, steps=A))
             accum, mix_accum = RngStream(rng("accum")), RngStream(mix_rng("accum"))
             lams = [None] * A if lam is None else list(lam)
             unis = [None] * A if dropblock_uniforms is None else list(dropblock_uniforms)
@@ -210,9 +224,8 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
             if len(lams) != A or len(unis) != A or len(aas) != A:
                 raise ValueError(f"lam, dropblock_uniforms and aa_draws take {A} "
                                  "entries, one per micro-batch")
-            micros = [(images[i * m:(i + 1) * m], labels[i * m:(i + 1) * m],
-                       accum.fold_step(i), mix_accum.fold_step(i), lams[i], unis[i], aas[i])
-                      for i in range(A)]
+            micros = [(*parts[i], accum.fold_step(i), mix_accum.fold_step(i), lams[i], unis[i],
+                       aas[i]) for i in range(A)]
 
         params = dict(model.named_parameters())
         for p in params.values():

@@ -207,7 +207,30 @@ points and checks them:
     (R152 students 3 + 3 + 39 + 39 a step, the KD student's teacher 3 more
     forwards a step); the KD drive's CLI legs run in processes of their own,
     which report their counts and whether they loaded a teacher (only the
-    KD student does).
+    KD student does);
+37. spatial_options_parity: two ranks on card 0 joined over Gloo (so it runs
+    on one card; the topology of the check, not a route of the program),
+    ``(D, S) = (1, 2)``, the seeded full-width assembled R50, fp32 with TF32
+    off, b4 at 128x128, step 5 of 10 with DropBlock and mixup active: one
+    leg for each option of the step under spatial partitioning (gradient
+    accumulation with A = 2, ``remat="blocks"``, device AutoAugment with
+    injected draws, a KD teacher (an R50), Big-Little stages), each held,
+    as ``spatial_parity`` is, to the CPU's float64 step with the same
+    option beside the one-card step (loss within 1e-4; the per-leaf
+    distance at most 3x the one-card step's); the int8 eval's counts equal
+    to the one-card int8 eval's and every conv's int32 accumulators before
+    the first pooled sum the one-card ones' rows, bit for bit; each leg's
+    kernel launches on each rank;
+38. spatial_448_options: ``--config=finetune_fgvc`` at 448x448, bf16,
+    through the CLI with ``--runtime.spatial_partitions=2
+    --model.remat=blocks --train.grad_accum_steps=2
+    --data.autoaugment_device=true`` on TFRecords of 256 generated 512x512
+    JPEGs (device AutoAugment is off on synthetic data), 3 steps at b128 and
+    at b256, as two Gloo ranks on card 0 and, where there are two cards,
+    over NCCL a card a rank: finite losses, each rank's peak memory, rank
+    0's record-gap step walls, the augmentation alone (events and enqueue
+    ms, as ``aa_time``; every rank of a row runs it), and the launches (a step: BlurPool 12 + 6,
+    the windowed mask, the forward apply and the apply backward 18 each).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the result line.
@@ -2001,19 +2024,19 @@ def aa_parity_phase():
         raise AssertionError(f"device AutoAugment card-vs-CPU parity failed: {bad[:5]}")
 
 
-def aa_time_phase(smi):
-    """The augmentation alone (v0, 8 groups) on a b128 224^2 uint8 batch on
-    the card: device ms per call (events, the calls queued behind a sleep
-    kernel, 20 draws) and the host's enqueue ms per call."""
+def _aa_ms(batch, image):
+    """The augmentation alone (v0, 8 groups) on a ``batch`` x ``image``^2
+    uint8 batch on the card: device ms per call (events, the calls queued
+    behind a sleep kernel, 20 draws) and the host's enqueue ms per call."""
     from axcnn_torch.data.autoaugment import POLICIES
     from axcnn_torch.data.autoaugment_device import draw_autoaugment, make_device_autoaugment
 
     fn = make_device_autoaugment("v0", num_groups=8)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    u8 = torch.randint(0, 256, (TIME_BATCH, 224, 224, 3), generator=gen, device="cuda",
+    u8 = torch.randint(0, 256, (batch, image, image, 3), generator=gen, device="cuda",
                        dtype=torch.uint8)
     rng = np.random.default_rng(SEED)
-    draws = [draw_autoaugment(rng, len(POLICIES["v0"]), 8, TIME_BATCH // 8) for _ in range(20)]
+    draws = [draw_autoaugment(rng, len(POLICIES["v0"]), 8, batch // 8) for _ in range(20)]
     device_ms = _time_ms(lambda d: fn(u8, draws=d), draws, iters=20)
     torch.cuda.synchronize()
     torch.cuda._sleep(SLEEP_CYCLES)
@@ -2022,9 +2045,14 @@ def aa_time_phase(smi):
         fn(u8, draws=d)
     enqueue_ms = (time.perf_counter() - t0) / len(draws) * 1e3
     torch.cuda.synchronize()
-    emit("aa_time", policy="v0", groups=8, batch=TIME_BATCH, image=224, device_ms=device_ms,
-         enqueue_ms=enqueue_ms, card=smi)
     return {"device_ms": device_ms, "enqueue_ms": enqueue_ms}
+
+
+def aa_time_phase(smi):
+    """The augmentation alone on a b128 224^2 batch (``_aa_ms``)."""
+    times = _aa_ms(TIME_BATCH, 224)
+    emit("aa_time", policy="v0", groups=8, batch=TIME_BATCH, image=224, **times, card=smi)
+    return times
 
 
 def aa_train_phase(smi, tmp, aa_time):
@@ -2913,23 +2941,27 @@ def spatial_parity_phase(smi, tmp):
     return sp["launches"]
 
 
-def _spatial_cli_rank(rank, world, coordinator, argv, workdir):
+def _spatial_cli_rank(rank, world, coordinator, argv, workdir, card=None, backend=None):
     """One rank of the training CLI, as ``main_classification`` starts it
     (its card, the process group, the run), that also keeps its card's peak
-    memory and its kernels' launches."""
+    memory and its kernels' launches. ``card``: every rank on that card
+    (with ``backend="gloo"``: NCCL takes one rank a card) instead of card
+    ``rank``."""
     from axcnn_torch.cli import main_classification
     from axcnn_torch.parallel import mesh
     from axcnn_torch.train.loop import resolve_device
     from axcnn_torch.utils.config import parse_cli
 
     cfg = parse_cli(argv)
-    device = resolve_device(cfg.runtime.platform, rank)
-    mesh.init_distributed(device, rank=rank, world_size=world, coordinator=coordinator)
+    local = rank if card is None else card
+    device = resolve_device(cfg.runtime.platform, local)
+    mesh.init_distributed(device, rank=rank, world_size=world, coordinator=coordinator,
+                          backend=backend)
     try:
         _zero_counts()
         torch.cuda.reset_peak_memory_stats(device)
         with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
-            metrics = main_classification._run(cfg, local_rank=rank)
+            metrics = main_classification._run(cfg, local_rank=local)
         torch.cuda.synchronize(device)
         out = {"metrics": metrics, "launches": _counts(), "routes": dict(kblur.ROUTES),
                "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30}
@@ -3009,6 +3041,345 @@ def spatial_448_phase(smi, tmp):
         if not ok:
             raise AssertionError(f"spatial_448 (two cards, b{batch}) failed")
         paths[f"spatial_448_s2_b{batch}"] = ranks[0]["launches"]
+    return paths
+
+
+# spatial_options_parity: each option of the one-card step under spatial
+# partitioning, on two Gloo ranks on card 0
+SPATIAL_OPTION_LEGS = ("accum", "remat", "aa", "kd", "bl")
+SPATIAL_OPTION_KD = dict(kd_temp=2.0, kd_alpha=0.5)
+
+
+def _option_cfg(leg):
+    cfg = _assembled_cfg()
+    if leg == "remat":
+        return dataclasses.replace(cfg, remat="blocks")
+    if leg == "bl":
+        return dataclasses.replace(cfg, bl_alpha=2, bl_beta=4)
+    return cfg
+
+
+def _option_state(payload, leg, device, dtype=torch.float32):
+    """The leg's state at step 5 from the payload, on ``device`` in
+    ``dtype``."""
+    from axcnn_torch.train.train_step import create_train_state
+
+    cfg = _option_cfg(leg)
+    saved = payload["states"]["bl" if leg == "bl" else "base"]
+    state = create_train_state(cfg, generator=torch.Generator(), device=device)
+    state.model.load_state_dict(saved["model"])
+    state.model.to(dtype)
+    # copies: the step updates the velocity and the EMA in place
+    state.velocity = {k: v.to(device, dtype, copy=True) for k, v in saved["velocity"].items()}
+    state.ema = {k: v.to(device, dtype, copy=True) for k, v in saved["ema"].items()}
+    state.step = 5
+    return cfg, state
+
+
+def _option_step(payload, leg, device, dtype=torch.float32, **kw):
+    """``spatial_parity``'s step with the leg's option, from the payload's
+    state and batch; ``kw`` passes the policy, the group, the context.
+    Returns the state and the metrics."""
+    from axcnn_torch.data.autoaugment_device import make_device_autoaugment
+    from axcnn_torch.models.resnet import ResNet
+
+    cfg, state = _option_state(payload, leg, device, dtype)
+    extra, call = {}, {}
+    if leg == "accum":
+        extra["grad_accum_steps"] = 2
+    if leg == "kd":
+        teacher = ResNet(_assembled_cfg())
+        teacher.load_state_dict(payload["teacher"])
+        extra.update(teacher=teacher.to(device, dtype, memory_format=torch.channels_last)
+                     .eval().requires_grad_(False), **SPATIAL_OPTION_KD)
+    if leg == "aa":
+        extra["autoaugment_fn"] = make_device_autoaugment("v0", num_groups=1)
+        call["aa_draws"] = payload["aa_draws"]
+    batch = {k: v.to(device) for k, v in payload["batch"].items()}
+    return _parity_step(cfg, **extra, **kw)(state, batch, SEED + 1, **call)
+
+
+def _int8_option_eval(payload, device, group=None, spatial=None):
+    """The int8 evaluation (EMA weights) of the payload's batch: its sums
+    and every conv's int32 accumulators, in call order."""
+    from axcnn_torch.core.dtypes import INT8_SERVING_POLICY
+    from axcnn_torch.ops import conv as kconv
+    from axcnn_torch.train.train_step import make_eval_step
+
+    cfg, state = _option_state(payload, "int8", device)
+    route, accs = kconv.int8_conv_acc_cuda, []
+
+    def kept(xq, wq, **kw):
+        acc = route(xq, wq, **kw)
+        accs.append(acc.cpu())
+        return acc
+
+    batch = {k: v.to(device) for k, v in payload["batch"].items()}
+    with mock.patch.object(kconv, "int8_conv_acc_cuda", kept):
+        ev = make_eval_step(cfg, policy=INT8_SERVING_POLICY, use_ema=True, group=group,
+                            spatial=spatial)(state, batch)
+    return {k: float(v) for k, v in ev.items()}, accs
+
+
+def _spatial_options_rank(rank, world, coordinator, workdir):
+    """One rank of ``spatial_options_parity`` in its own process on card 0,
+    over Gloo: every leg's spatial step from the payload, then the int8
+    eval, each leg's kernel launches counted."""
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, set_fp32_precision
+    from axcnn_torch.parallel import mesh
+    from axcnn_torch.parallel.spatial import make_spatial_context
+
+    set_fp32_precision(DEFAULT_POLICY)
+    device = torch.device("cuda", 0)
+    mesh.init_distributed(device, rank=rank, world_size=world, coordinator=coordinator,
+                          backend="gloo")
+    try:
+        ctx = make_spatial_context(world)
+        payload = torch.load(os.path.join(workdir, "options_in.pt"), weights_only=False)
+        group = mesh.data_group()
+        out = {}
+        for leg in SPATIAL_OPTION_LEGS:
+            _zero_counts()
+            state, metrics = _option_step(payload, leg, device, group=group, spatial=ctx)
+            torch.cuda.synchronize()
+            out[leg] = {"params": {k: p.detach().cpu() for k, p in
+                                   state.model.named_parameters()},
+                        "buffers": {k: b.cpu() for k, b in state.model.named_buffers()},
+                        "loss": float(metrics["loss"]), "launches": _counts()}
+            del state
+        _zero_counts()
+        ev, accs = _int8_option_eval(payload, device, group=group, spatial=ctx)
+        torch.cuda.synchronize()
+        out["int8"] = {"eval": ev, "accs": accs, "launches": _counts(), "index": ctx.index}
+    finally:
+        mesh.shutdown()
+    torch.save(out, os.path.join(workdir, f"options_rank{rank}.pt"))
+
+
+def _option_launches():
+    """Each leg's launches on a rank: the plain spatial step's 3 + 3 + 9;
+    twice that for two micro-batches; the replay's 3 more forwards; the
+    teacher's 3 forwards; Big-Little's 5 + 5 with 4 sites; the int8 eval's
+    3 forwards."""
+    return {"accum": _spatial_launches(6, 6, 18), "remat": _spatial_launches(6, 3, 9),
+            "aa": _spatial_launches(3, 3, 9), "kd": _spatial_launches(6, 3, 9),
+            "bl": _spatial_launches(5, 5, 4), "int8": _spatial_launches(3, 0, 0)}
+
+
+def spatial_options_parity_phase(smi, tmp):
+    """Each option of the step under spatial partitioning on two Gloo ranks
+    on card 0 against the same option's one-card step and the CPU's float64
+    step (module docstring, 37), with ``spatial_parity``'s bounds; the int8
+    eval against the one-card int8 eval."""
+    import torch.multiprocessing as mp
+
+    from axcnn_torch.cli.main_classification import _free_port
+    from axcnn_torch.core.dtypes import DEFAULT_POLICY, Policy, set_fp32_precision
+    from axcnn_torch.data.autoaugment import POLICIES
+    from axcnn_torch.data.autoaugment_device import draw_autoaugment
+    from axcnn_torch.models.resnet import ResNet
+    from axcnn_torch.train.train_step import create_train_state
+
+    t_start = time.perf_counter()
+    set_fp32_precision(DEFAULT_POLICY)
+    n, size = SPATIAL_PARITY_BATCH, SPATIAL_PARITY_SIZE
+    states = {}
+    for key, leg, seed in (("base", "accum", SEED), ("bl", "bl", SEED + 1)):
+        s = create_train_state(_option_cfg(leg), generator=torch.Generator().manual_seed(seed),
+                               device="cpu")
+        _perturb_bn(s.model, seed)
+        states[key] = {"model": s.model.state_dict(), "velocity": s.velocity, "ema": s.ema}
+    teacher = ResNet(_assembled_cfg(), generator=torch.Generator().manual_seed(SEED + 2))
+    _perturb_bn(teacher, SEED + 2)
+    rng = np.random.default_rng(SEED + 7)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (n, size, size, 3),
+                                                     dtype=np.uint8)),
+             "labels": torch.from_numpy(rng.integers(0, 1001, n).astype(np.int64))}
+    # one AutoAugment group of the whole batch, across both shards' rows
+    (_, _, signs), = draw_autoaugment(rng, len(POLICIES["v0"]), 1, n)
+    coins = np.array([[0.0, 0.9, 0.0, 0.9], [0.9, 0.0, 0.0, 0.9]], np.float32)
+    payload = {"states": states, "teacher": teacher.state_dict(), "batch": batch,
+               "aa_draws": [(0, coins, signs)]}
+    torch.save(payload, os.path.join(tmp, "options_in.pt"))
+
+    one = {}
+    for leg in SPATIAL_OPTION_LEGS:
+        state, metrics = _option_step(payload, leg, "cuda")
+        one[leg] = {"params": {k: p.detach().cpu() for k, p in state.model.named_parameters()},
+                    "buffers": {k: b.cpu() for k, b in state.model.named_buffers()},
+                    "loss": float(metrics["loss"])}
+        del state
+    one_int8, one_accs = _int8_option_eval(payload, "cuda")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mp.start_processes(_spatial_options_rank, nprocs=2, start_method="spawn",
+                       args=(2, f"127.0.0.1:{_free_port()}", tmp))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"options_rank{r}.pt")) for r in range(2)]
+
+    t0 = time.perf_counter()
+    ref = {}
+    to_float = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        for leg in SPATIAL_OPTION_LEGS:
+            state, metrics = _option_step(payload, leg, "cpu", torch.float64,
+                                          policy=Policy(torch.float64, torch.float64))
+            ref[leg] = {"params": {k: p.detach() for k, p in state.model.named_parameters()},
+                        "buffers": dict(state.model.named_buffers()),
+                        "loss": metrics["loss"].item()}
+    finally:
+        torch.Tensor.float = to_float
+    fp64_s = time.perf_counter() - t0
+
+    med = lambda e: float(np.median(list(e.values())))  # noqa: E731
+    tol = dict(loss_rel=1e-4, median_vs_one_card=3.0, worst_vs_one_card=3.0)
+    want = _option_launches()
+    legs, ok = {}, True
+    for leg in SPATIAL_OPTION_LEGS:
+        _, start = _option_state(payload, leg, "cpu")
+        old = {k: p.detach() for k, p in start.model.named_parameters()}
+        old_bn = dict(start.model.named_buffers())
+        sp, o, r = ranks[0][leg], one[leg], ref[leg]
+        e_sp, e_one = _update_errors(old, sp["params"], r["params"]), _update_errors(
+            old, o["params"], r["params"])
+        b_sp, b_one = (_update_errors(old_bn, sp["buffers"], r["buffers"]),
+                       _update_errors(old_bn, o["buffers"], r["buffers"]))
+        e_pair = _update_errors(old, sp["params"], o["params"])
+        loss_rel = abs(sp["loss"] - r["loss"]) / abs(r["loss"])
+        leg_ok = (loss_rel <= tol["loss_rel"]
+                  and med(e_sp) <= tol["median_vs_one_card"] * med(e_one)
+                  and max(e_sp.values()) <= tol["worst_vs_one_card"] * max(e_one.values())
+                  and max(b_sp.values()) <= tol["worst_vs_one_card"] * max(b_one.values())
+                  and all(x[leg]["params"][k].equal(sp["params"][k]) for x in ranks
+                          for k in sp["params"])
+                  and all(x[leg]["launches"] == want[leg] for x in ranks))
+        legs[leg] = dict(loss_spatial=sp["loss"], loss_one_card=o["loss"], loss_fp64=r["loss"],
+                         loss_rel_spatial_vs_fp64=loss_rel,
+                         spatial_vs_fp64={"median": med(e_sp), "worst": max(e_sp.values()),
+                                          "worst_leaf": max(e_sp, key=e_sp.get)},
+                         one_card_vs_fp64={"median": med(e_one), "worst": max(e_one.values())},
+                         spatial_vs_one_card={"median": med(e_pair),
+                                              "worst": max(e_pair.values())},
+                         bn_spatial_vs_fp64=max(b_sp.values()),
+                         bn_one_card_vs_fp64=max(b_one.values()),
+                         launches=ranks[0][leg]["launches"], expected=want[leg], ok=leg_ok)
+        ok = ok and leg_ok
+    # int8: the sums equal the one-card eval's; each conv's accumulators
+    # before the first pooled sum (the stem's 3, stage 1 block 0's
+    # projection, 1x1 and SK convs) are the one-card ones' rows, bit for bit
+    sk = 1 if _assembled_cfg().sk_merged_conv else 2
+    prefix = 3 + 2 + sk
+    matched = []
+    for x in ranks:
+        s, accs = x["int8"]["index"], x["int8"]["accs"]
+        count = 0
+        for got, full in zip(accs, one_accs):
+            h = full.shape[2] // 2
+            if got.shape != full[:, :, s * h:(s + 1) * h].shape or not torch.equal(
+                    got, full[:, :, s * h:(s + 1) * h]):
+                break
+            count += 1
+        matched.append(count)
+    int8_ok = (all(x["int8"]["eval"][k] == one_int8[k] for x in ranks
+                   for k in ("count", "top1", "top5"))
+               and one_int8["count"] == n and min(matched) >= prefix
+               and all(len(x["int8"]["accs"]) == len(one_accs) == INT8_CONVS for x in ranks)
+               and all(x["int8"]["launches"] == want["int8"] for x in ranks))
+    legs["int8"] = dict(eval_spatial=ranks[0]["int8"]["eval"], eval_one_card=one_int8,
+                        convs=len(one_accs), accumulators_bit_equal_leading=matched,
+                        required_leading=prefix, launches=ranks[0]["int8"]["launches"],
+                        expected=want["int8"], ok=int8_ok)
+    ok = ok and int8_ok
+    emit("spatial_options_parity", ranks=2, grid="D1xS2", backend="gloo",
+         card="0 (both ranks)", batch=n, image_size=size, dtype="fp32", tf32=False,
+         legs=legs, tolerance=tol, ranks_seconds=ranks_s, fp64_cpu_seconds=fp64_s,
+         seconds=time.perf_counter() - t_start, nvidia_smi=smi, ok=ok)
+    if not ok:
+        raise AssertionError("spatial_options_parity phase failed")
+    total = dict.fromkeys(want["accum"], 0)
+    for leg in (*SPATIAL_OPTION_LEGS, "int8"):
+        total = _add(total, ranks[0][leg]["launches"])
+    return total
+
+
+SPATIAL_OPTIONS_STEPS, SPATIAL_OPTIONS_IMAGES, SPATIAL_OPTIONS_EVAL = 3, 256, 64
+SPATIAL_OPTIONS_FLAGS = ("--model.remat=blocks", "--train.grad_accum_steps=2",
+                         "--data.autoaugment_device=true")
+
+
+def spatial_448_options_phase(smi, tmp, backends=("gloo", "nccl")):
+    """``finetune_fgvc`` at 448x448 with ``--runtime.spatial_partitions=2``
+    and remat, two micro-batches and device AutoAugment (module docstring,
+    38): two Gloo ranks on card 0 at each of ``SPATIAL_BATCHES``, then,
+    where there are two cards, the CLI's own NCCL ranks (``backends``
+    picks). Returns the launches by path."""
+    import torch.multiprocessing as mp
+
+    from axcnn_torch.cli.main_classification import _free_port
+
+    t_start = time.perf_counter()
+    data_dir = os.path.join(tmp, "s448_records")
+    rng = np.random.default_rng(SEED + 8)
+    _write_records(data_dir, "train", SPATIAL_OPTIONS_IMAGES, SEED + 8, shards=4,
+                   size=FGVC_LONG_SIDE,
+                   labels=rng.integers(0, FGVC_CLASSES, SPATIAL_OPTIONS_IMAGES))
+    _write_records(data_dir, "validation", SPATIAL_OPTIONS_EVAL, SEED + 9, size=FGVC_LONG_SIDE,
+                   labels=rng.integers(0, FGVC_CLASSES, SPATIAL_OPTIONS_EVAL))
+    aa_ms = {b: _aa_ms(b, SPATIAL_SIZE) for b in SPATIAL_BATCHES}
+    steps = SPATIAL_OPTIONS_STEPS
+    want = _spatial_launches(12 * steps + 3, 6 * steps, 18 * steps)
+    cards = torch.cuda.device_count()
+    runs = [(k, b) for k in backends if k == "gloo" or cards >= 2 for b in SPATIAL_BATCHES]
+    paths, ok = {}, True
+    for backend, batch in runs:
+        run = f"s448_opt_{backend}_b{batch}"
+        argv = ["--config=finetune_fgvc", "--data.dataset_name=custom",
+                f"--data.data_dir={data_dir}", f"--data.num_classes={FGVC_CLASSES}",
+                f"--data.num_train_examples={SPATIAL_OPTIONS_IMAGES}",
+                f"--data.num_eval_examples={SPATIAL_OPTIONS_EVAL}",
+                f"--data.image_size={SPATIAL_SIZE}", f"--train.train_steps={steps}",
+                f"--train.batch_size={batch}", "--train.log_every=1",
+                "--runtime.num_devices=2", "--runtime.spatial_partitions=2",
+                *SPATIAL_OPTIONS_FLAGS, f"--runtime.model_dir={os.path.join(tmp, run)}"]
+        # gloo: both ranks on card 0; nccl: a card each, as the CLI starts them
+        card = 0 if backend == "gloo" else None
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.start_processes(_spatial_cli_rank, nprocs=2, start_method="spawn",
+                           args=(2, f"127.0.0.1:{_free_port()}", argv, tmp, card, backend))
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"cli_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        with open(os.path.join(tmp, run, "metrics.jsonl")) as f:
+            train = [r for r in map(json.loads, f) if r["tag"] == "train"]
+        walls = _step_walls(train) * 1e3
+        losses = [r["loss"] for r in train]
+        run_ok = (len(train) == steps and all(np.isfinite(losses))
+                  and all(r["launches"] == want for r in ranks)
+                  and ranks[0]["metrics"]["count"] == SPATIAL_OPTIONS_EVAL
+                  and not any(r["routes"]["fwd_thread"] or r["routes"]["bwd_thread"]
+                              for r in ranks))
+        emit("spatial_448_options", grid="D1xS2", backend=backend,
+             cards="0 (both ranks)" if card == 0 else "0, 1", image_size=SPATIAL_SIZE,
+             batch=batch, micro_batch=batch // 2, remat="blocks", grad_accum_steps=2,
+             autoaugment="device v0", data=f"{SPATIAL_OPTIONS_IMAGES} JPEGs of "
+             f"{FGVC_LONG_SIDE}^2", dtype="bf16", steps=steps, losses=losses,
+             step_ms=walls.tolist(), mean_step_ms=float(walls.mean()),
+             step_ms_min=float(walls.min()), peak_gib_per_rank=[r["peak_gib"] for r in ranks],
+             aa_per_rank=aa_ms[batch], launches_per_rank=[r["launches"] for r in ranks],
+             expected=want, routes=ranks[0]["routes"], eval=ranks[0]["metrics"],
+             seconds=seconds, card=smi, ok=run_ok)
+        ok = ok and run_ok
+        paths[f"spatial_448_options_{backend}_b{batch}"] = ranks[0]["launches"]
+    if cards < 2 and "nccl" in backends:
+        emit("spatial_448_options", backend="nccl", ran=False, reason=f"{cards} card")
+    emit("spatial_448_options", part="total", seconds=time.perf_counter() - t_start, ok=ok)
+    if not ok:
+        raise AssertionError("spatial_448_options phase failed")
     return paths
 
 
@@ -3232,6 +3603,8 @@ def main():
         if parity is not None:
             paths["spatial_parity"] = parity
         paths.update(spatial_448_phase(smi, tmp))
+        paths["spatial_options_parity"] = spatial_options_parity_phase(smi, tmp)
+        paths.update(spatial_448_options_phase(smi, tmp))
     for _, keys, name, *_ in KERNELS:
         for k in keys:
             if not any(counts[k] for counts in paths.values()):

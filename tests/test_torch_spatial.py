@@ -24,7 +24,10 @@ EMA and the BN moving statistics to a relative 1e-10; against the
 reference's jitted unsharded ``make_train_step`` (``axis_name=None``) at
 the float64 bounds of tests/test_torch_train_step.py; the eval's sums equal
 the one-rank eval's (counts exactly); the halo exchange and the mixup
-mirror checked directly on each rank. The refusals close the file.
+mirror checked directly on each rank. On the ``(1, 2)`` ranks, a Big-Little
+model with ``remat="blocks"`` (both once refused under spatial partitioning)
+runs a train forward and backward that the one-rank one matches. What the
+step still refuses closes the file.
 """
 
 import os
@@ -66,6 +69,9 @@ LR_KW = dict(base_lr=0.1 * N / 256, total_steps=TOTAL, warmup_steps=2)
 SITES = {f"dropblock/stage{s}/block{b}": SIZE // 4 // 2 ** (s - 1)
          for s, blocks in ((3, 6), (4, 3)) for b in range(blocks)}
 ROOT_KEY = 72
+# a Big-Little model with remat, no DropBlock, no zero-gamma: every branch live
+BL_REMAT = dict(CFG, use_dropblock=False, zero_gamma=False, bl_alpha=2, bl_beta=4,
+                remat="blocks")
 GRIDS = ((1, 2), (2, 2))  # (D, S)
 REL = 1e-12  # the per-op bound where the shards sum in another order
 
@@ -311,6 +317,31 @@ def _f64_step(payload, images, labels, uniforms, group=None, spatial=None):
             "eval": {k: float(v) for k, v in ev.items()}}
 
 
+def _bl_remat_pass(images, group=None, spatial=None):
+    """A float64 train forward and backward (loss: the logits' sum of
+    squares) of a seeded Big-Little model with remat on ``images``, or on
+    this rank's rows of them: the logits, this rank's share of the
+    parameters' gradients and how far the BN moving statistics moved."""
+    model = create_train_state(ModelConfig(**BL_REMAT), generator=torch.Generator().manual_seed(7),
+                               device="cpu").model.double()
+    start = {k: b.clone() for k, b in model.named_buffers()}
+    x = images.double() / 255.0
+    if spatial is not None:
+        x = spatial.slice_rows(x)
+    to_float = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        logits = model(x, train=True, policy=Policy(torch.float64, torch.float64), group=group,
+                       spatial=spatial)
+        # a spatial row's S ranks hold the same logits: each backs 1/S of the loss
+        (logits.square().sum() / (1 if spatial is None else spatial.parts)).backward()
+    finally:
+        torch.Tensor.float = to_float
+    return {"logits": logits.detach(),
+            "grads": {k: p.grad for k, p in model.named_parameters()},
+            "moved": {k: b - start[k] for k, b in model.named_buffers()}}
+
+
 def _rank_main(rank, world, spatial_parts, port, workdir):
     from axcnn_torch.parallel import mesh
 
@@ -335,6 +366,8 @@ def _rank_main(rank, world, spatial_parts, port, workdir):
         uniforms = {k: u[d * n:(d + 1) * n] for k, u in payload["uniforms"].items()}
         out["step"] = _f64_step(payload, imgs, payload["labels"][d * n:(d + 1) * n], uniforms,
                                 group=mesh.data_group(), spatial=ctx)
+        if ctx.data_parts == 1:
+            out["bl_remat"] = _bl_remat_pass(imgs, group=mesh.data_group(), spatial=ctx)
     finally:
         mesh.shutdown()
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
@@ -440,6 +473,7 @@ def spatial_runs(tmp_path_factory):
             j_new, j_metrics = jstep(jstate, batch, root_key)
             want = (jstate, jax.tree.map(np.asarray, j_new), jax.device_get(j_metrics))
         one = _f64_step(payload, payload["images"], payload["labels"], uniforms)
+        one["bl_remat"] = _bl_remat_pass(payload["images"])
         outs = {g: [p.communicate(timeout=600)[0] for p in ps] for g, ps in procs.items()}
     finally:
         for ps in procs.values():
@@ -576,26 +610,40 @@ def test_mixup_pairs_with_the_mirror_data_shard(spatial_runs, grid):
 
 
 # ---------------------------------------------------------------------------
-# refusals
+# what was refused until ported, and what still is
 # ---------------------------------------------------------------------------
 
-def test_the_model_refuses_big_little_and_remat_under_spatial():
-    ctx = sp.SpatialContext(index=0, parts=2, data_index=0, data_parts=1, row_group=None)
-    for change in ({"bl_alpha": 2, "bl_beta": 4}, {"remat": "blocks"}):
-        model = create_train_state(ModelConfig(width_multiplier=0.125, num_classes=10,
-                                               **change),
-                                   generator=torch.Generator(), device="cpu").model
-        with pytest.raises(NotImplementedError, match="items 11b, 11c"):
-            model(torch.zeros(1, 64, 64, 3), train=True, spatial=ctx)
+def test_the_model_refuses_big_little_and_remat_under_spatial(spatial_runs):
+    """No longer refused: on the D1xS2 ranks a Big-Little model with
+    ``remat="blocks"`` runs a train forward and backward (sync-BN over both
+    ranks, the replay's collectives in the backward) whose logits are the
+    one-rank pass's and whose two ranks' gradients add up to its gradients,
+    relative 1e-10 per tensor; the BN moving statistics are updated once,
+    as the one-rank pass updates them."""
+    one = spatial_runs["one"]["bl_remat"]
+    ranks = [r["bl_remat"] for r in spatial_runs["ranks"][(1, 2)]]
+    for r in ranks:
+        assert _rel(r["logits"], one["logits"]) <= 1e-10
+        for k, moved in one["moved"].items():
+            assert _rel(r["moved"][k], moved) <= 1e-10, k
+    worst = {k: _rel(sum(r["grads"][k] for r in ranks), g) for k, g in one["grads"].items()}
+    key = max(worst, key=worst.get)
+    assert worst[key] <= 1e-10, (key, worst[key])
 
 
 def test_the_step_refuses_what_it_does_not_take_under_spatial():
+    """The spatially partitioned step is the global-batch step: it needs the
+    group of every rank with sync-BN. It takes gradient accumulation, a KD
+    teacher and device AutoAugment."""
     ctx = sp.SpatialContext(index=0, parts=2, data_index=0, data_parts=1, row_group=None)
     cfg = ModelConfig(width_multiplier=0.125, num_classes=10)
-    for kw in (dict(grad_accum_steps=2, group=object()), dict(autoaugment_fn=len, group=object()),
-               dict(group=object(), sync_bn=False), {}):
-        with pytest.raises(NotImplementedError, match="items 11e-11g"):
+    for kw in (dict(group=object(), sync_bn=False), {}):
+        with pytest.raises(NotImplementedError, match="process group of every rank with sync-BN"):
             make_train_step(cfg, lr_schedule=t_lr(**LR_KW), spatial=ctx, **kw, **STEP_KW)
+    teacher = create_train_state(cfg, generator=torch.Generator(), device="cpu").model
+    for kw in (dict(grad_accum_steps=2), dict(autoaugment_fn=len), dict(teacher=teacher)):
+        assert callable(make_train_step(cfg, lr_schedule=t_lr(**LR_KW), spatial=ctx,
+                                        group=object(), **kw, **STEP_KW))
 
 
 if __name__ == "__main__":

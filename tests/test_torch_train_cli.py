@@ -111,6 +111,16 @@ def test_cli_trains_on_tfrecords(producers, tmp_path):
 SPATIAL = "--runtime.spatial_partitions=2"
 # the command-line flags for each entry of the loop's lists of refusals
 REFUSED_FLAGS = {
+    "runtime.spatial_partitions > 1 with runtime.eval_imagenet_c":
+        (SPATIAL, "--runtime.eval_imagenet_c"),
+    "runtime.dcn_slices > 1": ("--runtime.dcn_slices=2",),
+}
+# options that were refused until ported; the loop now takes each
+PORTED_FLAGS = {
+    "data.autoaugment_device": ("--data.autoaugment_device",),
+    "runtime.export_dir": ("--runtime.export_dir=/nonexistent",),
+    "runtime.eval_imagenet_c": ("--runtime.eval_imagenet_c",),
+    "runtime.spatial_partitions": (SPATIAL,),
     "runtime.spatial_partitions > 1 with Big-Little stages":
         (SPATIAL, "--model.bl_alpha=2", "--model.bl_beta=4"),
     "runtime.spatial_partitions > 1 with model.remat": (SPATIAL, "--model.remat=blocks"),
@@ -121,16 +131,6 @@ REFUSED_FLAGS = {
         (SPATIAL, "--train.kd_teacher_checkpoint=/nonexistent"),
     "runtime.spatial_partitions > 1 with train.grad_accum_steps > 1":
         (SPATIAL, "--train.grad_accum_steps=2"),
-    "runtime.spatial_partitions > 1 with runtime.eval_imagenet_c":
-        (SPATIAL, "--runtime.eval_imagenet_c"),
-    "runtime.dcn_slices > 1": ("--runtime.dcn_slices=2",),
-}
-# options that were refused until ported; the loop now takes each
-PORTED_FLAGS = {
-    "data.autoaugment_device": "--data.autoaugment_device",
-    "runtime.export_dir": "--runtime.export_dir=/nonexistent",
-    "runtime.eval_imagenet_c": "--runtime.eval_imagenet_c",
-    "runtime.spatial_partitions": SPATIAL,
 }
 
 
@@ -157,12 +157,12 @@ def test_unported_option_is_refused(what, tmp_path):
 
 @pytest.mark.parametrize("what", sorted(PORTED_FLAGS))
 def test_ported_option_is_not_refused(what):
-    """Options once refused until ported now pass the loop's check; what is
-    left unported is spatial partitioning combined with another option."""
-    cfg = parse_cli([*SMALL, "--runtime.platform=cpu", PORTED_FLAGS[what]])
+    """Options once refused until ported now pass the loop's check, spatial
+    partitioning with each option of the one-rank step among them; nothing
+    is left unported."""
+    cfg = parse_cli([*SMALL, "--runtime.platform=cpu", *PORTED_FLAGS[what]])
     check_ported(cfg)
-    assert UNPORTED and all(w.startswith("runtime.spatial_partitions > 1 with ")
-                            for w, _, _ in UNPORTED)
+    assert UNPORTED == ()
 
 
 def test_cli_trains_spatially_partitioned_on_two_cpu_ranks(tmp_path):
@@ -179,6 +179,54 @@ def test_cli_trains_spatially_partitioned_on_two_cpu_ranks(tmp_path):
     assert [r["step"] for r in train] == [1, 2]
     assert all(torch.isfinite(torch.tensor(r["loss"])) for r in train)
     assert metrics["count"] == 4 * 4  # the synthetic eval set: 4 batches of 4
+
+
+def test_cli_trains_spatially_partitioned_with_its_options_on_two_cpu_ranks(tmp_path):
+    """``--runtime.spatial_partitions=2`` with ``--train.grad_accum_steps=2
+    --model.remat=blocks --data.autoaugment_device`` on two Gloo ranks, on
+    TFRecords (device AutoAugment is off on synthetic data, as in the
+    reference): two steps with finite losses, then the eval, each eval image
+    counted once. Then, from what that run saved, a Big-Little student with
+    it as the KD teacher for a step, and its int8 evaluation."""
+    import numpy as np
+    from PIL import Image
+
+    from axcnn_torch.data.build_tfrecords import write_shards
+
+    rng = np.random.default_rng(1)
+    items = {"train": [], "validation": []}
+    for label, name in enumerate(("a", "b")):
+        for i in range(6):
+            p = str(tmp_path / f"{name}{i}.jpg")
+            Image.fromarray(rng.integers(0, 256, (140, 150, 3), dtype=np.uint8)).save(p)
+            items["train" if i < 4 else "validation"].append((p, label, name))
+    rec = str(tmp_path / "rec")
+    write_shards(items["train"], rec, "train", 2)
+    write_shards(items["validation"], rec, "validation", 1)
+    model_dir = str(tmp_path / "run")
+    common = ["--config=assemble_resnet50", "--model.width_multiplier=0.125",
+              "--data.dataset_name=custom", f"--data.data_dir={rec}", "--data.num_classes=2",
+              "--data.num_train_examples=8", "--data.num_eval_examples=4",
+              "--data.image_size=128", "--data.resize_min=128", "--data.num_workers=2",
+              "--train.batch_size=4", "--train.log_every=1", "--runtime.platform=cpu", SPATIAL]
+    metrics = tcli.main([
+        *common, "--data.autoaugment_device", "--train.grad_accum_steps=2",
+        "--model.remat=blocks", "--train.train_steps=2", f"--runtime.model_dir={model_dir}"])
+    train = [r for r in _records(model_dir) if r["tag"] == "train"]
+    assert [r["step"] for r in train] == [1, 2]
+    assert all(torch.isfinite(torch.tensor(r["loss"])) for r in train)
+    assert metrics["count"] == 4
+    student_dir = str(tmp_path / "bl_kd")
+    metrics = tcli.main([
+        *common, "--model.bl_alpha=2", "--model.bl_beta=4", "--train.train_steps=1",
+        f"--train.kd_teacher_checkpoint={model_dir}/checkpoints",
+        f"--runtime.model_dir={student_dir}"])
+    train = [r for r in _records(student_dir) if r["tag"] == "train"]
+    assert len(train) == 1 and torch.isfinite(torch.tensor(train[0]["loss"]))
+    assert metrics["count"] == 4
+    metrics = tcli.main([*common, "--runtime.eval_only", "--train.dtype=int8",
+                         f"--runtime.model_dir={model_dir}"])
+    assert metrics["count"] == 4 and 0.0 <= metrics["top1"] <= 100.0
 
 
 @pytest.mark.parametrize("flags,match", [
