@@ -143,7 +143,8 @@ class TFRecordImageLoader:
                 "decode path (it maps to libjpeg JDCT_IFAST); this "
                 "configuration fell back to PIL")
         self.state = LoaderState(epoch=0, batches_yielded=0)
-        self._num_batches = None  # framing-scan result; shards are immutable
+        # framing-scan results; shards are immutable
+        self._num_batches = self._num_records = None
 
     @property
     def native_active(self) -> bool:
@@ -163,10 +164,16 @@ class TFRecordImageLoader:
         batch count — hosts with fewer records pad, so the per-batch psum
         never deadlocks."""
         if self._num_batches is None:
-            n = sum(count_records(p) for p in self._shards)
+            n = self.num_records()
             self._num_batches = (n // self._bs if self._drop_remainder
                                  else -(-n // self._bs))
         return self._num_batches
+
+    def num_records(self) -> int:
+        """Records in THIS host's shard subset (framing scan, cached)."""
+        if self._num_records is None:
+            self._num_records = sum(count_records(p) for p in self._shards)
+        return self._num_records
 
     # -- deterministic record stream for (seed, epoch) ----------------------
     def _record_stream(self, epoch: int):
@@ -260,6 +267,13 @@ class TFRecordImageLoader:
             # break) — a mid-pass state left behind would silently skip the
             # already-yielded batches and undercount the next eval's metrics
             self.state = LoaderState(epoch=0, batches_yielded=0)
+        elif self._drop_remainder and self.num_batches() == 0:
+            # every epoch would end before its first batch, and the loop
+            # below would scan empty epochs forever
+            raise ValueError(
+                f"{self.num_records()} training record(s) in {self._info.name}'s "
+                f"shards cannot fill one batch of {self._bs} (drop_remainder): "
+                "add records or lower the batch")
         epoch = self.state.epoch
         skip = self.state.batches_yielded  # deterministic resume
         while True:

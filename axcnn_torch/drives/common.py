@@ -1,11 +1,13 @@
 """What the library drives share: the device, the native loader they all
-require, the step loop and the held-out eval."""
+require, the step loop, the held-out eval and the training CLI's runs."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -14,9 +16,11 @@ import torch
 from axcnn_torch.ckpt.checkpoint import CheckpointManager
 from axcnn_torch.core.dtypes import BF16_POLICY
 from axcnn_torch.data import cpp_loader
-from axcnn_torch.data.pipeline import DevicePrefetch, TFRecordImageLoader
+from axcnn_torch.data.pipeline import DevicePrefetch, EchoIterator, TFRecordImageLoader
+from axcnn_torch.models.resnet import ModelConfig
 from axcnn_torch.train.loop import evaluate
 from axcnn_torch.train.train_step import create_train_state, make_eval_step
+from axcnn_torch.utils.watchdog import HANG_EXIT_CODE
 
 POLICY = BF16_POLICY  # every drive trains and evaluates in bf16, as the reference's
 
@@ -59,14 +63,17 @@ def native_loader(data_dir, info, *, batch: int, image_size: int, train: bool,
 
 
 def run_steps(step_fn, state, loader, steps: int, *, root_seed: int, device, label: str,
-              log_every: int, log=print) -> tuple:
+              log_every: int, echo: int = 1, log=print) -> tuple:
     """``steps`` steps of ``step_fn`` on ``loader``'s batches through a
-    ``DevicePrefetch`` of 2. Logs steps 1, every ``log_every``-th and the
-    last (each a host sync on the loss). Returns (state, record): the
-    logged losses, the wall seconds, the median gap between steps on the
-    host's clock (the step rate once the queue of launches is full) and
-    whether every step's loss was finite."""
-    it = DevicePrefetch(iter(loader), device=device, size=2)
+    ``DevicePrefetch`` of 2, each batch fed to ``echo`` consecutive steps
+    (``EchoIterator`` above the prefetch; step 1 trains on the first
+    batch). Logs steps 1, every ``log_every``-th and the last (each a host
+    sync on the loss). Returns (state, record): the logged losses, the wall
+    seconds, the median gap between steps on the host's clock (the step
+    rate once the queue of launches is full) and whether every step's loss
+    was finite."""
+    prefetch = DevicePrefetch(iter(loader), device=device, size=2)
+    it = EchoIterator(prefetch, echo) if echo > 1 else prefetch
     losses, stamps, logged = [], [], []
     try:
         t0 = time.perf_counter()
@@ -82,7 +89,7 @@ def run_steps(step_fn, state, loader, steps: int, *, root_seed: int, device, lab
         all_losses = torch.stack(losses).float().cpu()  # waits for the last step
         wall = time.perf_counter() - t0
     finally:
-        it.close()
+        prefetch.close()
     gaps = np.diff(stamps)
     record = {"steps": steps, "seconds": wall, "logged_loss": logged,
               "median_step_ms": float(np.median(gaps)) * 1e3 if len(gaps) else None,
@@ -92,10 +99,10 @@ def run_steps(step_fn, state, loader, steps: int, *, root_seed: int, device, lab
 
 
 def evaluate_split(cfg, state, data_dir, info, *, use_ema: bool, batch: int, image_size: int,
-                   device, resize_min: int | None = None) -> dict:
-    """The EMA-swapped (``use_ema``) or raw eval of ``info``'s eval split:
-    {'top1': %, 'top5': %, 'loss', 'count'}."""
-    eval_step = make_eval_step(cfg, policy=POLICY, use_ema=use_ema,
+                   device, resize_min: int | None = None, policy=POLICY) -> dict:
+    """The EMA-swapped (``use_ema``) or raw eval of ``info``'s eval split
+    under ``policy``: {'top1': %, 'top5': %, 'loss', 'count'}."""
+    eval_step = make_eval_step(cfg, policy=policy, use_ema=use_ema,
                                mean_rgb=info.mean_rgb, stddev_rgb=info.stddev_rgb)
     loader = native_loader(data_dir, info, batch=batch, image_size=image_size, train=False,
                            resize_min=resize_min)
@@ -128,6 +135,108 @@ def cached_train(directory: str, cfg, steps: int, *, use_ema: bool, device, trai
     mgr.save(state, force=True)
     mgr.close()
     return state, record
+
+
+def restore_state(directory: str, *, device):
+    """(the ``ModelConfig`` its ``model_config.json`` records, the train
+    state with its EMA) of the latest checkpoint in ``directory``; None
+    when there is none."""
+    mgr = CheckpointManager(directory)
+    try:
+        if mgr.latest_step() is None:
+            return None
+        cfg = ModelConfig(**{k: (tuple(v) if isinstance(v, list) else v)
+                             for k, v in mgr.model_config().items()})
+        state = create_train_state(cfg, generator=torch.Generator().manual_seed(0),
+                                   device=device, use_ema=True)
+        return cfg, mgr.restore(state)[0]
+    finally:
+        mgr.close()
+
+
+# -- the training CLI's runs (the drives that go through the literal CLI) ----------
+
+def cli_command(args) -> list:
+    return [sys.executable, "-m", "axcnn_torch.cli.main_classification", *args]
+
+
+def cli(args, tag: str, model_dir: str, log=print, retries: int = 0) -> float:
+    """Run the training CLI, its output into ``<model_dir>/cli.log``. On the
+    hang watchdog's exit code (42) run it again, up to ``retries`` times:
+    the loop resumes from its last checkpoint. Returns its seconds, the
+    retries included; raises with the log's tail on any other failure."""
+    cmd = cli_command(args)
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir, "cli.log")
+    t0 = time.time()
+    with open(path, "w") as out:
+        for attempt in range(retries + 1):
+            log(f"[{tag}] $ {' '.join(cmd)}")
+            t1 = time.time()
+            r = subprocess.run(cmd, stdout=out, stderr=subprocess.STDOUT)
+            log(f"[{tag}] exit={r.returncode} in {time.time() - t1:.0f}s")
+            if r.returncode != HANG_EXIT_CODE or attempt == retries:
+                break
+            log(f"[{tag}] hang detected (exit {HANG_EXIT_CODE}); retry {attempt + 1}/{retries} "
+                "resumes from checkpoint")
+    if r.returncode:
+        with open(path) as f:
+            raise RuntimeError(f"{tag} failed (exit {r.returncode}):\n{f.read()[-6000:]}")
+    return time.time() - t0
+
+
+def cli_run_flags(device, *, width: float, image_size: int, full_size: int) -> list:
+    """The CLI flags of a drive's size and device: one card (or the host
+    CPU), and the width and image size where they are cut."""
+    flags = ["--runtime.num_devices=1"]
+    if device.type == "cpu":
+        flags.append("--runtime.platform=cpu")
+    if width != 1.0:
+        flags.append(f"--model.width_multiplier={width}")
+    if image_size != full_size:
+        flags += [f"--data.image_size={image_size}",
+                  f"--data.resize_min={resize_min_for(image_size)}"]
+    return flags
+
+
+def cli_data_flags(data_dir, info) -> list:
+    """A generated set's flags, echo 2 (the reference's literal lists)."""
+    return [
+        "--data.dataset_name=custom",
+        f"--data.data_dir={data_dir}",
+        f"--data.num_classes={info.num_classes}",
+        f"--data.num_train_examples={info.num_train}",
+        f"--data.num_eval_examples={info.num_eval}",
+        "--data.loader=cpp",
+        "--data.echo_factor=2",
+        "--data.num_workers=4",
+    ]
+
+
+def records(model_dir: str, tag: str) -> list:
+    """The ``tag`` records of a CLI run's ``metrics.jsonl``."""
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r.get("tag") == tag]
+
+
+def last_eval(model_dir: str) -> dict:
+    evals = records(model_dir, "eval")
+    assert evals, f"no eval record in {model_dir}"
+    return evals[-1]
+
+
+def train_complete(model_dir: str, steps: int) -> bool:
+    """True once the run's own final eval is logged (the loop evaluates at
+    its last step); a bare ``checkpoints/`` is not completion: a run cut
+    short resumes from its last checkpoint when the CLI runs again."""
+    if not os.path.exists(os.path.join(model_dir, "metrics.jsonl")):
+        return False
+    return any(r.get("step", 0) >= steps for r in records(model_dir, "eval"))
+
+
+def train_losses(model_dir: str) -> list:
+    """The run's logged training losses, as [step, loss]."""
+    return [[r["step"], r["loss"]] for r in records(model_dir, "train")]
 
 
 def add_size_args(parser, *, steps: int, batch: int, image_size: int) -> None:

@@ -36,18 +36,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
-import sys
 import tempfile
-import time
 
-import torch
-
-from axcnn_torch.ckpt.checkpoint import CheckpointManager
 from axcnn_torch.drives import common
-from axcnn_torch.drives.data import make_scale_set, make_subset
-from axcnn_torch.models.resnet import ModelConfig
-from axcnn_torch.train.train_step import create_train_state
+from axcnn_torch.drives.data import SCALE_ROOT, make_scale_set, make_subset
 
 TEACHER_STEPS = 2500
 STUDENT_STEPS = 600
@@ -61,63 +53,11 @@ BASE_LR = 0.1
 NOISE_FRAC = 0.4
 N_TRAIN, N_EVAL = 120, 24
 DEFAULT_ROOT = os.path.join(tempfile.gettempdir(), "axcnn_torch_kd")
-SCALE_ROOT = os.path.join(tempfile.gettempdir(), "axcnn_torch_convergence_scale")
 OK_LINE = "KD DRIVE (config 5: R152 student + R50 teacher, literal CLI) OK"
 # the reference's summary at its default LR (scripts/kd_drive.py:250-260)
 SUMMARY_KEYS = ("teacher_top1", "student_steps", "n_subset", "noise_frac", "base_lr",
                 "control_top1", "kd_top1", "control_lr0.2_top1", "control_loss", "kd_loss",
                 "control_lr0.2_loss", "kd_raw_top1", "kd_ema_top1")
-
-
-def cli_command(args) -> list:
-    return [sys.executable, "-m", "axcnn_torch.cli.main_classification", *args]
-
-
-def cli(args, tag: str, model_dir: str, log=print) -> float:
-    """Run the training CLI, its output into ``<model_dir>/cli.log``;
-    returns its seconds, raises with the log's tail when it fails."""
-    cmd = cli_command(args)
-    log(f"[{tag}] $ {' '.join(cmd)}")
-    os.makedirs(model_dir, exist_ok=True)
-    path = os.path.join(model_dir, "cli.log")
-    t0 = time.time()
-    with open(path, "w") as out:
-        r = subprocess.run(cmd, stdout=out, stderr=subprocess.STDOUT)
-    seconds = time.time() - t0
-    log(f"[{tag}] exit={r.returncode} in {seconds:.0f}s")
-    if r.returncode:
-        with open(path) as f:
-            raise RuntimeError(f"{tag} failed (exit {r.returncode}):\n{f.read()[-6000:]}")
-    return seconds
-
-
-def _records(model_dir: str, tag: str) -> list:
-    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
-        return [r for r in map(json.loads, f) if r.get("tag") == tag]
-
-
-def last_eval(model_dir: str) -> dict:
-    evals = _records(model_dir, "eval")
-    assert evals, f"no eval record in {model_dir}"
-    return evals[-1]
-
-
-def train_losses(model_dir: str) -> list:
-    """The run's logged training losses, as [step, loss]."""
-    return [[r["step"], r["loss"]] for r in _records(model_dir, "train")]
-
-
-def data_flags(data_dir, info) -> list:
-    return [
-        "--data.dataset_name=custom",
-        f"--data.data_dir={data_dir}",
-        f"--data.num_classes={info.num_classes}",
-        f"--data.num_train_examples={info.num_train}",
-        f"--data.num_eval_examples={info.num_eval}",
-        "--data.loader=cpp",
-        "--data.echo_factor=2",
-        "--data.num_workers=4",
-    ]
 
 
 def check_teacher(teacher_top1: float, detail) -> None:
@@ -152,35 +92,32 @@ def run(student_steps: int = STUDENT_STEPS, root: str = DEFAULT_ROOT, n_subset: 
     data_dir, info = make_scale_set(scale_root, n_train=n_train, n_eval=n_eval, seed=0, log=log)
     sub_dir, sub_info = make_subset(scale_root, root, n_subset, noise_frac=noise_frac,
                                     n_train=n_train, n_eval=n_eval)
-    run_flags = [f"--train.batch_size={batch}", "--runtime.num_devices=1"]
-    if device.type == "cpu":
-        run_flags.append("--runtime.platform=cpu")
-    if width != 1.0:
-        run_flags.append(f"--model.width_multiplier={width}")
-    if image_size != IMAGE:
-        run_flags += [f"--data.image_size={image_size}",
-                      f"--data.resize_min={common.resize_min_for(image_size)}"]
+    run_flags = [f"--train.batch_size={batch}",
+                 *common.cli_run_flags(device, width=width, image_size=image_size,
+                                       full_size=IMAGE)]
     seconds, losses = {}, {}
 
     teacher_dir = os.path.join(root, "teacher")
     teacher_ckpt = os.path.join(teacher_dir, "checkpoints")
     seconds["teacher"] = None
     if not os.path.isdir(teacher_ckpt):
-        seconds["teacher"] = cli(
-            ["--config=assemble_resnet50", *data_flags(data_dir, info), *run_flags,
+        seconds["teacher"] = common.cli(
+            ["--config=assemble_resnet50", *common.cli_data_flags(data_dir, info),
+             *run_flags,
              f"--runtime.model_dir={teacher_dir}", f"--train.train_steps={teacher_steps}",
              # train_steps > 0: warmup epochs are fractions of the run, and
              # the one eval comes at its end
              "--train.lr_warmup_epochs=0.07",
              "--train.base_lr=0.2",  # per 256, scaled to 0.05 at batch 64
              ], "teacher", teacher_dir, log)
-    tm = last_eval(teacher_dir)
-    losses["teacher"] = train_losses(teacher_dir)
+    tm = common.last_eval(teacher_dir)
+    losses["teacher"] = common.train_losses(teacher_dir)
     log(f"[teacher] held-out top1={tm['top1']:.2f} top5={tm['top5']:.2f} loss={tm['loss']:.4f}")
     if check_bars:
         check_teacher(tm["top1"], tm)
 
-    common_flags = ["--config=assemble_resnet152_kd", *data_flags(sub_dir, sub_info), *run_flags,
+    common_flags = ["--config=assemble_resnet152_kd", *common.cli_data_flags(sub_dir, sub_info),
+                    *run_flags,
                     f"--train.train_steps={student_steps}", "--train.lr_warmup_epochs=0.07"]
     kd_flags = [f"--train.kd_teacher_checkpoint={teacher_ckpt}",
                 "--train.kd_temp=1.0", "--train.kd_alpha=1.0"]
@@ -193,24 +130,19 @@ def run(student_steps: int = STUDENT_STEPS, root: str = DEFAULT_ROOT, n_subset: 
         mdir = os.path.join(root, f"student_{tag}{suffix}" + (f"_lr{lr}" if lr != 0.2 else ""))
         seconds[tag] = None
         if not os.path.isdir(os.path.join(mdir, "checkpoints")):
-            seconds[tag] = cli([*common_flags, f"--train.base_lr={lr}",
+            seconds[tag] = common.cli([*common_flags, f"--train.base_lr={lr}",
                                 f"--runtime.model_dir={mdir}", *extra], tag, mdir, log)
-        legs[tag] = last_eval(mdir)
+        legs[tag] = common.last_eval(mdir)
         leg_dirs[tag] = mdir
-        losses[tag] = train_losses(mdir)
+        losses[tag] = common.train_losses(mdir)
         log(f"[student/{tag}] held-out top1={legs[tag]['top1']:.2f} "
             f"top5={legs[tag]['top5']:.2f} loss={legs[tag]['loss']:.4f}")
     log(f"[train_loss] {json.dumps(losses)}")
 
     # epilogue: raw against EMA on the KD student (the CLI evaluates the EMA
     # only)
-    mgr = CheckpointManager(os.path.join(leg_dirs["kd"], "checkpoints"))
-    mcfg = ModelConfig(**{k: (tuple(v) if isinstance(v, list) else v)
-                          for k, v in mgr.model_config().items()})
-    state = create_train_state(mcfg, generator=torch.Generator().manual_seed(0),
-                               device=device, use_ema=True)
-    state = mgr.restore(state)[0]
-    mgr.close()
+    mcfg, state = common.restore_state(os.path.join(leg_dirs["kd"], "checkpoints"),
+                                       device=device)
     raw_ema = {}
     for name, use_ema in (("raw", False), ("ema", True)):
         raw_ema[name] = common.evaluate_split(mcfg, state, data_dir, info, use_ema=use_ema,

@@ -78,9 +78,9 @@ points and checks them:
     launches, the teacher's 3 forward launches, 39 fused DropBlock launches
     and 39 apply backwards), step time, images/s and peak memory;
 15. dp: two ranks on card 0, joined over Gloo (NCCL takes one rank per
-    card: the test's topology, not a route of the program), each with 64
-    images of a b128 batch. One fp32 step (TF32 off, DropBlock at keep-prob
-    1.0, mixup off) of the two ranks against one single-process b128 step
+    card: the test's topology, not a route of the program), each with 8
+    images of a b16 batch. One fp32 step (TF32 off, DropBlock at keep-prob
+    1.0, mixup off) of the two ranks against one single-process b16 step
     from the same state, each held to the float64 CPU step as
     ``train_parity`` holds the card; then one step with DropBlock and mixup
     active: finite losses, the ranks' parameters equal element for
@@ -230,7 +230,23 @@ points and checks them:
     over NCCL a card a rank: finite losses, each rank's peak memory, rank
     0's record-gap step walls, the augmentation alone (events and enqueue
     ms, as ``aa_time``; every rank of a row runs it), and the launches (a step: BlurPool 12 + 6,
-    the windowed mask, the forward apply and the apply backward 18 each).
+    the windowed mask, the forward apply and the apply backward 18 each);
+39. drives_cut_more (after drives_cut, on its root): ``convergence_scale``
+    (20 steps, echo 2, on drives_cut's 50-class set), ``finetune`` (three
+    ``run()`` calls of 5 steps, 22 images a class), ``convergence_1k`` (the
+    1001-way head with label offset 1 through the training CLI, 1 train and
+    1 held-out image a class, 10 steps, echo 4), ``bl`` (``bl_resnet50``
+    through the CLI, 10 steps, then its step, its ablation's and the
+    assembled R50's, 5 warm-up and 5 timed steps each) and ``int8_serving`` (drives_cut's
+    ``convergence_full`` pretrain, 2 + 5 served forwards a batch) through
+    their entry points at full width, b64, 224x224, bf16, cut to
+    ``CUT_MORE``, the bars not asserted: every training set fills a batch,
+    every leg runs, every logged loss is finite, each summary has the
+    reference's keys, the 1k leg evaluates its 1,000 held-out images and
+    its stored labels pass the loader's check under the 1001-way head, and
+    the kernels launch as each leg's steps and evals say
+    (``_cut_more_launches``; the CLI legs through ``_COUNTING_CLI``,
+    ``bl_resnet50`` none).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the result line.
@@ -292,7 +308,7 @@ BIG_SITES = [((2, 160, 160, 64), torch.bfloat16, 7), ((400, 245, 245, 4), torch.
 GAMMAS = (0.0, 0.02, 0.1)
 TRAIN_STEPS = 20
 REMAT_STEPS = 5
-DP_RANKS, DP_LOCAL_BATCH = 2, 64
+DP_RANKS, DP_LOCAL_BATCH = 2, 8
 DP_NCCL_BATCH, DP_NCCL_STEPS = 256, 10
 RESUME_STEPS = (5, 10)  # the first run's steps, then the resumed run's end
 KD_BATCH, KD_ACCUM, KD_STEPS = 1024, 8, 3
@@ -328,6 +344,11 @@ L2_FLUSH_BYTES = 256 << 20  # timing inputs cycle through at least this much (H1
 CUT = dict(pretrain_steps=40, ft_steps=10, n_train=32, n_eval=8, ft_n_train=16, ft_n_eval=8,
            corruptions=("gaussian_noise", "fog", "contrast"), severities=(2,),
            teacher_steps=40, student_steps=10, n_subset=12, scale_n_train=12, scale_n_eval=2)
+# drives_cut_more: the five later drives through their entry points on
+# drives_cut's root (its 50-class set and convergence_full's pretrain), cut
+# to these sizes, bars not asserted; every training set holds a batch
+CUT_MORE = dict(scale_steps=20, ft_steps=5, ft_n_per_class=22, k1_steps=10,
+                k1_n_train=1, k1_n_eval=1, bl_steps=10, bl_probe_steps=5, int8_iters=(2, 5))
 DRIVE_BATCH = 64  # every drive's batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory bandwidth (datasheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 peak outside the tensor cores (datasheet)
@@ -3507,7 +3528,7 @@ def drives_cut_phase(smi, tmp):
 
     t_steps, s_steps = c["teacher_steps"], c["student_steps"]
     k_evals = _eval_batches(50 * c["scale_n_eval"])
-    with mock.patch.object(kd, "cli_command", counting):
+    with mock.patch.object(common, "cli_command", counting):
         kd_summary, epilogue = drive("kd", kd, [
             str(s_steps), os.path.join(root, "kd"), str(c["n_subset"]),
             f"--teacher_steps={t_steps}",
@@ -3542,6 +3563,159 @@ def drives_cut_phase(smi, tmp):
          card=smi, ok=ok)
     if not ok:
         raise AssertionError(f"drives_cut kd legs: {by_tag}, expected {leg_want}")
+    return total
+
+
+def _cut_more_sets(c=CUT_MORE):
+    """The training images of each cut set of ``drives_cut_more`` (drives_cut's
+    50-class set and pretrain set, the finetune sets, the 1k set)."""
+    from axcnn_torch.drives.data import SCALE_CLASSES, classes_1k
+
+    n = c["ft_n_per_class"]
+    return {"scale": SCALE_CLASSES * CUT["scale_n_train"], "finetune_colors": 4 * n,
+            "finetune_textures": 3 * n, "1k": classes_1k() * c["k1_n_train"]}
+
+
+def _cut_more_launches(c=CUT_MORE):
+    """The launches each leg of ``drives_cut_more`` makes, by the drives'
+    steps and eval batches: {leg: counts}; the CLI legs ``1k_cli`` and
+    ``bl_cli`` in their own processes."""
+    from axcnn_torch.drives import bl
+    from axcnn_torch.drives.data import SCALE_CLASSES, classes_1k
+
+    def step(n, evals=0):
+        return _launches(3 * n + 3 * evals, 3 * n, 9 * n)
+
+    scale_evals = 2 * _eval_batches(SCALE_CLASSES * CUT["scale_n_eval"])
+    n = c["ft_n_per_class"]
+    ft_evals = _eval_batches(4 * n) + 2 * _eval_batches(3 * n)
+    k1_evals = _eval_batches(classes_1k() * c["k1_n_eval"])
+    warm, timed = c["int8_iters"]
+    # 4 evals and the agreement's 2 policies over the pretrain's held-out
+    # set, then 2 policies x 3 served batches
+    int8_forwards = (4 + 2) * _eval_batches(10 * CUT["n_eval"]) + 2 * 3 * (warm + timed)
+    return {"scale": step(c["scale_steps"], scale_evals),
+            "finetune": step(3 * c["ft_steps"], ft_evals),
+            "1k_cli": step(c["k1_steps"], k1_evals),
+            "1k": _launches(3 * 2 * k1_evals, 0, 0),  # the epilogue's raw and EMA evals
+            "bl_cli": _launches(0, 0, 0),  # bl_resnet50 has no BlurPool or DropBlock
+            # the assembled probe (its warm-up included); BL's and the ablation's none
+            "bl": step(bl.PROBE_WARMUP + c["bl_probe_steps"]),
+            "int8": _launches(3 * int8_forwards, 0, 0)}
+
+
+def drives_cut_more_phase(smi, tmp):
+    """``convergence_scale``, ``finetune``, ``convergence_1k``, ``bl`` and
+    ``int8_serving`` through their entry points (``main(argv)``) on the
+    card, at full width, 224x224, b64, bf16, cut to ``CUT_MORE``, the bars
+    not asserted, on ``drives_cut``'s root: its 50-class set (the scale and
+    Big-Little drives) and ``convergence_full``'s pretrain (the int8 drive).
+    Every leg runs, every logged loss is finite, each summary has the
+    reference's keys, the 1k set's 1,000 held-out images are all evaluated
+    and its stored labels pass the loader's check under the 1001-way head
+    with ``label_offset=1``, and the kernels launch as each leg's steps and
+    evals say (``_cut_more_launches``). The CLI legs (1k, Big-Little) run
+    through ``_COUNTING_CLI``."""
+    from axcnn_torch.data.tfrecord import TFRecordReader, list_shards, parse_example
+    from axcnn_torch.drives import (bl, common, convergence_1k, convergence_scale, finetune,
+                                    int8_serving)
+
+    c = CUT_MORE
+    root = os.path.join(tmp, "drives_cut")
+    scale_root = os.path.join(root, "scale")
+    sets = _cut_more_sets(c)
+    small = {k: v for k, v in sets.items() if v < DRIVE_BATCH}
+    if small:
+        raise AssertionError(f"drives_cut_more: sets that cannot fill a batch: {small}")
+    want = _cut_more_launches(c)
+    out, result, total = io.StringIO(), {}, {}
+    t_start = time.perf_counter()
+
+    def drive(name, module, argv):
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            summary = module.main([*argv, "--no-check"])
+        counts = _counts()
+        missing = common.missing_keys(summary, module.SUMMARY_KEYS)
+        result[name] = dict(summary=summary, seconds=time.perf_counter() - t0, launches=counts,
+                            expected=want[name], missing_keys=missing)
+        if missing or counts != want[name]:
+            raise AssertionError(f"drives_cut_more {name}: missing {missing}, launches {counts}, "
+                                 f"expected {want[name]}")
+        return summary, counts
+
+    def cli_leg(name, model_dir):
+        with open(os.path.join(model_dir, "kernel_counts.json")) as f:
+            counts = json.load(f)["counts"]
+        result[name] = dict(launches=counts, expected=want[name])
+        if counts != want[name]:
+            raise AssertionError(f"drives_cut_more {name}: launches {counts}, "
+                                 f"expected {want[name]}")
+        return counts
+
+    def finite(losses):
+        return bool(losses) and all(np.isfinite([v for _, v in losses]))
+
+    scale, counts = drive("scale", convergence_scale, [
+        scale_root, f"--steps={c['scale_steps']}", f"--n_train={CUT['scale_n_train']}",
+        f"--n_eval={CUT['scale_n_eval']}"])
+    total = _add(total, counts)
+    assert scale["train"]["all_finite"] and finite(scale["train"]["logged_loss"]), scale["train"]
+
+    ft_root = os.path.join(root, "finetune")
+    ft, counts = drive("finetune", finetune, [
+        ft_root, f"--steps={c['ft_steps']}", f"--n_per_class={c['ft_n_per_class']}"])
+    total = _add(total, counts)
+    for run_dir in ("run_a", "run_b_ft", "run_b_cold"):
+        losses = common.train_losses(os.path.join(ft_root, run_dir))
+        assert finite(losses), (run_dir, losses)
+
+    def counting(args):
+        return [sys.executable, "-c", _COUNTING_CLI, *args]
+
+    k1_root = os.path.join(root, "k1")
+    with mock.patch.object(common, "cli_command", counting):
+        k1, counts = drive("1k", convergence_1k, [
+            str(c["k1_steps"]), k1_root, str(c["k1_n_train"]), f"--n_eval={c['k1_n_eval']}"])
+        total = _add(total, counts)
+        k1_dir = os.path.join(k1_root, f"run_{c['k1_steps']}_n{c['k1_n_train']}")
+        total = _add(total, cli_leg("1k_cli", k1_dir))
+        bl_root = os.path.join(root, "bl")
+        bl_summary, counts = drive("bl", bl, [
+            bl_root, f"--steps={c['bl_steps']}", f"--probe_steps={c['bl_probe_steps']}",
+            f"--n_train={CUT['scale_n_train']}", f"--n_eval={CUT['scale_n_eval']}",
+            f"--scale_root={scale_root}"])
+        total = _add(total, counts)
+        total = _add(total, cli_leg("bl_cli", os.path.join(bl_root, "bl_resnet50")))
+    assert finite(k1["train_loss"]) and finite(bl_summary["train_loss"]), (k1, bl_summary)
+    # the 1k set: every held-out image evaluated, and the stored labels 0..999
+    # in range of the 1001-way head with label_offset=1
+    k1_data = os.path.join(k1_root, f"rec_{c['k1_n_train']}_{c['k1_n_eval']}")
+    info = convergence_1k.dataset_info(sets["1k"], 1000 * c["k1_n_eval"])
+    loader = common.native_loader(k1_data, info, batch=DRIVE_BATCH, image_size=224, train=True)
+    labels = {}
+    for split in ("train", "validation"):
+        labels[split] = np.sort([int(parse_example(bytes(p))["image/class/label"][0])
+                                 for sh in list_shards(k1_data, split)
+                                 for p in TFRecordReader(sh)])
+        loader._check_labels({"labels": labels[split]})
+    k1_ok = (k1["eval_count"] == 1000 and k1["cli_eval"]["count"] == 1000
+             and np.array_equal(labels["validation"], np.arange(1000))
+             and np.array_equal(labels["train"], np.arange(1000)))
+
+    warm, timed = c["int8_iters"]
+    i8, counts = drive("int8", int8_serving, [root, f"--warmup_iters={warm}",
+                                              f"--iters={timed}"])
+    total = _add(total, counts)
+    i8_ok = all(np.isfinite(i8[k]) for k in int8_serving.SUMMARY_KEYS)
+    ok = k1_ok and i8_ok
+    emit("drives_cut_more", cut=c, sets=sets, bars_asserted=False, width=1.0,
+         batch=DRIVE_BATCH, image_size=224, dtype="bf16", drives=result,
+         k1_labels_ok=k1_ok, launches=total, seconds=time.perf_counter() - t_start,
+         card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"drives_cut_more: 1k {k1_ok}, int8 {i8_ok}")
     return total
 
 
@@ -3598,6 +3772,7 @@ def main():
         paths["fgvc_finetune"] = fgvc_finetune_phase(smi, import_dir, imported, tmp)
         paths["drive_convergence"] = drive_convergence_phase(smi, tmp)
         paths["drives_cut"] = drives_cut_phase(smi, tmp)
+        paths["drives_cut_more"] = drives_cut_more_phase(smi, tmp)
         dp_nccl_phase(smi, tmp, single)
         parity = spatial_parity_phase(smi, tmp)
         if parity is not None:

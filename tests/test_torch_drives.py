@@ -371,13 +371,13 @@ def test_toy_kd_through_the_cli(tmp_path, capsys, monkeypatch, one_thread):
     """Every leg is the training CLI on one device; only the KD leg gets
     the teacher."""
     commands = []
-    real = kd.cli_command
+    real = common.cli_command
 
     def recording(args):
         commands.append(list(args))
         return real(args)
 
-    monkeypatch.setattr(kd, "cli_command", recording)
+    monkeypatch.setattr(common, "cli_command", recording)
     summary = kd.main(["2", str(tmp_path / "kd"), "2", *TOY, "--batch=8", "--image_size=32",
                        "--teacher_steps=2", "--n_train=2", "--n_eval=1",
                        f"--scale_root={tmp_path / 'scale'}"])
