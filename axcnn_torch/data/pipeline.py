@@ -26,6 +26,7 @@ module is the semantics reference and bootstrap.
 from __future__ import annotations
 
 import collections
+import itertools
 import queue as queue_mod
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -92,6 +93,12 @@ class TFRecordImageLoader:
         prefix = info.train_prefix if train else info.eval_prefix
         all_shards = list_shards(data_dir, prefix)
         self._shards = all_shards[host_id::num_hosts]
+        # an eval with more hosts than files (8 ranks on a set of 2
+        # validation files): every host reads every file and keeps every
+        # num_hosts-th record, so each record is evaluated once
+        self._records = slice(None)
+        if not train and len(all_shards) < num_hosts:
+            self._shards, self._records = all_shards, slice(host_id, None, num_hosts)
         if not self._shards:
             raise ValueError(f"host {host_id}/{num_hosts} got no shards")
         self._info = info
@@ -172,7 +179,8 @@ class TFRecordImageLoader:
     def num_records(self) -> int:
         """Records in THIS host's shard subset (framing scan, cached)."""
         if self._num_records is None:
-            self._num_records = sum(count_records(p) for p in self._shards)
+            total = sum(count_records(p) for p in self._shards)
+            self._num_records = len(range(total)[self._records])
         return self._num_records
 
     # -- deterministic record stream for (seed, epoch) ----------------------
@@ -197,8 +205,9 @@ class TFRecordImageLoader:
             rng.shuffle(buf)
             yield from buf
         else:
-            for path in shards:
-                yield from reader(path)
+            yield from itertools.islice(
+                itertools.chain.from_iterable(reader(path) for path in shards),
+                self._records.start, None, self._records.step)
 
     def _prepare(self, payload, rng_seed):
         if not isinstance(payload, bytes):  # mmap view (native-path fallback)

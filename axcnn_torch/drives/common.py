@@ -45,15 +45,18 @@ def resize_min_for(image_size: int) -> int:
 
 def native_loader(data_dir, info, *, batch: int, image_size: int, train: bool,
                   autoaugment_type: str = "none", seed: int = 0,
-                  resize_min: int | None = None) -> TFRecordImageLoader:
+                  resize_min: int | None = None,
+                  drop_remainder: bool | None = None) -> TFRecordImageLoader:
     """The C++ loader (AutoAugment in its threads); raises when it is not
     the path that decodes, never falls back to the Python one. A failed
-    build of ``cpp/`` raises with the build's stderr."""
+    build of ``cpp/`` raises with the build's stderr. The last partial
+    batch is dropped in training (``drop_remainder`` None) and kept in an
+    eval, unless ``drop_remainder`` says otherwise."""
     loader = TFRecordImageLoader(
         data_dir, info, batch_size=batch, train=train, image_size=image_size,
         resize_min=resize_min_for(image_size) if resize_min is None else resize_min,
         autoaugment_type=autoaugment_type, seed=seed, num_workers=os.cpu_count() or 4,
-        use_native=True, drop_remainder=train)
+        use_native=True, drop_remainder=train if drop_remainder is None else drop_remainder)
     want = cpp_loader.AA_POLICIES[autoaugment_type] if train else -1
     if not loader.native_active or loader._aa_policy != want:
         raise RuntimeError(f"the native loader is not the decode path (native "
@@ -160,16 +163,23 @@ def cli_command(args) -> list:
     return [sys.executable, "-m", "axcnn_torch.cli.main_classification", *args]
 
 
-def cli(args, tag: str, model_dir: str, log=print, retries: int = 0) -> float:
-    """Run the training CLI, its output into ``<model_dir>/cli.log``. On the
-    hang watchdog's exit code (42) run it again, up to ``retries`` times:
-    the loop resumes from its last checkpoint. Returns its seconds, the
-    retries included; raises with the log's tail on any other failure."""
-    cmd = cli_command(args)
-    os.makedirs(model_dir, exist_ok=True)
-    path = os.path.join(model_dir, "cli.log")
+def recipe_command(recipe: str, args) -> list:
+    """A recipe of ``axcnn_torch.cli.recipes`` on ``args``."""
+    return [sys.executable, "-m", "axcnn_torch.cli.recipes", recipe, *args]
+
+
+def predict_command(args) -> list:
+    return [sys.executable, "-m", "axcnn_torch.cli.predict", *args]
+
+
+def run_logged(cmd, tag: str, log_path: str, log=print, retries: int = 0) -> float:
+    """Run ``cmd``, its output into ``log_path``. On the hang watchdog's
+    exit code (42) run it again, up to ``retries`` times: the loop resumes
+    from its last checkpoint. Returns its seconds, the retries included;
+    raises with the log's tail on any other failure."""
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
     t0 = time.time()
-    with open(path, "w") as out:
+    with open(log_path, "w") as out:
         for attempt in range(retries + 1):
             log(f"[{tag}] $ {' '.join(cmd)}")
             t1 = time.time()
@@ -180,23 +190,49 @@ def cli(args, tag: str, model_dir: str, log=print, retries: int = 0) -> float:
             log(f"[{tag}] hang detected (exit {HANG_EXIT_CODE}); retry {attempt + 1}/{retries} "
                 "resumes from checkpoint")
     if r.returncode:
-        with open(path) as f:
+        with open(log_path) as f:
             raise RuntimeError(f"{tag} failed (exit {r.returncode}):\n{f.read()[-6000:]}")
     return time.time() - t0
 
 
-def cli_run_flags(device, *, width: float, image_size: int, full_size: int) -> list:
-    """The CLI flags of a drive's size and device: one card (or the host
-    CPU), and the width and image size where they are cut."""
-    flags = ["--runtime.num_devices=1"]
-    if device.type == "cpu":
-        flags.append("--runtime.platform=cpu")
+def cli(args, tag: str, model_dir: str, log=print, retries: int = 0) -> float:
+    """``run_logged`` of the training CLI on ``args``, its output into
+    ``<model_dir>/cli.log``."""
+    return run_logged(cli_command(args), tag, os.path.join(model_dir, "cli.log"), log, retries)
+
+
+def predict(args, tag: str, log=print) -> list:
+    """``axcnn_torch.cli.predict`` on ``args``: its JSON lines, one per
+    image; raises with its stderr on a non-zero exit."""
+    cmd = predict_command(args)
+    log(f"[{tag}] $ {' '.join(cmd)}")
+    t0 = time.time()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    log(f"[{tag}] exit={r.returncode} in {time.time() - t0:.0f}s")
+    if r.returncode:
+        raise RuntimeError(f"{tag} failed (exit {r.returncode}):\n{r.stderr[-6000:]}")
+    return [json.loads(line) for line in r.stdout.splitlines() if line.startswith("{")]
+
+
+def cli_size_flags(*, width: float, image_size: int, full_size: int) -> list:
+    """The model and data flags of a drive's cut: the width and the image
+    size where they are cut."""
+    flags = []
     if width != 1.0:
         flags.append(f"--model.width_multiplier={width}")
     if image_size != full_size:
         flags += [f"--data.image_size={image_size}",
                   f"--data.resize_min={resize_min_for(image_size)}"]
     return flags
+
+
+def cli_run_flags(device, *, width: float, image_size: int, full_size: int) -> list:
+    """The CLI flags of a drive's size and device: one card (or the host
+    CPU), and ``cli_size_flags``."""
+    flags = ["--runtime.num_devices=1"]
+    if device.type == "cpu":
+        flags.append("--runtime.platform=cpu")
+    return flags + cli_size_flags(width=width, image_size=image_size, full_size=full_size)
 
 
 def cli_data_flags(data_dir, info) -> list:
@@ -232,6 +268,16 @@ def train_complete(model_dir: str, steps: int) -> bool:
     if not os.path.exists(os.path.join(model_dir, "metrics.jsonl")):
         return False
     return any(r.get("step", 0) >= steps for r in records(model_dir, "eval"))
+
+
+def train_final_eval(model_dir: str, steps: int) -> dict:
+    """The training run's own final eval: the first eval record at a step
+    >= ``steps``. ``last_eval`` would read a later ``eval_only`` run's
+    record appended to the same ``metrics.jsonl``."""
+    for r in records(model_dir, "eval"):
+        if r.get("step", 0) >= steps:
+            return r
+    raise AssertionError(f"no final training eval in {model_dir}")
 
 
 def train_losses(model_dir: str) -> list:

@@ -246,7 +246,28 @@ points and checks them:
     its stored labels pass the loader's check under the 1001-way head, and
     the kernels launch as each leg's steps and evals say
     (``_cut_more_launches``; the CLI legs through ``_COUNTING_CLI``,
-    ``bl_resnet50`` none).
+    ``bl_resnet50`` none);
+40. acceptance_cut (after drives_cut, on its 50-class set):
+    ``axcnn_torch.drives.acceptance`` through its entry point, the bars not
+    asserted: config 4's recipe (``train_assemble_from_scratch``, with an
+    export), ``predict --export`` on the card, config 3's ``eval`` recipe at
+    b256, config 2's setup and b128 ``eval_only``, config 1's setup and
+    ``predict --cpu`` in fp32, at full width, 224x224, b64, bf16,
+    ``ACCEPT_CUT['steps']`` steps each; config 5 (R152 + KD, config 4 as
+    the teacher) on 8 Gloo CPU ranks at 64x64, b16, 3 steps. Every leg exits
+    0, the export serves five well-formed top-5 entries, configs 3 and 2
+    count the 100 held-out images, config 1's five posteriors are
+    well-formed, config 5's losses are finite with its eval present; config
+    3's top-1 difference from config 4 is reported; each leg runs through
+    ``_COUNTING_MAIN`` and launches the kernels as ``_accept_launches``
+    says;
+41. kd_diag_cut (after drives_cut, on its KD root): ``kd_probe`` on the KD
+    drive's teacher (b32: 2 clean, 2 augmented and 1 mixed batch, each
+    statistic finite), then ``kd_sweep`` at ``ACCEPT_CUT['sweep_steps']``
+    student steps a leg (three R152 legs through the CLI, full width,
+    224x224, b64): every logged loss finite, each leg's hyperparameters, and
+    the launches (the probe's 5 teacher forwards; a leg's 3 + 3 + 3 BlurPool
+    and 39 + 39 DropBlock launches a step, 3 an eval batch).
 
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last two lines are the kernels' summary and the result line.
@@ -3719,6 +3740,200 @@ def drives_cut_more_phase(smi, tmp):
     return total
 
 
+# acceptance_cut and kd_diag_cut (after drives_cut, on its root): the steps
+# of each card training leg, the KD probe's batch (the cut set holds 100
+# held-out images, fewer than two batches of 64) and the sweep's steps
+ACCEPT_CUT = dict(steps=10, probe_batch=32, sweep_steps=3)
+# the entry point of a drive's leg (a module's ``main(args)``), counting the
+# kernels' launches into a JSON file: python -c _COUNTING_MAIN PATH MODULE ARGS...
+_COUNTING_MAIN = """
+import importlib, json, sys
+from axcnn_torch.kernels import blurpool as kblur, dropblock as kdrop
+path, module, *args = sys.argv[1:]
+try:
+    code = importlib.import_module(module).main(args)
+finally:
+    with open(path, "w") as f:
+        json.dump({"fwd": kblur.LAUNCHES, "bwd": kblur.BWD_LAUNCHES, "mask": kdrop.LAUNCHES,
+                   "apply": kdrop.APPLY_LAUNCHES, "apply_bwd": kdrop.APPLY_BWD_LAUNCHES,
+                   "fused": kdrop.FUSED_LAUNCHES}, f)
+sys.exit(code if isinstance(code, int) else 0)
+"""
+# the acceptance drive's legs, in the order it runs them
+ACCEPT_LEGS = ("config4", "config4-export", "config3", "config2-setup", "config2",
+               "config1-setup", "config1", "config5")
+
+
+class _CountingCommands:
+    """Patches ``drives.common``'s command functions so that each leg runs
+    through ``_COUNTING_MAIN`` with a counts file of its own, in call order."""
+
+    def __init__(self, directory):
+        self.directory, self.paths = directory, []
+        os.makedirs(directory, exist_ok=True)
+
+    def _command(self, module, args):
+        path = os.path.join(self.directory, f"{len(self.paths)}.json")
+        self.paths.append(path)
+        return [sys.executable, "-c", _COUNTING_MAIN, path, module, *args]
+
+    def patches(self):
+        from axcnn_torch.drives import common
+
+        return [mock.patch.object(common, "cli_command", lambda args: self._command(
+                    "axcnn_torch.cli.main_classification", args)),
+                mock.patch.object(common, "recipe_command", lambda recipe, args: self._command(
+                    "axcnn_torch.cli.recipes", [recipe, *args])),
+                mock.patch.object(common, "predict_command", lambda args: self._command(
+                    "axcnn_torch.cli.predict", args))]
+
+    def counts(self):
+        out = []
+        for path in self.paths:
+            with open(path) as f:
+                out.append(json.load(f))
+        return out
+
+
+def _accept_launches(c=ACCEPT_CUT):
+    """The launches of each leg of ``acceptance_cut`` and ``kd_diag_cut``
+    on drives_cut's 50-class set (100 held-out images): {leg: counts}. An
+    eval batch is 3 BlurPool forwards, as is a served forward (the export's
+    batch of 8 holds the probe); config 1 runs no hand-written kernel, and
+    its predict and config 5 run on the CPU."""
+    from axcnn_torch.drives.data import SCALE_CLASSES
+
+    held_out = SCALE_CLASSES * CUT["scale_n_eval"]
+    evals = _eval_batches(held_out)  # at the training batch, 64
+    steps, sweep = c["steps"], c["sweep_steps"]
+    none = _launches(0, 0, 0)
+    return {"config4": _launches(3 * steps + 3 * evals, 3 * steps, 9 * steps),
+            "config4-export": _launches(3, 0, 0),
+            "config3": _launches(3 * -(-held_out // 256), 0, 0),
+            "config2-setup": _launches(3 * steps + 3 * evals, 3 * steps, 0),  # no DropBlock
+            "config2": _launches(3 * -(-held_out // 128), 0, 0),
+            "config1-setup": none, "config1": none, "config5": none,
+            # the teacher's 5 forwards: 2 clean, 2 augmented, 1 mixed batch
+            "kd_probe": _launches(3 * 5, 0, 0),
+            # an R152 student with its R50 teacher, then its eval
+            **{f"sweep_{tag}": _launches(3 * 2 * sweep + 3 * evals, 3 * sweep, 39 * sweep)
+               for tag in ("half_lr", "alpha.3", "temp2")}}
+
+
+def _top5_ok(top5):
+    probs = [p for _, p in top5]
+    return (len(top5) == 5 and all(0.0 <= p <= 1.0 for p in probs)
+            and probs == sorted(probs, reverse=True) and sum(probs) <= 1.0 + 1e-4)
+
+
+def acceptance_cut_phase(smi, tmp):
+    """``axcnn_torch.drives.acceptance`` through its entry point on
+    drives_cut's 50-class set (12 train and 2 held-out images a class), the
+    card legs at full width, 224x224, b64, bf16, ``ACCEPT_CUT['steps']``
+    steps each, config 3 at b256, config 2's eval at b128, config 5 on 8
+    Gloo CPU ranks at 64x64, b16, 3 steps; the bars not asserted. Every leg
+    exits 0, the export serves five well-formed top-5 entries, configs 3
+    and 2 count the 100 held-out images, config 1's five posteriors are
+    well-formed, config 5's losses are finite with its eval present, and
+    each leg (run through ``_COUNTING_MAIN``) launches the kernels as its
+    steps, evals and forwards say (``_accept_launches``)."""
+    from axcnn_torch.drives import acceptance, common
+
+    c = ACCEPT_CUT
+    root = os.path.join(tmp, "drives_cut")
+    counting = _CountingCommands(os.path.join(tmp, "acceptance_counts"))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in counting.patches():
+            stack.enter_context(p)
+        with contextlib.redirect_stdout(out):
+            summary = acceptance.main([
+                os.path.join(root, "acceptance"), f"--steps={c['steps']}",
+                f"--n_train={CUT['scale_n_train']}", f"--n_eval={CUT['scale_n_eval']}",
+                f"--scale_root={os.path.join(root, 'scale')}", "--no-check"])
+    seconds = time.perf_counter() - t0
+    got = dict(zip(ACCEPT_LEGS, counting.counts()))
+    want = {k: v for k, v in _accept_launches(c).items() if k in ACCEPT_LEGS}
+    missing = common.missing_keys(summary, acceptance.SUMMARY_KEYS)
+    c1, c5, held_out = summary["config1"], summary["config5"], summary["held_out"]
+    checks = {"legs": list(got) == list(ACCEPT_LEGS), "launches": got == want,
+              "summary_keys": not missing,
+              "export_top5": _top5_ok(summary["config4"]["export_top5"]),
+              "counts": summary["config3"]["count"] == summary["config2"]["count"] == held_out == 100,
+              "config1_top5": len(c1["top5"]) == 5 and all(_top5_ok(t) for t in c1["top5"]),
+              "config5": c5["steps"] > 0 and c5["finite"] and c5["eval_count"] == held_out}
+    ok = all(checks.values())
+    emit("acceptance_cut", cut=c, bars_asserted=False, width=1.0, batch=DRIVE_BATCH,
+         image_size=224, dtype="bf16", summary=summary,
+         config3_top1_diff=summary["config3"]["top1_diff"], launches=got, expected=want, checks=checks,
+         missing_keys=missing, seconds=seconds, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"acceptance_cut: {checks}")
+    total = {}
+    for counts in got.values():
+        total = _add(total, counts)
+    return total
+
+
+def kd_diag_cut_phase(smi, tmp):
+    """``axcnn_torch.drives.kd_probe`` (batch ``ACCEPT_CUT['probe_batch']``)
+    on drives_cut's KD teacher and 50-class set, then
+    ``axcnn_torch.drives.kd_sweep`` at ``ACCEPT_CUT['sweep_steps']`` student
+    steps a leg (full width, 224x224, b64, bf16) on its root, through their
+    entry points, the probe's bar not asserted: each statistic finite, the
+    sweep's three legs with their hyperparameters, every logged loss finite,
+    and the launches of the probe (5 teacher forwards) and of each sweep leg
+    (through ``_COUNTING_MAIN``) as ``_accept_launches`` says."""
+    from axcnn_torch.drives import common, kd_probe, kd_sweep
+
+    c = ACCEPT_CUT
+    root = os.path.join(tmp, "drives_cut")
+    kd_root, scale_root = os.path.join(root, "kd"), os.path.join(root, "scale")
+    sizes = [f"--n_train={CUT['scale_n_train']}", f"--n_eval={CUT['scale_n_eval']}",
+             f"--scale_root={scale_root}"]
+    want = _accept_launches(c)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    _zero_counts()
+    with contextlib.redirect_stdout(out):
+        probe = kd_probe.main([kd_root, "--no-check", f"--batch={c['probe_batch']}", *sizes])
+    probe_counts, probe_s = _counts(), time.perf_counter() - t0
+    counting = _CountingCommands(os.path.join(tmp, "kd_sweep_counts"))
+    t1 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in counting.patches():
+            stack.enter_context(p)
+        with contextlib.redirect_stdout(out):
+            sweep = kd_sweep.main([str(c["sweep_steps"]), kd_root, *sizes])
+    sweep_s = time.perf_counter() - t1
+    tags = [tag for tag, _ in kd_sweep.LEGS]
+    legs = dict(zip((f"sweep_{t}" for t in tags), counting.counts()))
+    got = {"kd_probe": probe_counts, **legs}
+    want = {k: want[k] for k in got}
+    losses = {t: common.train_losses(os.path.join(kd_root, f"sweep_{t}_{c['sweep_steps']}"))
+              for t in tags}
+    checks = {"probe_finite": len(probe) == 5 and all(
+                  np.isfinite(v) for s in probe.values() for v in s.values()),
+              "sweep_legs": list(sweep) == tags and all(
+                  sweep[t] == {**sweep[t], **hp} for t, hp in kd_sweep.LEGS),
+              "sweep_finite": all(np.isfinite([sweep[t]["top1"], sweep[t]["loss"]]).all()
+                                  for t in tags),
+              "losses_finite": all(ls and np.isfinite([v for _, v in ls]).all()
+                                   for ls in losses.values()),
+              "launches": got == want}
+    ok = all(checks.values())
+    emit("kd_diag_cut", cut=c, bars_asserted=False, width=1.0, image_size=224, dtype="bf16",
+         probe=probe, sweep=sweep, launches=got, expected=want, checks=checks,
+         probe_s=probe_s, sweep_s=sweep_s, card=smi, ok=ok)
+    if not ok:
+        raise AssertionError(f"kd_diag_cut: {checks}")
+    total = {}
+    for counts in got.values():
+        total = _add(total, counts)
+    return total
+
+
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
     ("fwd", ("fwd",), "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
@@ -3773,6 +3988,8 @@ def main():
         paths["drive_convergence"] = drive_convergence_phase(smi, tmp)
         paths["drives_cut"] = drives_cut_phase(smi, tmp)
         paths["drives_cut_more"] = drives_cut_more_phase(smi, tmp)
+        paths["acceptance_cut"] = acceptance_cut_phase(smi, tmp)
+        paths["kd_diag_cut"] = kd_diag_cut_phase(smi, tmp)
         dp_nccl_phase(smi, tmp, single)
         parity = spatial_parity_phase(smi, tmp)
         if parity is not None:

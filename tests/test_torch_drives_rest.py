@@ -46,8 +46,9 @@ from axcnn_torch.data.datasets import DatasetInfo
 from axcnn_torch.data.pipeline import TFRecordImageLoader
 from axcnn_torch.data.tfrecord import TFRecordReader, TFRecordWriter, list_shards, make_example
 from axcnn_torch.data.tfrecord import parse_example
-from axcnn_torch.drives import (bl, common, convergence_1k, convergence_full, convergence_scale,
-                                data, finetune, int8_serving)
+from axcnn_torch.drives import (acceptance, bl, common, convergence_1k, convergence_full,
+                                convergence_scale, data, finetune, int8_serving, kd_probe,
+                                kd_sweep)
 from axcnn_torch.train.train_step import create_train_state
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -530,14 +531,20 @@ def test_toy_int8_serving(tmp_path, capsys, one_thread):
         int8_serving.main([str(tmp_path / "empty"), "--cpu"])
 
 
-@pytest.mark.parametrize("name", sorted(DRIVES))
+# the acceptance drive and the KD diagnostics, whose bars are not in RECORDED
+NO_CARD_DRIVES = {**DRIVES, "acceptance": acceptance, "kd_probe": kd_probe, "kd_sweep": kd_sweep}
+
+
+@pytest.mark.parametrize("name", sorted(NO_CARD_DRIVES))
 def test_no_card_no_fallback(name, tmp_path, monkeypatch):
     """Without ``--cpu`` and without a card each drive exits with a message
     before it generates or trains anything."""
     monkeypatch.setattr(common.torch.cuda, "is_available", lambda: False)
-    argv = ["3", str(tmp_path)] if name == "convergence_1k" else [str(tmp_path)]
+    argv = [str(tmp_path)]
+    if name in ("convergence_1k", "kd_sweep"):  # [steps] [root]
+        argv = ["3", str(tmp_path)]
     with pytest.raises(SystemExit, match="no CUDA device"):
-        DRIVES[name].main(argv)
+        NO_CARD_DRIVES[name].main(argv)
     assert os.listdir(tmp_path) == []
 
 

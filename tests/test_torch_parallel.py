@@ -718,6 +718,34 @@ def test_uneven_eval_shards_agree_on_their_batch_count(tmp_path):
     assert len(evals) == 1 and evals[0]["count"] == 16
 
 
+@pytest.mark.parametrize("native", [False, True])
+def test_ranks_outnumbering_eval_files_deal_out_its_records(tmp_path, native):
+    """Each of 3 hosts of one eval file keeps every third record: together
+    they read each record once, and each promises the batches it yields
+    (config 5 of the acceptance drive: 8 ranks, 2 eval files). ``evaluate``
+    pads the ranks' uneven shares (the test above)."""
+    from axcnn_torch.data.datasets import DatasetInfo
+    from axcnn_torch.data.pipeline import TFRecordImageLoader
+
+    _write_records(tmp_path, 1, (16,))
+    info = DatasetInfo("two", 2, 8, 16, train_prefix="train", eval_prefix="validation")
+
+    def images(host_id, num_hosts):
+        loader = TFRecordImageLoader(str(tmp_path / "rec"), info, batch_size=4, train=False,
+                                     image_size=32, resize_min=40, host_id=host_id,
+                                     num_hosts=num_hosts, drop_remainder=False,
+                                     use_native=native, num_workers=1)
+        batches = list(loader)
+        assert len(batches) == loader.num_batches()
+        return [img for b in batches for img in b["images"]]
+
+    whole = images(0, 1)
+    dealt = [images(h, 3) for h in range(3)]
+    assert [len(d) for d in dealt] == [6, 5, 5]
+    assert all(np.array_equal(dealt[h][i], whole[3 * i + h])
+               for h in range(3) for i in range(len(dealt[h])))
+
+
 def test_a_failing_rank_ends_the_run_with_its_traceback(tmp_path):
     """One training shard file for two ranks: rank 1 has none and raises
     while rank 0 goes on to its first collective. The run must end non-zero
