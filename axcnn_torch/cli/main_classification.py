@@ -128,8 +128,9 @@ def _rank_main(rank: int, world: int, coordinator: str, argv, results, failed) -
     device = resolve_device(cfg.runtime.platform, rank)
     if device.type == "cpu":
         # the host's cores shared out: ranks whose thread pools spin on every
-        # core while they wait at a collective slow each other down
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # core while they wait at a collective slow each other down; an
+        # OMP_NUM_THREADS in the environment (a launcher's, a test's) caps it
+        torch.set_num_threads(thread_share(world))
     mesh.init_distributed(device, rank=rank, world_size=world, coordinator=coordinator)
     try:
         metrics = _run(cfg, local_rank=rank)
@@ -142,6 +143,18 @@ def _rank_main(rank: int, world: int, coordinator: str, argv, results, failed) -
         mesh.shutdown()
     if rank == 0:
         results.put(metrics)
+
+
+def thread_share(world: int) -> int:
+    """A CPU rank's intra-op threads: its share of the host's cores, capped
+    by the first field of ``OMP_NUM_THREADS`` ('4', or '4,2': OpenMP's list
+    a nesting level) where that is a positive integer."""
+    share = max(1, (os.cpu_count() or 1) // world)
+    try:
+        cap = int(os.environ.get("OMP_NUM_THREADS", "").split(",")[0])
+    except ValueError:
+        return share
+    return min(share, cap) if cap > 0 else share
 
 
 def _run(cfg, *, local_rank: int = 0):

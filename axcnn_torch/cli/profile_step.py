@@ -12,6 +12,7 @@
     python -m axcnn_torch.cli.profile_step --what=bl         # bl_resnet50 and its ablation
     python -m axcnn_torch.cli.profile_step --what=flops      # their forward FLOPs (no card)
     python -m axcnn_torch.cli.profile_step --what=crc        # the host's CRC32C rates (no card)
+    python -m axcnn_torch.cli.profile_step --what=kd_ranks   # a KD run on CPU ranks (no card)
 
 ``step``: ``assemble_resnet50`` at full width, 1001 classes, batch 128, bf16,
 random uint8 images on the card, the train step as ``make_train_step``
@@ -39,7 +40,17 @@ with no card; convolutions and matmuls only). ``crc``: the MB/s of
 ``data.tfrecord.crc32c`` (numpy lanes) and of the byte loop it replaced
 (``crc32c_bytewise``) on seeded bytes on the host CPU, with no card: the
 lanes on 4 kB to 16 MB, each the best of 3 passes over at least 8 MB, the
-byte loop on 1 MB.
+byte loop on 1 MB. ``kd_ranks``: where the acceptance drive's config 5 spends
+its time, on the host CPU with no card: its command (``main_classification
+--config=assemble_resnet152_kd`` with a seeded ``assemble_resnet50``
+teacher checkpoint, Gloo ranks, 64x64, 3 steps, then the eval) on
+synthetic data, each step logged, as 8 ranks in bf16 and in fp32 and as 2
+ranks (b16), and as 1 rank on the 2 images one of 8 ranks takes, on one
+thread (a rank's compute without the collectives); per variant the
+seconds from the launch to the first step's record (start-up: interpreters,
+imports, models, the teacher's restore, the first step), between the
+first and the last step's records (2 steps), to the eval's record and to
+the exit.
 
 After three warm-up steps, ``--untraced`` steps are timed one by one on the
 host clock: the wall until the step's loss reached the host (a synchronize
@@ -321,10 +332,62 @@ def crc_rates() -> dict:
             "speedup": {n: r / bytewise for n, r in lanes.items()}}
 
 
+KD_RANKS_VARIANTS = (("8 ranks bf16", 8, "bf16"), ("8 ranks fp32", 8, "fp32"),
+                     ("2 ranks bf16", 2, "bf16"), ("1 rank bf16", 1, "bf16"))
+
+
+def kd_ranks_times() -> list:
+    """``--what=kd_ranks``: config 5's command on CPU ranks, timed from its
+    log's records (module docstring): one row a variant."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from axcnn_torch.ckpt.checkpoint import CheckpointManager
+    from axcnn_torch.drives import common
+    from axcnn_torch.train.loop import _dataset_info
+    from axcnn_torch.train.train_step import create_train_state
+    from axcnn_torch.utils.config import load_preset
+
+    teacher = dataclasses.replace(  # the head run() gives the student: the dataset's
+        load_preset("assemble_resnet50").model,
+        num_classes=_dataset_info(load_preset("assemble_resnet152_kd")).num_classes)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        teacher_dir = os.path.join(tmp, "teacher")
+        mgr = CheckpointManager(teacher_dir, model_config=dataclasses.asdict(teacher))
+        mgr.save(create_train_state(teacher, generator=torch.Generator().manual_seed(SEED),
+                                    device="cpu", use_ema=True), force=True)
+        mgr.close()
+        for name, ranks, dtype in KD_RANKS_VARIANTS:
+            model_dir = os.path.join(tmp, f"run_{len(rows)}")
+            argv = ["--config=assemble_resnet152_kd", "--data.use_synthetic_data",
+                    f"--train.kd_teacher_checkpoint={teacher_dir}",
+                    f"--runtime.model_dir={model_dir}", f"--runtime.num_devices={ranks}",
+                    "--runtime.platform=cpu", "--data.image_size=64",
+                    f"--train.batch_size={16 if ranks > 1 else 2}", "--train.train_steps=3",
+                    "--train.lr_warmup_epochs=0.4", "--data.echo_factor=1",
+                    f"--train.dtype={dtype}", "--train.log_every=1"]
+            env = {**os.environ, **({"OMP_NUM_THREADS": "1"} if ranks == 1 else {})}
+            t0 = time.time()
+            r = subprocess.run(common.cli_command(argv), env=env, capture_output=True, text=True)
+            t_exit = time.time()
+            if r.returncode:
+                raise RuntimeError(f"kd_ranks {name}: exit {r.returncode}\n{r.stderr[-3000:]}")
+            train = common.records(model_dir, "train")
+            t_eval = common.last_eval(model_dir)["time"]
+            rows.append({"variant": name, "ranks": ranks, "dtype": dtype,
+                         "startup_and_step1_s": train[0]["time"] - t0,
+                         "steps_2_3_s": train[-1]["time"] - train[0]["time"],
+                         "eval_s": t_eval - train[-1]["time"], "exit_s": t_exit - t_eval,
+                         "total_s": t_exit - t0, "losses": [x["loss"] for x in train]})
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--what", choices=("step", "dropblock", "kd", "remat", "dp", "spatial",
-                                           "bl", "flops", "crc"), default="step")
+                                           "bl", "flops", "crc", "kd_ranks"), default="step")
     parser.add_argument("--ranks", type=int, default=2, help="cards for --what=dp|spatial")
     parser.add_argument("--image_size", type=int, default=224,
                         help="the images' side for --what=step|remat|dp|spatial")
@@ -344,6 +407,10 @@ def main(argv=None) -> int:
     if args.what == "crc":
         print(json.dumps({"profile": "crc", "label": args.label, "host": "cpu", **crc_rates()}),
               flush=True)
+        return 0
+    if args.what == "kd_ranks":
+        print(json.dumps({"profile": "kd_ranks", "label": args.label, "host": "cpu",
+                          "rows": kd_ranks_times()}), flush=True)
         return 0
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)

@@ -140,10 +140,10 @@ def cached_train(directory: str, cfg, steps: int, *, use_ema: bool, device, trai
     return state, record
 
 
-def restore_state(directory: str, *, device):
+def restore_state(directory: str, *, device, step: int | None = None):
     """(the ``ModelConfig`` its ``model_config.json`` records, the train
-    state with its EMA) of the latest checkpoint in ``directory``; None
-    when there is none."""
+    state with its EMA) of checkpoint ``step`` in ``directory`` (default:
+    the latest); None when there is none."""
     mgr = CheckpointManager(directory)
     try:
         if mgr.latest_step() is None:
@@ -152,7 +152,7 @@ def restore_state(directory: str, *, device):
                              for k, v in mgr.model_config().items()})
         state = create_train_state(cfg, generator=torch.Generator().manual_seed(0),
                                    device=device, use_ema=True)
-        return cfg, mgr.restore(state)[0]
+        return cfg, mgr.restore(state, step=step)[0]
     finally:
         mgr.close()
 

@@ -21,21 +21,30 @@ Bars (``check``): raw and EMA top-1 >= 80, raw and EMA top-5 >= 95, EMA >=
 raw - 2 below three EMA time constants (``steps * (1 - 0.9999)``), EMA >=
 raw from three on.
 
-    python -m axcnn_torch.drives.convergence_1k [steps] [root] [n_per_class]
+    python -m axcnn_torch.drives.convergence_1k [steps] [root] [n_per_class] \
+        [-- extra CLI flags]
 
 Options: ``--n_eval`` (held-out images a class), ``--batch``,
-``--image_size``, ``--width``, ``--cpu`` and ``--no-check``.
+``--image_size``, ``--width``, ``--cpu`` and ``--no-check``. Flags after
+``--`` go to the CLI after the literal list, e.g.
+``-- --train.seed=7 --runtime.keep_checkpoint_max=11`` for another seed
+with every 1,000-step checkpoint kept; such a run has a model directory of
+its own. The summary's ``curve`` holds raw and EMA at every kept
+checkpoint; its last point is the summary's own numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import sys
 import tempfile
 
 import numpy as np
 
+from axcnn_torch.ckpt.checkpoint import CheckpointManager
 from axcnn_torch.data.datasets import DatasetInfo
 from axcnn_torch.drives import common
 from axcnn_torch.drives.data import N_EVAL_1K, N_TRAIN_1K, classes_1k, make_set_1k
@@ -51,8 +60,8 @@ EMA_LAG_TOL = 2.0  # below three EMA time constants only
 DEFAULT_ROOT = os.path.join(tempfile.gettempdir(), "axcnn_torch_drive_1k")
 OK_LINE = "1001-WAY CONVERGENCE DRIVE (contract head geometry, literal CLI) OK"
 # the reference's summary (scripts/convergence_drive_1k.py:317-322)
-SUMMARY_KEYS = ("steps", "echo", "batch", "median_img_per_sec",
-                *(f"{n}_{k}" for n in ("raw", "ema") for k in ("top1", "top5", "loss")))
+METRICS = tuple(f"{n}_{k}" for n in ("raw", "ema") for k in ("top1", "top5", "loss"))
+SUMMARY_KEYS = ("steps", "echo", "batch", "median_img_per_sec", *METRICS)
 
 
 def dataset_info(n_train: int, n_eval: int) -> DatasetInfo:
@@ -84,6 +93,37 @@ def cli_flags(data_dir: str, model_dir: str, steps: int, n_train: int, n_eval: i
             ]
 
 
+def model_dir_for(root: str, steps: int, n_per_class: int, extra_flags=()) -> str:
+    """The run's directory: ``run_<steps>[_n<n>]``, and a digest of the
+    extra flags when there are any, so ``train_complete`` never takes one
+    run for another."""
+    name = f"run_{steps}" + (f"_n{n_per_class}" if n_per_class != N_TRAIN else "")
+    if extra_flags:
+        name += "_x" + hashlib.sha1("\n".join(extra_flags).encode()).hexdigest()[:10]
+    return os.path.join(root, name)
+
+
+def evaluate_checkpoints(model_dir, data_dir, info, *, batch: int, image_size: int, device,
+                         log=print) -> list:
+    """Raw and EMA top-1, top-5 and loss at every kept checkpoint, oldest
+    first: [{'step', 'raw_top1', ..., 'ema_loss', 'count'}, ...] (the
+    run's own evals are of the EMA only)."""
+    directory = os.path.join(model_dir, "checkpoints")
+    curve = []
+    for step in CheckpointManager(directory).all_steps():
+        mcfg, state = common.restore_state(directory, device=device, step=step)
+        point, evals = {"step": step}, {}
+        for name, use_ema in (("raw", False), ("ema", True)):
+            evals[name] = common.evaluate_split(mcfg, state, data_dir, info, use_ema=use_ema,
+                                                batch=batch, image_size=image_size,
+                                                device=device)
+        point.update({f"{n}_{k}": m[k] for n, m in evals.items()
+                      for k in ("top1", "top5", "loss")}, count=evals["ema"]["count"])
+        log(f"[1k curve] {json.dumps(point)}")
+        curve.append(point)
+    return curve
+
+
 def median_images_per_sec(model_dir: str) -> float:
     ips = [r["images_per_sec"] for r in common.records(model_dir, "train")
            if r.get("images_per_sec")]
@@ -108,41 +148,37 @@ def check(summary: dict) -> None:
 
 def run(steps: int = STEPS, root: str = DEFAULT_ROOT, n_per_class: int = N_TRAIN, *,
         n_eval: int = N_EVAL, batch: int = BATCH, image_size: int = IMAGE, width: float = 1.0,
-        device=None, check_bars: bool = True, log=print) -> dict:
+        device=None, check_bars: bool = True, extra_flags=(), log=print) -> dict:
+    """The drive; ``extra_flags`` go to the CLI after the literal list and
+    the run's own flags."""
     device = common.resolve_device(device)
+    extra_flags = list(extra_flags)
     os.makedirs(root, exist_ok=True)
     data_dir = make_set_1k(root, n_per_class, n_eval, seed=0, log=log)
     n_train, n_eval_all = n_per_class * classes_1k(), n_eval * classes_1k()
-    model_dir = os.path.join(root, f"run_{steps}"
-                             + (f"_n{n_per_class}" if n_per_class != N_TRAIN else ""))
+    model_dir = model_dir_for(root, steps, n_per_class, extra_flags)
     seconds = None
     if not common.train_complete(model_dir, steps):
         seconds = common.cli(
             [*cli_flags(data_dir, model_dir, steps, n_train, n_eval_all, batch),
              *common.cli_run_flags(device, width=width, image_size=image_size,
-                                   full_size=IMAGE)],
+                                   full_size=IMAGE),
+             *extra_flags],
             "1k", model_dir, log, retries=2)
     ev = common.last_eval(model_dir)
     med_ips = median_images_per_sec(model_dir)
     log(f"[1k ema] held-out top1={ev['top1']:.2f} top5={ev['top5']:.2f} "
         f"loss={ev['loss']:.4f}  (median {med_ips:.0f} img/s end-to-end, echo x{ECHO})")
 
-    # raw against EMA on the saved state (the run evaluates the EMA only)
-    info = dataset_info(n_train, n_eval_all)
-    mcfg, state = common.restore_state(os.path.join(model_dir, "checkpoints"), device=device)
-    results = {}
-    for name, use_ema in (("raw", False), ("ema", True)):
-        results[name] = common.evaluate_split(mcfg, state, data_dir, info, use_ema=use_ema,
-                                              batch=batch, image_size=image_size,
-                                              device=device)
-        log(f"[1k {name}] top1={results[name]['top1']:.2f} top5={results[name]['top5']:.2f} "
-            f"loss={results[name]['loss']:.4f} count={results[name]['count']:.0f}")
+    # raw against EMA on each kept state, the last one the run's result
+    curve = evaluate_checkpoints(model_dir, data_dir, dataset_info(n_train, n_eval_all),
+                                 batch=batch, image_size=image_size, device=device, log=log)
+    last = curve[-1]
     summary = {
         "steps": steps, "echo": ECHO, "batch": batch, "median_img_per_sec": med_ips,
-        **{f"{n}_{k}": m[k] for n, m in results.items() for k in ("top1", "top5", "loss")},
-        "eval_count": results["ema"]["count"], "cli_eval": ev,
-        "train_loss": common.train_losses(model_dir), "seconds": seconds,
-        "native_loader": True,
+        **{k: last[k] for k in METRICS}, "eval_count": last["count"],
+        "cli_eval": ev, "train_loss": common.train_losses(model_dir), "seconds": seconds,
+        "native_loader": True, "extra_flags": extra_flags, "curve": curve,
     }
     log(json.dumps(summary))
     if check_bars:
@@ -159,10 +195,12 @@ def main(argv=None) -> dict:
                    help="train images a class")
     common.add_size_args(p, steps=None, batch=BATCH, image_size=IMAGE)
     p.add_argument("--n_eval", type=int, default=N_EVAL, help="held-out images a class")
-    a = p.parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cut = argv.index("--") if "--" in argv else len(argv)
+    a = p.parse_args(argv[:cut])
     return run(a.steps, a.root, a.n_per_class, n_eval=a.n_eval, batch=a.batch,
                image_size=a.image_size, width=a.width, device="cpu" if a.cpu else None,
-               check_bars=a.check)
+               check_bars=a.check, extra_flags=argv[cut + 1:])
 
 
 if __name__ == "__main__":

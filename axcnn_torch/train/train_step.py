@@ -97,6 +97,12 @@ def load_ema(state: TrainState) -> None:
     assert not result.unexpected_keys, result.unexpected_keys
 
 
+def step_progress(step: int, total_steps: int) -> np.float32:
+    """Training progress at ``step`` (before its increment), in fp32 as the
+    reference's step computes it: the DropBlock keep-prob schedule's input."""
+    return np.float32(step) / np.float32(max(total_steps, 1))
+
+
 def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
                     policy: Policy = DEFAULT_POLICY, label_smoothing: float = 0.0,
                     mixup_alpha: float = 0.0, mixup_symmetric: bool = False,
@@ -206,7 +212,7 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
         rng = (rng_global if group is None or spatial is not None
                else rng_global.fold_shard(dist.get_rank(group)))
         mix_rng = rng if mixup_per_shard else rng_global
-        progress = np.float32(step) / np.float32(max(total_steps, 1))
+        progress = step_progress(step, total_steps)
         images, labels = batch["images"], batch["labels"]
         if A == 1:
             micros = [(images, labels, rng, mix_rng, lam, dropblock_uniforms, aa_draws)]

@@ -254,7 +254,9 @@ points and checks them:
     b256, config 2's setup and b128 ``eval_only``, config 1's setup and
     ``predict --cpu`` in fp32, at full width, 224x224, b64, bf16,
     ``ACCEPT_CUT['steps']`` steps each; config 5 (R152 + KD, config 4 as
-    the teacher) on 8 Gloo CPU ranks at 64x64, b16, 3 steps. Every leg exits
+    the teacher) on ``ACCEPT_CUT['kd_ranks']`` (4) Gloo CPU ranks at 64x64,
+    b16, 3 steps (the full drive's 8), more ranks than the set's 2
+    validation files, so the eval deals records out to ranks. Every leg exits
     0, the export serves five well-formed top-5 entries, configs 3 and 2
     count the 100 held-out images, config 1's five posteriors are
     well-formed, config 5's losses are finite with its eval present; config
@@ -269,8 +271,27 @@ points and checks them:
     the launches (the probe's 5 teacher forwards; a leg's 3 + 3 + 3 BlurPool
     and 39 + 39 DropBlock launches a step, 3 an eval batch).
 
-Every phase prints one JSON line; any failure raises and exits non-zero.
-The last two lines are the kernels' summary and the result line.
+Every phase prints one JSON line, stamped with the script's elapsed
+seconds; any failure raises and exits non-zero. The last two lines are the
+kernels' summary and the result line.
+
+Order: the kernel phases (1-5) run alone, so the timings see an idle card;
+then ``spatial_448`` (its one-card 448x448 step peaks at 54 GiB); then,
+alone too, the phases that time the program (train, checkpoint, kd, remat,
+bl_train, bl_serve, aa_time, aa_train, int8_serve, tf_import,
+fgvc_finetune, dp_nccl, and resume and serve_ckpt, whose run kd reads).
+Then the drive phases 36 and 39-41 (``drives_group``: drives_cut, then
+acceptance_cut in a process of its own beside drives_cut_more and
+kd_diag_cut) run in a process of their own beside the phases that check
+results in this one (train_parity, dp, bl_parity, bl_assembled,
+blur_sizes, aa_parity, int8_check, export, mce, drive_convergence,
+spatial_parity, spatial_options_parity, spatial_448_options; the walls
+and img/s that export, drive_convergence and spatial_448_options print are
+read under that load). They share no files and count their launches in
+their own processes; their host work (CLI processes starting, CPU ranks)
+and their card work overlap, and the card's memory holds them all (each
+of those phases peaks at 30 GiB or less, a drive leg at less). A group's
+lines are printed when it ends, with the launches it counted.
 """
 
 import contextlib
@@ -280,6 +301,7 @@ import glob
 import io
 import json
 import os
+import signal
 import struct
 import subprocess
 import sys
@@ -377,8 +399,16 @@ SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: longer than enqueueing
 SEED = 0
 
 
+# the script's start on the host's clock; a process of the script's own
+# (``drives_group``) takes it from the environment
+_T0 = float(os.environ.get("CHIP_SMOKE_T0", time.time()))
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for ``phase``; ``elapsed_s`` is the script's wall time
+    when the phase ended, so the lines show where the time goes."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.time() - _T0, 3)}), flush=True)
 
 
 def device_phase():
@@ -3743,7 +3773,12 @@ def drives_cut_more_phase(smi, tmp):
 # acceptance_cut and kd_diag_cut (after drives_cut, on its root): the steps
 # of each card training leg, the KD probe's batch (the cut set holds 100
 # held-out images, fewer than two batches of 64) and the sweep's steps
-ACCEPT_CUT = dict(steps=10, probe_batch=32, sweep_steps=3)
+# kd_ranks: config 5's Gloo CPU ranks: more than the set's 2 validation
+# files, so its eval deals records out to ranks as the drive's 8 do, and a
+# divisor of its batch of 16 (on an H100 machine's 8-core host the drive's 8
+# took 75 s to start and ~21 s a step, mostly the gradient's all-reduce; 2
+# took 52 s and 6 s: ``profile_step --what=kd_ranks``)
+ACCEPT_CUT = dict(steps=10, probe_batch=32, sweep_steps=3, kd_ranks=4)
 # the entry point of a drive's leg (a module's ``main(args)``), counting the
 # kernels' launches into a JSON file: python -c _COUNTING_MAIN PATH MODULE ARGS...
 _COUNTING_MAIN = """
@@ -3830,17 +3865,25 @@ def acceptance_cut_phase(smi, tmp):
     """``axcnn_torch.drives.acceptance`` through its entry point on
     drives_cut's 50-class set (12 train and 2 held-out images a class), the
     card legs at full width, 224x224, b64, bf16, ``ACCEPT_CUT['steps']``
-    steps each, config 3 at b256, config 2's eval at b128, config 5 on 8
-    Gloo CPU ranks at 64x64, b16, 3 steps; the bars not asserted. Every leg
-    exits 0, the export serves five well-formed top-5 entries, configs 3
-    and 2 count the 100 held-out images, config 1's five posteriors are
-    well-formed, config 5's losses are finite with its eval present, and
-    each leg (run through ``_COUNTING_MAIN``) launches the kernels as its
-    steps, evals and forwards say (``_accept_launches``)."""
+    steps each, config 3 at b256, config 2's eval at b128, config 5 on
+    ``ACCEPT_CUT['kd_ranks']`` Gloo CPU ranks at 64x64, b16, 3 steps, more
+    ranks than the set's validation files (checked), so its eval reads every
+    file on every rank and deals the records out; the bars not asserted.
+    Every leg exits 0, the export serves five
+    well-formed top-5 entries, configs 3 and 2 count the 100 held-out
+    images, config 1's five posteriors are well-formed, config 5's losses
+    are finite with its eval present, and each leg (run through
+    ``_COUNTING_MAIN``) launches the kernels as its steps, evals and
+    forwards say (``_accept_launches``)."""
+    from axcnn_torch.data.tfrecord import list_shards
     from axcnn_torch.drives import acceptance, common
+    from axcnn_torch.drives.data import make_scale_set
 
     c = ACCEPT_CUT
     root = os.path.join(tmp, "drives_cut")
+    data_dir, info = make_scale_set(os.path.join(root, "scale"), n_train=CUT["scale_n_train"],
+                                    n_eval=CUT["scale_n_eval"], seed=0, log=lambda *a: None)
+    eval_files = len(list_shards(data_dir, info.eval_prefix))
     counting = _CountingCommands(os.path.join(tmp, "acceptance_counts"))
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -3851,7 +3894,8 @@ def acceptance_cut_phase(smi, tmp):
             summary = acceptance.main([
                 os.path.join(root, "acceptance"), f"--steps={c['steps']}",
                 f"--n_train={CUT['scale_n_train']}", f"--n_eval={CUT['scale_n_eval']}",
-                f"--scale_root={os.path.join(root, 'scale')}", "--no-check"])
+                f"--scale_root={os.path.join(root, 'scale')}", f"--kd_ranks={c['kd_ranks']}",
+                "--no-check"])
     seconds = time.perf_counter() - t0
     got = dict(zip(ACCEPT_LEGS, counting.counts()))
     want = {k: v for k, v in _accept_launches(c).items() if k in ACCEPT_LEGS}
@@ -3862,7 +3906,9 @@ def acceptance_cut_phase(smi, tmp):
               "export_top5": _top5_ok(summary["config4"]["export_top5"]),
               "counts": summary["config3"]["count"] == summary["config2"]["count"] == held_out == 100,
               "config1_top5": len(c1["top5"]) == 5 and all(_top5_ok(t) for t in c1["top5"]),
-              "config5": c5["steps"] > 0 and c5["finite"] and c5["eval_count"] == held_out}
+              "config5": c5["steps"] > 0 and c5["finite"] and c5["eval_count"] == held_out,
+              # the eval of more ranks than files (data/pipeline.py) ran
+              "config5_ranks_outnumber_eval_files": c["kd_ranks"] > eval_files}
     ok = all(checks.values())
     emit("acceptance_cut", cut=c, bars_asserted=False, width=1.0, batch=DRIVE_BATCH,
          image_size=224, dtype="bf16", summary=summary,
@@ -3934,6 +3980,77 @@ def kd_diag_cut_phase(smi, tmp):
     return total
 
 
+def drives_group(smi, tmp):
+    """Phases 36 and 39-41 (each later one reads drives_cut's root):
+    drives_cut, then acceptance_cut in a process of its own beside
+    drives_cut_more and kd_diag_cut in this one: {path: its launch counts}."""
+    paths = {"drives_cut": drives_cut_phase(smi, tmp)}
+    accept = _Group(smi, tmp, "acceptance")
+    try:
+        paths["drives_cut_more"] = drives_cut_more_phase(smi, tmp)
+        paths["kd_diag_cut"] = kd_diag_cut_phase(smi, tmp)
+    except BaseException:
+        accept.stop()
+        raise
+    paths.update(accept.finish())
+    return paths
+
+
+_GROUPS = {"drives": drives_group,
+           "acceptance": lambda smi, tmp: {"acceptance_cut": acceptance_cut_phase(smi, tmp)}}
+_GROUP_MAIN = """
+import json, sys
+import chip_smoke
+name, smi, tmp, out = sys.argv[1:]
+paths = chip_smoke._GROUPS[name](smi, tmp)
+with open(out, "w") as f:
+    json.dump(paths, f)
+"""
+
+
+class _Group:
+    """``_GROUPS[name](smi, tmp)`` in a process of its own, started now;
+    ``finish()`` waits for it, prints its lines and returns its paths'
+    launch counts; ``stop()`` ends it (the script stops every process it
+    starts). With ``own_session`` the process leads a process group of its
+    own, which holds everything it starts (a nested group, its CLI legs,
+    their ranks), and both end by ending what is left of that group."""
+
+    def __init__(self, smi, tmp, name, own_session=False):
+        self.own_session = own_session
+        self.name, self.out = name, os.path.join(tmp, f"{name}_paths.json")
+        self.log_path = os.path.join(tmp, f"{name}_output.log")
+        self.log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _GROUP_MAIN, name, smi, tmp, self.out],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=self.log,
+            stderr=subprocess.STDOUT, env={**os.environ, "CHIP_SMOKE_T0": repr(_T0)},
+            start_new_session=own_session)
+
+    def stop(self):
+        if self.own_session:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGKILL)
+        elif self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.log.close()
+
+    def finish(self):
+        self.proc.wait()
+        self.stop()
+        with open(self.log_path) as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            print(line, file=sys.stdout if line.startswith('{"phase"') else sys.stderr,
+                  flush=True)
+        if self.proc.returncode:
+            raise AssertionError(f"the {self.name} phases failed (exit {self.proc.returncode}): "
+                                 + "\n".join(lines[-40:]))
+        with open(self.out) as f:
+            return json.load(f)
+
+
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
     ("fwd", ("fwd",), "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
@@ -3948,6 +4065,57 @@ KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces
 )
 
 
+def _timed_phases(smi, tmp):
+    """The phases after ``throughput`` that time the program (and those
+    whose output they read), in their order, but ``spatial_448``; they run
+    alone: {path: its launch counts}, the runs the next phases read."""
+    paths = {}
+    train_dir = os.path.join(tmp, "train")
+    paths["train"], single = train_phase(smi, train_dir)
+    run_dir = os.path.join(tmp, "resume")
+    paths["checkpoint"] = checkpoint_phase(smi, tmp)
+    paths["resume"] = resume_phase(smi, run_dir)
+    paths["serve_ckpt"] = serve_ckpt_phase(run_dir, tmp)
+    paths["kd"] = kd_phase(smi, run_dir, os.path.join(tmp, "kd"))
+    paths["remat"] = remat_phase(smi, tmp, single)
+    bl_dir = os.path.join(tmp, "bl")
+    paths["bl_train"] = bl_train_phase(smi, bl_dir)
+    paths["bl_serve"] = bl_serve_phase(smi, bl_dir, tmp)
+    paths["aa_train"] = aa_train_phase(smi, tmp, aa_time_phase(smi))
+    paths["int8_serve"], _ = int8_serve_phase(smi)
+    import_dir = os.path.join(tmp, "tf_import")
+    paths["tf_import"], paths["tf_import_serve"], imported = tf_import_phase(
+        smi, import_dir, tmp)
+    paths["fgvc_finetune"] = fgvc_finetune_phase(smi, import_dir, imported, tmp)
+    dp_nccl_phase(smi, tmp, single)
+    return paths, train_dir
+
+
+def _checked_phases(smi, tmp, train_dir):
+    """The other phases after ``throughput``, in their order, beside the
+    drive phases: they check results (``export``'s img/s and seconds,
+    ``drive_convergence``'s walls and ``spatial_448_options``' Gloo walls
+    are read under that load): {path: its launch counts}."""
+    paths = {}
+    train_parity_phase()
+    paths["dp"] = dp_phase(smi, tmp)
+    bl_parity_phase()
+    paths["bl_assembled"] = bl_assembled_phase(smi)
+    blur_sizes_phase()
+    aa_parity_phase()
+    int8_check_phase()
+    paths["export"] = export_phase(smi, train_dir, tmp)
+    paths["mce"] = mce_phase(smi, train_dir, tmp)
+    paths["drive_convergence"] = drive_convergence_phase(smi, tmp)
+    parity = spatial_parity_phase(smi, tmp)
+    if parity is not None:
+        paths["spatial_parity"] = parity
+    torch.cuda.empty_cache()  # what this process holds, for the ranks the next two start
+    paths["spatial_options_parity"] = spatial_options_parity_phase(smi, tmp)
+    paths.update(spatial_448_options_phase(smi, tmp))
+    return paths
+
+
 def main():
     smi = device_phase()
     build_phase()
@@ -3959,44 +4127,20 @@ def main():
     parity_phase()
     throughput_phase(smi)
     with tempfile.TemporaryDirectory() as tmp:
-        train_dir = os.path.join(tmp, "train")
-        paths["train"], single = train_phase(smi, train_dir)
-        train_parity_phase()
-        run_dir = os.path.join(tmp, "resume")
-        paths["checkpoint"] = checkpoint_phase(smi, tmp)
-        paths["resume"] = resume_phase(smi, run_dir)
-        paths["serve_ckpt"] = serve_ckpt_phase(run_dir, tmp)
-        paths["kd"] = kd_phase(smi, run_dir, os.path.join(tmp, "kd"))
-        paths["dp"] = dp_phase(smi, tmp)
-        paths["remat"] = remat_phase(smi, tmp, single)
-        bl_dir = os.path.join(tmp, "bl")
-        paths["bl_train"] = bl_train_phase(smi, bl_dir)
-        paths["bl_serve"] = bl_serve_phase(smi, bl_dir, tmp)
-        bl_parity_phase()
-        paths["bl_assembled"] = bl_assembled_phase(smi)
-        blur_sizes_phase()
-        aa_parity_phase()
-        paths["aa_train"] = aa_train_phase(smi, tmp, aa_time_phase(smi))
-        int8_check_phase()
-        paths["int8_serve"], _ = int8_serve_phase(smi)
-        paths["export"] = export_phase(smi, train_dir, tmp)
-        paths["mce"] = mce_phase(smi, train_dir, tmp)
-        import_dir = os.path.join(tmp, "tf_import")
-        paths["tf_import"], paths["tf_import_serve"], imported = tf_import_phase(
-            smi, import_dir, tmp)
-        paths["fgvc_finetune"] = fgvc_finetune_phase(smi, import_dir, imported, tmp)
-        paths["drive_convergence"] = drive_convergence_phase(smi, tmp)
-        paths["drives_cut"] = drives_cut_phase(smi, tmp)
-        paths["drives_cut_more"] = drives_cut_more_phase(smi, tmp)
-        paths["acceptance_cut"] = acceptance_cut_phase(smi, tmp)
-        paths["kd_diag_cut"] = kd_diag_cut_phase(smi, tmp)
-        dp_nccl_phase(smi, tmp, single)
-        parity = spatial_parity_phase(smi, tmp)
-        if parity is not None:
-            paths["spatial_parity"] = parity
         paths.update(spatial_448_phase(smi, tmp))
-        paths["spatial_options_parity"] = spatial_options_parity_phase(smi, tmp)
-        paths.update(spatial_448_options_phase(smi, tmp))
+        torch.cuda.empty_cache()  # the 54 GiB it held
+        timed, train_dir = _timed_phases(smi, tmp)
+        paths.update(timed)
+        torch.cuda.empty_cache()  # for the drive phases
+        drives_dir = os.path.join(tmp, "drives_group")
+        os.makedirs(drives_dir)
+        group = _Group(smi, drives_dir, "drives", own_session=True)
+        try:
+            paths.update(_checked_phases(smi, tmp, train_dir))
+        except BaseException:
+            group.stop()
+            raise
+        paths.update(group.finish())
     for _, keys, name, *_ in KERNELS:
         for k in keys:
             if not any(counts[k] for counts in paths.values()):

@@ -46,6 +46,8 @@ from axcnn_torch.utils.config import parse_cli
 
 import torch_inprocess
 
+capped_threads = torch_inprocess.capped_threads
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # the reference scripts set these at import (a persistent compile cache)
 _JAX_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
@@ -397,17 +399,6 @@ def test_probe_labels_are_the_references(ref_drive):
 
 # -- the drive end to end, at a toy size ---------------------------------------------
 
-@pytest.fixture
-def one_thread(monkeypatch):
-    """Two torch threads here and in the spawned ranks' environment:
-    parallel test workers each spinning up a thread pool on every core slow
-    each other down tenfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
-    yield
-    torch.set_num_threads(threads)
-
 
 def _eager_export(path, cfg, model, *, batch_size=8, image_size=224, policy=None, mean=None,
                   std=None):
@@ -434,7 +425,7 @@ def _eager_load(path, device=None):
     return fn, meta
 
 
-def test_toy_drive(tmp_path, capsys, monkeypatch, one_thread):
+def test_toy_drive(tmp_path, capsys, monkeypatch):
     """Every leg at width 0.125 and 32x32 (config 5 at 64x64), 2 steps, 2
     train and 1 held-out image a class; the CLI legs in this process. For
     Tier-1's minutes under parallel workers, config 5 runs on one rank (its

@@ -29,6 +29,9 @@ from axcnn.data import autoaugment_device as j_aa
 from axcnn_torch.data import autoaugment as host_aa
 from axcnn_torch.data import autoaugment_device as t_aa
 from axcnn_torch.data.autoaugment import POLICIES
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 EXACT = {"Posterize", "Solarize", "SolarizeAdd", "Invert", "Equalize", "Cutout"}
 MAGS = (0, 3, 7, 10)

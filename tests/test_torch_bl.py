@@ -29,6 +29,9 @@ from axcnn_torch.ckpt.convert import from_axcnn, to_axcnn
 from axcnn_torch.models.resnet import BLStage, ModelConfig, ResNet
 from axcnn_torch.utils.config import load_preset
 from test_torch_model import SMALL, _images, _jax_logits, _pair, _random_tree
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 BL = dict(bl_alpha=2, bl_beta=4)
 VARIANTS = {

@@ -19,6 +19,9 @@ from scipy.io import savemat
 
 from axcnn.data import build_tfrecords as j_build
 from axcnn_torch.data import build_tfrecords as t_build
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 
 def _jpeg(path, seed):

@@ -23,6 +23,9 @@ from axcnn_torch.ckpt.checkpoint import SIDECAR, CheckpointManager
 from axcnn_torch.data.pipeline import LoaderState
 from axcnn_torch.models.resnet import ModelConfig
 from axcnn_torch.train.train_step import create_train_state, eval_logits
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 CFG = dict(width_multiplier=0.125, num_classes=10, use_resnet_d=True,
            use_se_block=True, use_sk_block=True, anti_alias_type="sconv",

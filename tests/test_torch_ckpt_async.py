@@ -16,6 +16,9 @@ import torch
 
 from axcnn_torch.ckpt.checkpoint import CheckpointManager
 from test_torch_ckpt import _state
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 _SAVE = torch.save
 

@@ -21,6 +21,9 @@ from axcnn.core import dtypes as jdtypes
 from axcnn.utils import config as jconfig
 from axcnn_torch.core import dtypes as tdtypes
 from axcnn_torch.utils import config as tconfig
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 REPO = Path(__file__).resolve().parent.parent
 SECTIONS = ("model", "data", "train", "runtime")

@@ -29,7 +29,6 @@ import sys
 import jax
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from axcnn.eval.imagenet_c import compute_mce as ref_compute_mce
@@ -37,6 +36,9 @@ from axcnn.models.resnet import ModelConfig as RefModelConfig
 from axcnn_torch.data import cpp_loader
 from axcnn_torch.data.tfrecord import TFRecordReader, list_shards, parse_example
 from axcnn_torch.drives import ablation, common, convergence, convergence_full, data, kd
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # the reference scripts set these at import (a persistent compile cache)
@@ -299,18 +301,6 @@ def test_check_holds_each_bar(name, at, past):
 TOY = ["--cpu", "--no-check", "--batch=4", "--image_size=64", "--width=0.125"]
 
 
-@pytest.fixture
-def one_thread(monkeypatch):
-    """One torch thread here and in the drives' subprocesses: the toy
-    steps are small, and parallel test workers each spinning up a thread
-    pool on every core slow each other down tenfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
-    yield
-    torch.set_num_threads(threads)
-
-
 def _finite(summary, keys):
     for path in keys:
         node = summary
@@ -325,7 +315,7 @@ def _quiet(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-def test_toy_convergence(tmp_path, capsys, one_thread):
+def test_toy_convergence(tmp_path, capsys):
     summary = convergence.main([str(tmp_path), *TOY, "--steps=3", "--n_per_class=2"])
     assert _quiet(capsys) == json.loads(json.dumps(summary))
     assert not common.missing_keys(summary, convergence.SUMMARY_KEYS)
@@ -335,7 +325,7 @@ def test_toy_convergence(tmp_path, capsys, one_thread):
     assert [s for s, _ in summary["train"]["logged_loss"]] == [1, 3]
 
 
-def test_toy_convergence_full(tmp_path, capsys, one_thread):
+def test_toy_convergence_full(tmp_path, capsys):
     argv = [str(tmp_path), *TOY, "--steps=3", "--ft_steps=2", "--num_hues=1", "--n_train=4",
             "--n_eval=2", "--ft_n_train=2", "--ft_n_eval=1"]
     summary = convergence_full.main(argv)
@@ -353,7 +343,7 @@ def test_toy_convergence_full(tmp_path, capsys, one_thread):
         convergence_full.main([*argv, "--steps=4"])
 
 
-def test_toy_ablation(tmp_path, capsys, one_thread):
+def test_toy_ablation(tmp_path, capsys):
     """Without a kept pretrain the ablation trains its assembled leg too."""
     summary = ablation.main([str(tmp_path), *TOY, "--steps=3", "--num_hues=1", "--n_train=4",
                              "--n_eval=2", "--corruptions=gaussian_noise,fog",
@@ -367,7 +357,7 @@ def test_toy_ablation(tmp_path, capsys, one_thread):
     assert os.path.exists(tmp_path / "imagenet_c" / "ok-2-gaussian_noise-fog")
 
 
-def test_toy_kd_through_the_cli(tmp_path, capsys, monkeypatch, one_thread):
+def test_toy_kd_through_the_cli(tmp_path, capsys, monkeypatch):
     """Every leg is the training CLI on one device; only the KD leg gets
     the teacher."""
     commands = []

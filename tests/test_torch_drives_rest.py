@@ -50,6 +50,9 @@ from axcnn_torch.drives import (acceptance, bl, common, convergence_1k, converge
                                 convergence_scale, data, finetune, int8_serving, kd_probe,
                                 kd_sweep)
 from axcnn_torch.train.train_step import create_train_state
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # the reference scripts set these at import (a persistent compile cache)
@@ -363,18 +366,6 @@ def test_int8_check_wants_every_key():
 TOY = ["--cpu", "--no-check", "--batch=4", "--width=0.125"]
 
 
-@pytest.fixture
-def one_thread(monkeypatch):
-    """Two torch threads here and in the drives' subprocesses: parallel test
-    workers each spinning up a thread pool on every core slow each other
-    down tenfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def scale_root(tmp_path_factory):
     """The 50-class set at 2 train and 1 held-out images a class."""
@@ -397,7 +388,7 @@ def _last_line(capsys):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-def test_toy_convergence_scale(scale_root, capsys, one_thread):
+def test_toy_convergence_scale(scale_root, capsys):
     summary = convergence_scale.main([scale_root, *TOY, "--image_size=64", "--steps=3",
                                       "--n_train=2", "--n_eval=1"])
     assert _last_line(capsys) == json.loads(json.dumps(summary))
@@ -408,7 +399,7 @@ def test_toy_convergence_scale(scale_root, capsys, one_thread):
     assert [s for s, _ in summary["train"]["logged_loss"]] == [1, 3]
 
 
-def test_toy_finetune_through_run(tmp_path, capsys, one_thread):
+def test_toy_finetune_through_run(tmp_path, capsys):
     """Three ``run()`` calls; the warm one starts from A's checkpoint."""
     summary = finetune.main([str(tmp_path), *TOY, "--image_size=64", "--steps=2",
                              "--n_per_class=2"])
@@ -421,7 +412,7 @@ def test_toy_finetune_through_run(tmp_path, capsys, one_thread):
         assert all(math.isfinite(v) for _, v in common.train_losses(str(tmp_path / run_dir)))
 
 
-def test_toy_1k_through_the_cli(tmp_path, capsys, monkeypatch, one_thread):
+def test_toy_1k_through_the_cli(tmp_path, capsys, monkeypatch):
     """The 1001-way head with label offset 1 on a 2 x 2 x 2 class subset;
     the CLI leg is the literal CLI, run again on the watchdog's exit code."""
     monkeypatch.setattr(data, "HUES_1K", {k: data.HUES_1K[k] for k in ("red", "blue")})
@@ -452,7 +443,7 @@ def test_toy_1k_through_the_cli(tmp_path, capsys, monkeypatch, one_thread):
     assert again["raw_top1"] == summary["raw_top1"]
 
 
-def test_toy_bl_through_the_cli(tmp_path, scale_root, capsys, monkeypatch, one_thread):
+def test_toy_bl_through_the_cli(tmp_path, scale_root, capsys, monkeypatch):
     commands = []
     real = common.cli_command
 
@@ -496,7 +487,7 @@ def test_cli_reruns_on_the_hang_exit_code(tmp_path, monkeypatch):
     assert count.read_text() == "1"
 
 
-def test_toy_int8_serving(tmp_path, capsys, one_thread):
+def test_toy_int8_serving(tmp_path, capsys):
     """On a toy ``convergence_full`` root: its pretrain kept by
     ``cached_train``, the int8 drive's measurements; an empty root exits
     with the reference's message."""

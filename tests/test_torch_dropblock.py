@@ -22,6 +22,9 @@ from axcnn.ops.dropblock import dropblock as j_dropblock
 from axcnn_torch.kernels import dropblock as kdrop
 from axcnn_torch.ops import dropblock as op_dropblock
 from axcnn_torch.ops.dropblock import dropblock, dropblock_gamma
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 # the sizes of tests/test_torch_train_ops.py's DropBlock cases, and a map of
 # 160x160 = 25,600 pixels, past the 16,384 the mask kernel once took: (N, H,

@@ -22,6 +22,9 @@ from axcnn_torch.ckpt.checkpoint import CheckpointManager
 from axcnn_torch.cli import main_classification as tcli
 from axcnn_torch.data.pipeline import EchoIterator
 from axcnn_torch.train import loop
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 MODEL = ["--config=assemble_resnet50", "--model.width_multiplier=0.125",
          "--train.batch_size=8", "--train.dtype=fp32", "--train.log_every=1",

@@ -41,6 +41,9 @@ from axcnn_torch.data.preprocessing import normalize_device
 from axcnn_torch.kernels import blurpool as kblur
 from axcnn_torch.models.resnet import ModelConfig, ResNet
 from test_torch_model import _random_tree
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 KW = dict(width_multiplier=0.25, num_classes=12, use_resnet_d=True, use_se_block=True,
           use_sk_block=True, anti_alias_type="sconv")

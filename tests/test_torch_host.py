@@ -42,6 +42,9 @@ from axcnn_torch.data import preprocessing as t_pre
 from axcnn_torch.data import tfrecord as t_tfrecord
 from axcnn_torch.utils import logging as t_logging
 from axcnn_torch.utils import watchdog as t_watchdog
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "axcnn_torch").rglob("*.py")

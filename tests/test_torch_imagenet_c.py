@@ -40,6 +40,9 @@ from axcnn_torch.data.build_imagenet_c import build_corrupted_set as t_build
 from axcnn_torch.data.tfrecord import TFRecordWriter, make_example
 from axcnn_torch.eval import imagenet_c as t_inc
 from axcnn_torch.models.resnet import ModelConfig
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 MODEL = dict(resnet_size=50, width_multiplier=0.125, num_classes=1001, use_resnet_d=True,
              use_se_block=True, use_sk_block=True, anti_alias_type="sconv")

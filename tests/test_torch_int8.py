@@ -33,6 +33,9 @@ from axcnn_torch.models.resnet import ModelConfig, ResNet
 from axcnn_torch.ops.conv import (conv2d_fixed_padding, int8_conv_acc_reference,
                                   int8_gemm_operands, quantize_int8)
 from test_torch_model import _random_tree
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 # (N, H, W, C, O, k, stride, dilation)
 CONV_CASES = {

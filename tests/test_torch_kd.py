@@ -20,14 +20,20 @@ JAX reference, on the CPU.
   (measured: <= 1.1e-11). Its fp32 step stays within the reference's own
   jit-vs-op-by-op fp32 noise of that exact step (one reference compile per
   kind instead of two). The combined step comes closest to that bound: 4.9e-2
-  on the velocity of one SE bias, whose gradient is a cancelling sum.
+  on the velocity of one SE bias, whose gradient is a cancelling sum. That
+  sum's fp32 value follows the conv's reduction order, so the port's fp32
+  step runs at torch's own thread count (one a core), where the bound was
+  set, while the rest of this file runs on one thread: there it lies 7.8e-2
+  away.
   Under accumulation the micro-batch is 4 and stage 4 is 2x2, so BN sees 16
   samples per channel there.
 - Three KD steps under accumulation from a fresh init at the learning rates
   of the KD preset's 3-step run, in float64: the loss at every step and the
   final parameters and velocity agree with the reference's, with the KD
   term and without it. The KD loss rises at the third step in both packages
-  alike, as it does on the card at full width.
+  alike, as it does on the card at full width. Both trajectories take one
+  jitted reference step, with ``kd_alpha`` and the teacher's trees as its
+  arguments instead of constants built into it: one compile, not two.
 """
 
 import contextlib
@@ -64,6 +70,9 @@ from axcnn_torch.utils.config import Config, DataConfig, TrainConfig
 from test_torch_train_step import (
     CFG, LR_KW, N, ROOT_KEY, SITES, STEP, STEP_KW, _batch, _leaves, _reference_state,
     _rel_l2, _update_errors)
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 TEACHER_CFG = dict(width_multiplier=0.125, num_classes=10)
 KD_KW = dict(kd_temp=2.0, kd_alpha=0.5)
@@ -331,7 +340,8 @@ def step_run(request):
         j_metrics = jax.device_get(j_metrics)
         draws = _draws(accum="accum" in kind)
         got64 = _port_step(jstate, kind, trees, draws, torch.float64)
-    got32 = _port_step(jstate, kind, trees, draws, torch.float32)
+    with torch_inprocess.default_threads():  # the threads the fp32 bound was set at
+        got32 = _port_step(jstate, kind, trees, draws, torch.float32)
     return dict(kind=request.param, old=j_in, want=j_new, want_metrics=j_metrics,
                 got={"fp64": got64, "fp32": got32})
 
@@ -440,7 +450,26 @@ def trajectory_start():
                         "labels": rng.integers(0, 10, N).astype(np.int32)})
     with _float64():
         port = _port_state(jstate, torch.float64)
-    return dict(jstate=jstate, trees=_teacher_trees(83), batches=batches, port=port)
+    step_kw = {**STEP_KW, "total_steps": PRESET_STEPS}
+    return dict(jstate=jstate, trees=_teacher_trees(83), batches=batches, port=port,
+                step_kw=step_kw,
+                jstep=_reference_kd_accum_step(PRESET_LR, step_kw, PRESET_KD["kd_temp"]))
+
+
+def _reference_kd_accum_step(lr_kw, step_kw, kd_temp):
+    """The reference's jitted ``make_train_step`` with a KD teacher under
+    accumulation, ``kd_alpha`` and the teacher's trees handed in as
+    arguments rather than built in as constants: the same step, one compile
+    for every ``kd_alpha`` (call it inside ``_float64``: it is traced there,
+    its policy's fp32 re-pointed too)."""
+    def step(state, batch, root_key, kd_alpha, t_params, t_state):
+        policy = JPolicy(param_dtype=jnp.float32, compute_dtype=jnp.float32)
+        return j_make_train_step(
+            JModelConfig(**CFG), lr_schedule=j_lr(**lr_kw), policy=policy, **step_kw,
+            grad_accum_steps=A, teacher=(JModelConfig(**TEACHER_CFG), t_params, t_state),
+            kd_temp=kd_temp, kd_alpha=kd_alpha)(state, batch, root_key)
+
+    return jax.jit(step)
 
 
 def _trajectory(kd_kw, start):
@@ -448,12 +477,12 @@ def _trajectory(kd_kw, start):
     ``trajectory_start`` fixture), at ``PRESET_LR``: the reference's and the
     port's losses and final states, both in float64, the port's with the
     reference's draws."""
-    step_kw = {**STEP_KW, "total_steps": PRESET_STEPS}
+    step_kw = start["step_kw"]
     jstate, trees, batches = start["jstate"], start["trees"], start["batches"]
+    assert kd_kw["kd_temp"] == PRESET_KD["kd_temp"]  # the one the reference's step was built with
     with _float64():
         j = jax.tree.map(_f64, jstate)
-        jstep = _reference_step("kd_accum", trees, lr_kw=PRESET_LR, step_kw=step_kw,
-                                kd_kw=kd_kw)
+        t_trees = jax.tree.map(_f64, trees)
         t = copy.deepcopy(start["port"])
         tstep = make_train_step(ModelConfig(**CFG), lr_schedule=t_lr(**PRESET_LR),
                                 policy=Policy(torch.float64, torch.float64), **step_kw,
@@ -461,7 +490,8 @@ def _trajectory(kd_kw, start):
                                 grad_accum_steps=A, **kd_kw)
         want, got = [], []
         for k, batch in enumerate(batches):
-            j, jm = jstep(j, batch, jax.random.key(ROOT_KEY))
+            j, jm = start["jstep"](j, batch, jax.random.key(ROOT_KEY), kd_kw["kd_alpha"],
+                                   *t_trees)
             lams, unis = _port_draws(_draws(accum=True, step=k), True, torch.float64)
             t, tm = tstep(t, {n: torch.from_numpy(v) for n, v in batch.items()}, 0,
                           lam=lams, dropblock_uniforms=unis)

@@ -36,6 +36,8 @@ from axcnn_torch.train.train_step import create_train_state
 
 import torch_inprocess
 
+capped_threads = torch_inprocess.capped_threads
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # the reference scripts set these at import (a persistent compile cache)
 _JAX_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
@@ -145,16 +147,6 @@ def test_sweep_exits_without_the_teacher(tmp_path):
 
 # -- toy runs ------------------------------------------------------------------------
 
-@pytest.fixture
-def one_thread(monkeypatch):
-    """Two torch threads: parallel test workers each spinning up a thread
-    pool on every core slow each other down tenfold."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
-    yield
-    torch.set_num_threads(threads)
-
 
 @pytest.fixture(scope="module")
 def kd_root(tmp_path_factory):
@@ -177,7 +169,7 @@ def kd_root(tmp_path_factory):
 SIZES = ["--n_train=12", "--n_eval=1"]
 
 
-def test_toy_probe(kd_root, capsys, one_thread):
+def test_toy_probe(kd_root, capsys):
     summary = kd_probe.main([str(kd_root), "--cpu", "--no-check", "--batch=4", *SIZES,
                              f"--scale_root={kd_root / 'scale'}"])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
@@ -192,7 +184,7 @@ def test_toy_probe(kd_root, capsys, one_thread):
     kd_probe.check({"eval/clean2": {"top1": 0.91}})
 
 
-def test_toy_sweep(kd_root, capsys, monkeypatch, one_thread):
+def test_toy_sweep(kd_root, capsys, monkeypatch):
     """One step a leg, width 0.125, 32x32, b16 (four eval batches); the
     CLI legs in this process; a leg with its checkpoints is not run
     again."""

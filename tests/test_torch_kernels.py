@@ -19,6 +19,9 @@ from axcnn_torch.kernels import blurpool as kblur
 from axcnn_torch.kernels import dropblock as kdrop
 from axcnn_torch.ops.blurpool import blur_pool
 from axcnn_torch.ops.dropblock import dropblock
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 
 def _nchw(shape_nhwc, seed, device="cpu", dtype=torch.float32):

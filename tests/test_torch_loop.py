@@ -33,6 +33,9 @@ from axcnn_torch.cli import main_classification as tcli
 from axcnn_torch.train import loop
 from axcnn_torch.train.train_step import create_train_state
 from axcnn_torch.utils.config import parse_cli
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 REPO = Path(__file__).resolve().parent.parent
 MODEL = ["--config=assemble_resnet50", "--model.width_multiplier=0.125",

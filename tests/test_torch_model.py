@@ -28,6 +28,9 @@ from axcnn_torch.core.dtypes import BF16_POLICY
 from axcnn_torch.models.resnet import ModelConfig, ResNet
 from axcnn_torch.ops.conv import Dense
 from axcnn_torch.ops.pooling import global_avg_pool
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 SMALL = dict(width_multiplier=0.125, num_classes=10)
 ASSEMBLED = dict(use_resnet_d=True, use_se_block=True, use_sk_block=True,

@@ -29,6 +29,9 @@ from axcnn_torch.ops.norm import BatchNorm, bn_eval
 from axcnn_torch.ops.pooling import avg_pool_same, global_avg_pool, max_pool_same
 from axcnn_torch.ops.se import SE
 from axcnn_torch.ops.sk import SK
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -53,6 +53,9 @@ from axcnn_torch.core.rng import RngStream  # noqa: E402
 from axcnn_torch.models.resnet import ModelConfig  # noqa: E402
 from axcnn_torch.train.schedules import make_lr_schedule as t_lr  # noqa: E402
 from axcnn_torch.train.train_step import create_train_state, make_train_step  # noqa: E402
+import torch_inprocess  # noqa: E402
+
+capped_threads = torch_inprocess.capped_threads
 
 CFG = dict(width_multiplier=0.125, num_classes=10, use_resnet_d=True,
            use_se_block=True, use_sk_block=True, anti_alias_type="sconv",
@@ -127,7 +130,7 @@ def _port_step(inputs, leg, rank, group="data"):
 def _rank_main(rank, world, port, workdir):
     from axcnn_torch.parallel import mesh
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(torch_inprocess.THREADS)
     mesh.init_distributed("cpu", rank=rank, world_size=world,
                           coordinator=f"127.0.0.1:{port}")
     try:
@@ -240,14 +243,71 @@ def _reference_step(jstate, batch, root_key, float_dtype, cfg=CFG):
     return j_in, jax.tree.map(np.asarray, j_new), jax.device_get(j_metrics)
 
 
+class _References(dict):
+    """The reference's step of each kind (``fp32``, ``fp64``, ``bl_fp64``),
+    run when a test first asks for it: one compile each, paid by that test
+    alone, while the port's ranks run in the background."""
+
+    def __init__(self, jstate, bl_state, batch, root_key):
+        super().__init__()
+        self._args = jstate, bl_state, batch, root_key
+
+    def __missing__(self, kind):
+        import jax
+        import jax.numpy as jnp
+
+        jstate, bl_state, batch, root_key = self._args
+        if kind == "fp32":
+            out = _reference_step(jstate, batch, root_key, np.float32)
+        else:
+            with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+                mp.setattr(jnp, "float32", jnp.float64)
+                out = (_reference_step(jstate, batch, root_key, np.float64) if kind == "fp64"
+                       else _reference_step(bl_state, batch, root_key, np.float64, BL_CFG))
+        self[kind] = out
+        return out
+
+
+class _RankResults(dict):
+    """Every leg of the two port ranks, read once they have ended (on the
+    first lookup): the rank-0 state as the reference's tree, its metrics,
+    both ranks' tensors, and each rank's one-process ``fp64_nosync`` step
+    (``nosync_singles``)."""
+
+    def __init__(self, procs, workdir):
+        super().__init__()
+        self._procs, self._workdir = procs, workdir
+
+    def __missing__(self, key):
+        import jax
+
+        from axcnn_torch.ckpt.convert import train_state_to_axcnn
+
+        outs = [p.communicate(timeout=600)[0] for p in self._procs]
+        for p, out in zip(self._procs, outs):
+            assert p.returncode == 0, out[-4000:]
+        ranks = [torch.load(self._workdir / f"rank{r}.pt", weights_only=False)
+                 for r in range(WORLD)]
+        for leg in LEGS:
+            r0 = ranks[0][leg]
+            with pytest.MonkeyPatch.context() as mp:
+                if "fp64" in leg:  # the converter's fp32 cast, re-pointed
+                    mp.setattr(torch.Tensor, "float", lambda self: self.double())
+                tree = train_state_to_axcnn(_as_state(
+                    r0, remat=leg.endswith("remat"), cfg=BL_CFG if leg.startswith("bl") else CFG))
+            self[leg] = dict(tree=jax.tree.map(lambda a: np.asarray(a, np.float64), tree),
+                             metrics=r0["metrics"], ranks=[r[leg] for r in ranks])
+        self["nosync_singles"] = [r["fp64_nosync_single"] for r in ranks]
+        return self[key]
+
+
 @pytest.fixture(scope="module")
 def dp_runs(tmp_path_factory):
-    """Both legs of the reference beside the two port ranks, which run in
-    the background while the reference compiles."""
+    """(the reference's steps, the port ranks' legs): the two ranks start
+    here, in the background, and run every leg while the reference's steps
+    compile, each when a test first needs it."""
     import jax
     import jax.numpy as jnp
-
-    from axcnn_torch.ckpt.convert import train_state_to_axcnn
 
     workdir = tmp_path_factory.mktemp("dp")
     jstate, batch, root_key = _reference_state(80), _batch(), jax.random.key(ROOT_KEY)
@@ -267,32 +327,12 @@ def dp_runs(tmp_path_factory):
                                str(workdir)], cwd=REPO, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
     try:
-        want = {"fp32": _reference_step(jstate, batch, root_key, np.float32)}
-        with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jnp, "float32", jnp.float64)
-            want["fp64"] = _reference_step(jstate, batch, root_key, np.float64)
-            want["bl_fp64"] = _reference_step(bl_state, batch, root_key, np.float64, BL_CFG)
-        outs = [p.communicate(timeout=600)[0] for p in procs]
+        yield _References(jstate, bl_state, batch, root_key), _RankResults(procs, workdir)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-4000:]
-    ranks = [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
-    got = {}
-    for leg in LEGS:
-        r0 = ranks[0][leg]
-        with pytest.MonkeyPatch.context() as mp:
-            if "fp64" in leg:  # the converter's fp32 cast, re-pointed
-                mp.setattr(torch.Tensor, "float", lambda self: self.double())
-            tree = train_state_to_axcnn(_as_state(r0, remat=leg.endswith("remat"),
-                                                  cfg=BL_CFG if leg.startswith("bl") else CFG))
-        got[leg] = dict(tree=jax.tree.map(lambda a: np.asarray(a, np.float64), tree),
-                        metrics=r0["metrics"], ranks=[r[leg] for r in ranks])
-    got["nosync_singles"] = [r["fp64_nosync_single"] for r in ranks]
-    return want, got
 
 
 def _as_state(out, remat, cfg=CFG):

@@ -15,6 +15,9 @@ import torch
 from PIL import Image
 
 from axcnn_torch.cli import predict
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 SMALL = ["--config=assemble_resnet50", "--model.width_multiplier=0.125",
          "--data.image_size=64"]

@@ -27,6 +27,9 @@ from axcnn_torch.ckpt.convert import tree_to_state_dict
 from axcnn_torch.kernels import blurpool as kblur
 from axcnn_torch.ops.blurpool import blur_kernel, blur_pool, blur_pool_general_reference
 from axcnn_torch.ops.sk import SK, merged_sk_weight
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 
 def _nchw(x):

@@ -58,6 +58,9 @@ from axcnn_torch.parallel import spatial as sp  # noqa: E402
 from axcnn_torch.train.schedules import make_lr_schedule as t_lr  # noqa: E402
 from axcnn_torch.train.train_step import (create_train_state, make_eval_step,  # noqa: E402
                                           make_train_step)
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 CFG = dict(width_multiplier=0.25, num_classes=10, use_resnet_d=True,
            use_se_block=True, use_sk_block=True, anti_alias_type="sconv",
@@ -345,7 +348,7 @@ def _bl_remat_pass(images, group=None, spatial=None):
 def _rank_main(rank, world, spatial_parts, port, workdir):
     from axcnn_torch.parallel import mesh
 
-    torch.set_num_threads(1)
+    torch.set_num_threads(torch_inprocess.THREADS)
     mesh.init_distributed("cpu", rank=rank, world_size=world, coordinator=f"127.0.0.1:{port}")
     try:
         ctx = sp.make_spatial_context(spatial_parts)

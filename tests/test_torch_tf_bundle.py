@@ -22,6 +22,9 @@ from axcnn.data import tfrecord as j_tfrecord
 from axcnn_torch.ckpt import tf_bundle
 from axcnn_torch.ckpt.tf_bundle import BundleReader, CorruptBundleError
 from axcnn_torch.data import tfrecord as t_tfrecord
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 
 @pytest.fixture(scope="module")

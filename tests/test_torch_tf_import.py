@@ -30,6 +30,9 @@ from axcnn.utils.config import load_preset as j_load_preset
 from axcnn_torch.ckpt import tf_import as t_tf_import
 from axcnn_torch.ckpt.convert import _to_torch_layout, from_axcnn, reference_paths
 from axcnn_torch.models.resnet import ModelConfig, ResNet
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 ASSEMBLED = dict(use_resnet_d=True, use_se_block=True, use_sk_block=True,
                  anti_alias_type="sconv")

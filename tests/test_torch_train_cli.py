@@ -21,6 +21,9 @@ import torch
 from axcnn_torch.cli import main_classification as tcli
 from axcnn_torch.train.loop import REFUSED, UNPORTED, check_ported
 from axcnn_torch.utils.config import parse_cli
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = ["--config=assemble_resnet50", "--data.use_synthetic_data",
@@ -242,6 +245,21 @@ def test_spatial_layout_it_cannot_take_is_refused(flags, match, tmp_path):
                    "--runtime.platform=cpu", SPATIAL, *flags,
                    f"--runtime.model_dir={tmp_path}"])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("omp, want", [
+    (None, 4), ("", 4), ("2", 2), ("16", 4), ("3,2", 3), ("0", 4), ("abc", 4), (" 2", 2)])
+def test_cpu_rank_threads_take_omp_num_threads_as_a_ceiling(omp, want, monkeypatch):
+    """A CPU rank's threads: its share of the host's cores (16 cores, 4
+    ranks: 4), capped by OMP_NUM_THREADS' first field where that is a
+    positive integer; OpenMP's nesting list ('3,2') and values that are
+    not a count leave the share, not a crash at start-up."""
+    monkeypatch.setattr(os, "cpu_count", lambda: 16)
+    if omp is None:
+        monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    else:
+        monkeypatch.setenv("OMP_NUM_THREADS", omp)
+    assert tcli.thread_share(4) == want
 
 
 def test_unknown_platform_is_refused(tmp_path):

@@ -42,6 +42,9 @@ from axcnn_torch.train import ema as tema
 from axcnn_torch.train import losses as tlosses
 from axcnn_torch.train import optimizer as topt
 from axcnn_torch.train import schedules as tsched
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 SMALL_ASSEMBLED = dict(width_multiplier=0.125, num_classes=10, use_resnet_d=True,

@@ -57,6 +57,9 @@ from axcnn_torch.core.dtypes import Policy
 from axcnn_torch.models.resnet import ModelConfig
 from axcnn_torch.train.schedules import make_lr_schedule as t_lr
 from axcnn_torch.train.train_step import make_train_step
+import torch_inprocess
+
+capped_threads = torch_inprocess.capped_threads
 
 CFG = dict(width_multiplier=0.125, num_classes=10, use_resnet_d=True,
            use_se_block=True, use_sk_block=True, anti_alias_type="sconv",

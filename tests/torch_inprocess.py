@@ -1,10 +1,23 @@
-"""A stand-in for ``subprocess.run`` that runs a drive leg's command
+"""What the port's test files share to run cheaply beside each other.
+
+``run``: a stand-in for ``subprocess.run`` that runs a drive leg's command
 (``python -m MODULE ARGS...``, as ``axcnn_torch.drives.common`` builds it)
 in this process: ``MODULE.main(ARGS)``, its output where the child's would
 go, its exit code from ``SystemExit`` or an int ``main`` returns; any other
 command runs as it would. The toy drive tests patch it in for
 ``subprocess.run`` so that their CLI legs cost no interpreter start-up; a
-leg that starts ranks still spawns them."""
+leg that starts ranks still spawns them.
+
+``capped_threads``: a module fixture (``capped_threads =
+torch_inprocess.capped_threads`` in a test file makes it that file's, and
+autouse there) that gives torch ``THREADS`` intra-op threads in the test
+process and, through ``OMP_NUM_THREADS``, in every process it starts (Gloo
+ranks, CLI subprocesses, spawned ranks), for the file's duration. The
+port's tests run at toy sizes in parallel workers: a thread pool on every
+core in each worker and each rank spins against the others' and multiplies
+the CPU seconds a test burns, while one thread loses little on tensors
+this small. ``default_threads()`` gives a block torch's own count back.
+"""
 
 import contextlib
 import importlib
@@ -12,7 +25,36 @@ import io
 import subprocess
 import sys
 
+import pytest
+import torch
+
 _RUN = subprocess.run
+THREADS = 1
+DEFAULT_THREADS = torch.get_num_threads()  # torch's own: one a core
+
+
+@pytest.fixture(scope="module", autouse=True)
+def capped_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(THREADS)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", str(THREADS))
+        mp.setenv("MKL_NUM_THREADS", str(THREADS))
+        yield
+    torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def default_threads():
+    """torch's own intra-op thread count for the block: for an fp32 result
+    whose bound was set at it (the reduction order of a conv follows the
+    thread count, and a cancelling sum shows it)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def run(cmd, *args, stdout=None, stderr=None, capture_output=False, **kw):
