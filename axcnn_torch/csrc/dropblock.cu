@@ -38,7 +38,9 @@
 // window's mask is the global mask's rows, bit for bit. Such a window takes
 // the tiled kernel, which recomputes the centres of the rows above and below
 // it from the stateless hash: no halo exchange. Its counts are the window's;
-// the caller sums them over the spatial row.
+// the caller sums them over the spatial row. That is the route of a global
+// map past kWholeMapHW only: a spatial site within it takes
+// dropblock_fused_kernel with a window (below), which needs no sum over ranks.
 //
 // dropblock_apply_kernel replaces the apply that dropblock_pallas
 // (axcnn/pallas/dropblock.py:133-135) left to XLA, forward and backward:
@@ -97,6 +99,23 @@
 // the saved launch did. Larger maps take the mask kernel (whole-map or
 // tiled), then the apply.
 //
+// The same launch serves a spatial site (a rank holds rows [row0, row0 + h)
+// of its n samples first .. first + n - 1 of a global batch of n_global,
+// whose maps have h_global rows), for global maps within kWholeMapHW; the
+// main path's site is its trivial window (row0 = 0, h = h_global, first = 0,
+// n_global = n). The scale needs every global sample's count over its whole
+// map. The TPU program got it from a sum that GSPMD inserted; the windowed
+// route above sums the window counts over the ranks between its two
+// launches. But every rank has the global batch's seeds, and the hash is
+// stateless in (seed, global pixel): so in phase 1 CTA b draws global
+// samples b, b + grid, ... over the whole global map (a 448^2 step's sites
+// are 28x28 and 14x14), writes each one's count, and for this rank's
+// samples the window's rows of its mask. The counts are integers, so they
+// equal the windows' sum over ranks exactly, and mask, counts and output are
+// bit-identical to the windowed mask, the counts' sum and the apply. It
+// costs n_global whole-map draws instead of n windows, a few hundred hashes
+// a sample, and saves the mask's launch and the counts' collective.
+//
 // Plain C interface, loaded with ctypes; each entry returns cudaGetLastError().
 
 #include <cooperative_groups.h>
@@ -149,10 +168,12 @@ __device__ __forceinline__ void store_count(int kept, float* __restrict__ counts
 }
 
 // one sample's keep-mask, its whole map in shared memory: ``centre`` and
-// ``rowhit`` hold h * w bytes each; writes mask_n and counts[n]
+// ``rowhit`` hold h * w bytes each; writes counts[n], the whole map's, and
+// rows row0 .. row0 + rows - 1 of the mask into mask_n, unless it is null
 __device__ __forceinline__ void mask_whole_map(uint32_t key, float gamma, float* mask_n,
                                                float* counts, int n, int h, int w, int bs,
-                                               unsigned char* centre, unsigned char* rowhit) {
+                                               unsigned char* centre, unsigned char* rowhit,
+                                               int row0, int rows) {
   const int hw = h * w;
   const int half0 = (bs - 1) / 2, half1 = bs / 2;
   for (int p = threadIdx.x; p < hw; p += blockDim.x) {
@@ -183,7 +204,8 @@ __device__ __forceinline__ void mask_whole_map(uint32_t key, float gamma, float*
       const int cc = c - d;
       if (cc >= 0 && cc < w) acc |= rowhit[r * w + cc];
     }
-    mask_n[p] = acc ? 0.0f : 1.0f;
+    if (mask_n != nullptr && r >= row0 && r < row0 + rows)
+      mask_n[p - row0 * w] = acc ? 0.0f : 1.0f;
     kept += acc ? 0 : 1;
   }
   store_count(kept, counts, n);
@@ -198,7 +220,7 @@ __global__ void dropblock_mask_kernel(const int32_t* __restrict__ seeds,
   __shared__ unsigned char rowhit[kWholeMapHW];
   const int n = blockIdx.x;
   mask_whole_map(fmix32((uint32_t)seeds[n]), gamma, mask + (long long)n * h * w, counts, n, h,
-                 w, bs, centre, rowhit);
+                 w, bs, centre, rowhit, 0, h);
 }
 
 // tiles: rows [r0, r0 + rows) by columns [c0, c0 + cols) of the window's h
@@ -383,17 +405,21 @@ __global__ void __launch_bounds__(kApplyThreads) dropblock_apply_kernel(ApplyArg
 }
 
 struct FusedArgs {
-  ApplyArgs apply;  // its mask and counts are written by phase 1
-  const int32_t* seeds;
+  ApplyArgs apply;        // mask: this rank's window, (n, h, w), and counts: the global
+                          // batch's, n_counts of them, both written by phase 1
+  const int32_t* seeds;   // the global batch's, n_counts of them
   float gamma;
-  int h, w, bs;
+  int h_global, w, bs;
+  int row0, h;            // the window: global rows row0 .. row0 + h - 1
+  int first;              // this rank's first sample in the global batch
 };
 
-// forward only; h * w <= kWholeMapHW; dynamic shared memory 2 * h * w bytes
+// forward only; h_global * w <= kWholeMapHW; dynamic shared memory
+// 2 * h_global * w bytes
 template <typename T, bool kVec, typename Index>
 __global__ void __launch_bounds__(kApplyThreads) dropblock_fused_kernel(FusedArgs args) {
   using Unit = typename UnitOf<T, kVec>::type;
-  extern __shared__ unsigned char maps[];  // centre, then rowhit
+  extern __shared__ unsigned char maps[];  // centre, then rowhit, of the global map
   const ApplyArgs& ap = args.apply;
   const Unit* __restrict__ in = static_cast<const Unit*>(ap.src);
   const Index units = (Index)ap.units, per_pixel = (Index)ap.per_pixel;
@@ -401,19 +427,26 @@ __global__ void __launch_bounds__(kApplyThreads) dropblock_fused_kernel(FusedArg
   Unit v[kApplyUnroll];
   float m[kApplyUnroll];
   const Index i = (Index)blockIdx.x * kApplyThreads + threadIdx.x;
+  const int n_global = ap.n_counts;
   // phase 0: the first loads of x, in flight across the mask and the barrier;
   // a CTA that draws a mask issues its own after drawing, so that its seed
   // loads and mask stores do not queue behind the grid's loads (on an H100
   // this order took less time a launch than every CTA loading first)
-  const bool draws = blockIdx.x < (unsigned)ap.n;
+  const bool draws = blockIdx.x < (unsigned)n_global;
   if (!draws) load_units<Unit>(in, v, i, stride, units);
-  // phase 1: the mask, one sample at a time per CTA
-  const int hw = args.h * args.w;
+  // phase 1: every sample of the global batch over the whole global map,
+  // one at a time per CTA; its count always, its window's rows only for
+  // this rank's samples
+  const int hw = args.h_global * args.w;
   float* mask = const_cast<float*>(ap.mask);
   float* counts = const_cast<float*>(ap.counts);
-  for (int n = blockIdx.x; n < ap.n; n += gridDim.x)
-    mask_whole_map(fmix32((uint32_t)args.seeds[n]), args.gamma, mask + (long long)n * hw,
-                   counts, n, args.h, args.w, args.bs, maps, maps + hw);
+  for (int g = blockIdx.x; g < n_global; g += gridDim.x) {
+    const int local = g - args.first;
+    float* mask_n = local >= 0 && local < ap.n
+                        ? mask + (long long)local * args.h * args.w : nullptr;
+    mask_whole_map(fmix32((uint32_t)args.seeds[g]), args.gamma, mask_n, counts, g,
+                   args.h_global, args.w, args.bs, maps, maps + hw, args.row0, args.h);
+  }
   if (draws) load_units<Unit>(in, v, i, stride, units);
   // every sample's mask and count is written and visible to the whole grid
   cooperative_groups::this_grid().sync();
@@ -553,36 +586,47 @@ extern "C" int axcnn_dropblock_apply(const void* src, const void* mask, const vo
              : launch_apply<float, false>(args, (unsigned)grid, narrow, st);
 }
 
-// The forward apply of a fresh mask in one cooperative launch: src, dst
-// dense NHWC fp32 (dtype 0) or bf16 (dtype 1), (n, h, w, c); seeds (n,)
-// int32; writes mask (n, h, w) fp32 and counts (n,) fp32 as
-// axcnn_dropblock_mask does, and dst = (src * mask) * scale as
-// axcnn_dropblock_apply does. numel: n*h*w*c as fp32. Requires
-// h * w <= kWholeMapHW, 1 <= bs <= min(h, w), n and c < 2^31. A launch the
-// runtime refuses (cudaErrorCooperativeLaunchTooLarge or any other) returns
-// its code; nothing else is tried.
+// The forward apply of a fresh mask in one cooperative launch, for a rank
+// that holds rows row0 .. row0 + h - 1 of samples first .. first + n - 1 of
+// a global batch of n_global samples whose maps have h_global rows (the
+// whole batch: row0 = 0, h_global = h, first = 0, n_global = n): src, dst
+// this rank's dense NHWC fp32 (dtype 0) or bf16 (dtype 1), (n, h, w, c);
+// seeds (n_global,) int32, the global batch's; writes mask (n, h, w) fp32,
+// the window's rows of the global mask of this rank's samples (what
+// axcnn_dropblock_mask gives for the window), counts (n_global,) fp32, every
+// global sample's count over its whole map (the window counts' sum over the
+// ranks), and dst = (src * mask) * scale with the scale of those counts, as
+// axcnn_dropblock_apply does. numel: n_global*h_global*w*c as fp32.
+// Requires h_global * w <= kWholeMapHW, 1 <= bs <= min(h_global, w),
+// 0 <= first, first + n <= n_global < 2^31, c < 2^31. A launch the runtime
+// refuses (cudaErrorCooperativeLaunchTooLarge or any other) returns its
+// code; nothing else is tried.
 extern "C" int axcnn_dropblock_fused(const void* src, const void* seeds, float gamma, void* dst,
                                      void* mask, void* counts, int dtype, float numel,
                                      long long n, long long h, long long w, long long c,
-                                     long long bs, void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || c < 0 || h * w > kWholeMapHW || bs < 1 || bs > h ||
-      bs > w || n > 0x7fffffffLL || c > 0x7fffffffLL || (dtype != 0 && dtype != 1))
+                                     long long bs, long long row0, long long h_global,
+                                     long long first, long long n_global, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || c < 0 || row0 < 0 || row0 + h > h_global ||
+      h_global * w > kWholeMapHW || bs < 1 || bs > h_global || bs > w || first < 0 ||
+      first + n > n_global || n_global > 0x7fffffffLL || c > 0x7fffffffLL ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const long long item = dtype == 1 ? 2 : 4;
   const bool vec = vector_units(src, dst, c, item);
   const long long per_pixel = vec ? c * item / 16 : c;
-  const FusedArgs args{{src, static_cast<const float*>(mask), static_cast<const float*>(counts),
-                        dst, numel, (int)n, (int)c, (int)n, n * h * w * per_pixel, per_pixel,
-                        false},
-                       static_cast<const int32_t*>(seeds), gamma, (int)h, (int)w, (int)bs};
+  const FusedArgs args{
+      {src, static_cast<const float*>(mask), static_cast<const float*>(counts), dst, numel,
+       (int)n, (int)c, (int)n_global, n * h * w * per_pixel, per_pixel, false},
+      static_cast<const int32_t*>(seeds), gamma, (int)h_global, (int)w, (int)bs, (int)row0,
+      (int)h, (int)first};
   const int sms = sm_count();
   if (sms < 0) return -sms;
-  // one CTA a sample for the mask, or one a kApplyUnroll rounds of units,
+  // one CTA a sample to draw, or one a kApplyUnroll rounds of units,
   // whichever is more; the launch caps it at what can be resident
   const long long per_cta = (long long)kApplyThreads * kApplyUnroll;
   const long long units_grid = (args.apply.units + per_cta - 1) / per_cta;
-  const long long want = units_grid > n ? units_grid : n;
-  const size_t smem = (size_t)(2 * h * w);
+  const long long want = units_grid > n_global ? units_grid : n_global;
+  const size_t smem = (size_t)(2 * h_global * w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return vec ? launch_fused<__nv_bfloat16, true>(args, want, sms, smem, st)

@@ -33,8 +33,16 @@ Spatial partitioning (a rank holds rows ``[row0, row0 + H)`` of every map of
 (the hash's pixel index and the centre region are global), with the
 window's per-sample counts; the apply kernel and its plain versions take the
 counts of the global batch (any length) and its element count ``numel``,
-apart from the tensor's own N and numel. The fused kernel is not used there:
-the counts' sum over ranks sits between the mask and the apply.
+apart from the tensor's own N and numel. A spatial site whose global map
+``fused_route`` takes takes the fused kernel with a window instead
+(``dropblock_fused_window_cuda``; the main path's site is its trivial
+window): given the global batch's seeds and this rank's first sample, one
+cooperative launch draws every global sample over its whole global map,
+writes the global batch's counts and the window of this rank's samples, and
+applies them forward, so no sum over ranks sits between the mask and the
+apply. ``dropblock_fused_window_reference`` is its plain version (the plain
+mask of the whole global batch, its window's rows, the plain apply);
+``FUSED_WINDOW_LAUNCHES`` counts the launches of this wrapper.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ APPLY_LAUNCHES = 0
 APPLY_BWD_LAUNCHES = 0
 APPLY_NOT_CHANNELS_LAST = 0
 FUSED_LAUNCHES = 0
+FUSED_WINDOW_LAUNCHES = 0
 # the fused kernel holds a sample's two byte maps, 2 * H * W bytes, in shared
 # memory: the maps of the whole-map mask kernel (kWholeMapHW in dropblock.cu)
 FUSED_MAX_HW = 16384
@@ -64,9 +73,10 @@ MASK_ARGTYPES = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void
 # (src, mask, counts, dst, dtype, numel, n, hw, c, n_counts, backward, stream)
 APPLY_ARGTYPES = [*[ctypes.c_void_p] * 4, ctypes.c_int, ctypes.c_float,
                   *[ctypes.c_longlong] * 4, ctypes.c_int, ctypes.c_void_p]
-# (src, seeds, gamma, dst, mask, counts, dtype, numel, n, h, w, c, bs, stream)
+# (src, seeds, gamma, dst, mask, counts, dtype, numel, n, h, w, c, bs, row0, h_global, first,
+#  n_global, stream)
 FUSED_ARGTYPES = [*[ctypes.c_void_p] * 2, ctypes.c_float, *[ctypes.c_void_p] * 3, ctypes.c_int,
-                  ctypes.c_float, *[ctypes.c_longlong] * 5, ctypes.c_void_p]
+                  ctypes.c_float, *[ctypes.c_longlong] * 9, ctypes.c_void_p]
 
 _M32 = 0xFFFFFFFF
 
@@ -180,6 +190,26 @@ def dropblock_fused_reference(x: torch.Tensor, seeds: torch.Tensor, gamma, block
     _, _, h, w = x.shape
     mask, counts = dropblock_mask_reference(seeds, gamma, h, w, block_size, uniforms)
     return dropblock_apply_reference(x, mask, counts), mask, counts
+
+
+def dropblock_fused_window_reference(x: torch.Tensor, seeds: torch.Tensor, gamma,
+                                     block_size: int, *, row0: int, h_global: int, first: int,
+                                     numel: int, uniforms: torch.Tensor | None = None):
+    """The fused window kernel's plain version, for a rank that holds rows
+    ``row0 .. row0 + H - 1`` of samples ``first .. first + N - 1`` of the
+    global batch: ``seeds`` (N_g,) are the global batch's, ``uniforms``,
+    when given, its whole maps, (N_g, h_global, W). The plain mask of every
+    global sample over its whole map, the window's rows of this rank's
+    samples, then the plain apply with the global counts and ``numel``;
+    ``(y, mask (N, H, W), counts (N_g,))``."""
+    n, _, h, w = x.shape
+    if not 0 <= first <= first + n <= seeds.shape[0]:
+        raise ValueError(f"samples {first}..{first + n - 1} are not samples of a global "
+                         f"batch of {seeds.shape[0]}")
+    check_mask_args(h, w, block_size, row0, h_global)
+    whole, counts = dropblock_mask_reference(seeds, gamma, h_global, w, block_size, uniforms)
+    mask = whole[first:first + n, row0:row0 + h].contiguous()
+    return dropblock_apply_reference(x, mask, counts, numel), mask, counts
 
 
 def fused_route(h: int, w: int) -> bool:
@@ -300,6 +330,27 @@ def dropblock_apply_cuda(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tens
     return y
 
 
+def _launch_fused(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size: int, *, row0: int,
+                  h_global: int, first: int, numel: int):
+    """The fused kernel's launch for a checked ``x`` and ``seeds`` on the
+    card: ``(y, mask, counts, launched)``; nothing is launched for N = 0."""
+    n, c, h, w = x.shape
+    x, seeds = _channels_last(x), seeds.contiguous()
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    mask = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
+    counts = torch.empty((seeds.shape[0],), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return y, mask, counts, False
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = entry("axcnn_dropblock_fused", FUSED_ARGTYPES)(
+        x.data_ptr(), seeds.data_ptr(), float(gamma), y.data_ptr(), mask.data_ptr(),
+        counts.data_ptr(), _DTYPE_CODES[x.dtype], float(numel), n, h, w, c, block_size, row0,
+        h_global, first, seeds.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"axcnn_dropblock_fused failed: CUDA error {err}")
+    return y, mask, counts, True
+
+
 def dropblock_fused_cuda(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size: int):
     """Launch the fused kernel: draw the keep-mask of ``seeds`` at rate
     ``gamma`` and apply it forward, ``(x * m) * s``, in one cooperative
@@ -324,20 +375,50 @@ def dropblock_fused_cuda(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size
     if x.device.type != "cuda" or seeds.device != x.device:
         raise ValueError(f"dropblock_fused_cuda needs CUDA tensors on one device, got "
                          f"{x.device}, {seeds.device}")
-    x, seeds = _channels_last(x), seeds.contiguous()
-    y = torch.empty_like(x, memory_format=torch.channels_last)
-    mask = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
-    counts = torch.empty((n,), dtype=torch.float32, device=x.device)
-    if n == 0:
-        return y, mask, counts
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = entry("axcnn_dropblock_fused", FUSED_ARGTYPES)(
-        x.data_ptr(), seeds.data_ptr(), float(gamma), y.data_ptr(), mask.data_ptr(),
-        counts.data_ptr(), _DTYPE_CODES[x.dtype], float(x.numel()), n, h, w, c, block_size,
-        stream)
-    if err != 0:
-        raise RuntimeError(f"axcnn_dropblock_fused failed: CUDA error {err}")
-    FUSED_LAUNCHES += 1
+    # the whole batch: the kernel's trivial window
+    y, mask, counts, launched = _launch_fused(x, seeds, gamma, block_size, row0=0, h_global=h,
+                                              first=0, numel=x.numel())
+    FUSED_LAUNCHES += launched
+    return y, mask, counts
+
+
+def dropblock_fused_window_cuda(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size: int,
+                                *, row0: int, h_global: int, first: int, numel: int):
+    """Launch the fused kernel for a spatial site: ``x`` holds rows
+    ``row0 .. row0 + H - 1`` of samples ``first .. first + N - 1`` of a
+    global batch whose seeds are ``seeds`` (N_g,) and whose element count is
+    ``numel``. One cooperative launch draws every global sample's mask over
+    its whole map of ``h_global`` rows and applies this rank's window
+    forward. Returns ``(y, mask (N, H, W), counts (N_g,))``, bit for bit
+    what the windowed mask kernel, the window counts' sum over the ranks and
+    the apply kernel give; ``y`` is channels_last. Takes global maps that
+    ``fused_route`` takes and raises on a larger one. Raises on anything the
+    kernel does not take (type, shape and size first, then the device) and
+    on a launch the runtime refuses; nothing else is tried."""
+    global FUSED_WINDOW_LAUNCHES
+    _check_activation(x, "dropblock_fused_window_cuda")
+    n, c, h, w = x.shape
+    if seeds.dtype != torch.int32 or seeds.dim() != 1:
+        raise TypeError(f"seeds must be (N_g,) int32, got {seeds.dtype} {tuple(seeds.shape)}")
+    n_global = seeds.shape[0]
+    if not 0 <= first <= first + n <= n_global:
+        raise ValueError(f"samples {first}..{first + n - 1} are not samples of a global "
+                         f"batch of {n_global}")
+    check_mask_args(h, w, block_size, row0, h_global)
+    if not fused_route(h_global, w):
+        raise ValueError(f"the fused DropBlock kernel takes H*W <= {FUSED_MAX_HW}, got "
+                         f"{h_global}x{w}: a larger map takes the windowed mask kernel, the "
+                         "counts' sum over the ranks, then the apply kernel")
+    _check_int_sizes(x, "fused")
+    if n_global > MAX_INT32:
+        raise ValueError(f"the DropBlock fused kernel takes N_g <= {MAX_INT32} (an int in the "
+                         f"kernel), got {n_global}")
+    if x.device.type != "cuda" or seeds.device != x.device:
+        raise ValueError(f"dropblock_fused_window_cuda needs CUDA tensors on one device, got "
+                         f"{x.device}, {seeds.device}")
+    y, mask, counts, launched = _launch_fused(x, seeds, gamma, block_size, row0=row0,
+                                              h_global=h_global, first=first, numel=numel)
+    FUSED_WINDOW_LAUNCHES += launched
     return y, mask, counts
 
 
@@ -375,3 +456,24 @@ class DropBlockFused(torch.autograd.Function):
     def backward(ctx, g):
         mask, counts = ctx.saved_tensors
         return dropblock_apply_cuda(g, mask, counts, backward=True), None, None, None
+
+
+class DropBlockFusedWindow(torch.autograd.Function):
+    """The fused window kernel forward (the global batch's counts, this
+    rank's window of the mask and its apply, in one launch), the apply
+    kernel in backward order with the global counts as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, seeds, gamma, block_size, row0, h_global, first, numel):
+        y, mask, counts = dropblock_fused_window_cuda(x, seeds, gamma, block_size, row0=row0,
+                                                      h_global=h_global, first=first,
+                                                      numel=numel)
+        ctx.save_for_backward(mask, counts)
+        ctx.numel = numel
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, counts = ctx.saved_tensors
+        return (dropblock_apply_cuda(g, mask, counts, backward=True, numel=ctx.numel),
+                *[None] * 7)

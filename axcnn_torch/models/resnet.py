@@ -314,10 +314,10 @@ class ResNet(nn.Module):
         DropBlock; a Big-Little stage's site is ``dropblock/stage{s}/out``.
         ``dropblock_uniforms`` maps site names to (N, H, W) uniforms for the
         plain path (tests). ``spatial`` (module docstring): ``images`` are
-        this rank's rows; the uniforms are then the whole maps'
-        (N, H_global, W), and each site's seeds are drawn for the
-        ``D * N`` images of the global batch, of which this data shard takes
-        its ``N``."""
+        this rank's rows; each site's seeds are drawn for the ``D * N``
+        images of the global batch, of which this data shard takes its
+        ``N``, and the uniforms are the global batch's whole maps
+        (D * N, H_global, W)."""
         cfg = self.cfg
         if train and cfg.remat in ("conv", "conv_nocse"):
             raise NotImplementedError(
@@ -335,12 +335,12 @@ class ResNet(nn.Module):
         x = policy.cast_to_compute(images).permute(0, 3, 1, 2)
         x = _region(self.stem, x, *args, remat=remat)
 
-        # (data index, data shards): the seeds are drawn for the global batch
-        d, shards = (0, 1) if spatial is None else (spatial.data_index, spatial.data_parts)
+        # the seeds are drawn for the global batch (D data shards under
+        # spatial partitioning), which the op slices
+        shards = 1 if spatial is None else spatial.data_parts
 
         def drop(x, site):
-            n = x.shape[0]
-            seeds = sample_seeds(rng.numpy(site), n * shards)[d * n:(d + 1) * n]
+            seeds = sample_seeds(rng.numpy(site), x.shape[0] * shards)
             return dropblock(x, seeds, keep_prob=kp, block_size=cfg.dropblock_block_size,
                              train=True, uniforms=uniforms.get(site), spatial=spatial)
 

@@ -21,15 +21,20 @@ seeds' copy and one launch each way. In eval DropBlock is the identity.
 
 Under spatial partitioning (``spatial``, a
 ``axcnn_torch.parallel.spatial.SpatialContext``) the site is the global
-program's: ``bs`` and ``gamma`` come from the global H, the mask is the
-window of the global mask that this rank's rows are (no halo: the hash is
-stateless), the per-sample counts are summed over the spatial row and the
-data shards' gathered over the column, and the scale is
-``numel_global / (max(sum of the global batch's counts, 1) * C)`` (not
-data parallelism's per-shard scale). On the card that is the mask kernel
-over the window, then ``DropBlockApply`` with the global counts: the fused
-kernel cannot be used, as the counts' sum over ranks sits between the mask
-and the apply.
+program's: ``seeds`` are the global batch's (``D * N``), ``bs`` and
+``gamma`` come from the global H, the mask is the window of the global mask
+that this rank's rows of its samples are (no halo: the hash is stateless),
+and the scale is ``numel_global / (max(sum of the global batch's counts, 1)
+* C)`` (not data parallelism's per-shard scale). Every rank holds the
+global batch's seeds, so where ``fused_route`` takes the global map (every
+preset's site) each rank counts every global sample over its whole map
+itself, with no collective: on the card the fused kernel with this rank's
+window, through ``DropBlockFusedWindow`` (one launch), on the CPU its plain
+version. Past
+the line the route is the windowed mask of this data shard's samples, the
+window counts summed over the row and the data shards' gathered over the
+column (``SpatialContext.global_counts``), then the apply with those
+counts. Either way the backward is the apply kernel with the global counts.
 """
 
 from __future__ import annotations
@@ -37,27 +42,42 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from axcnn_torch.kernels.dropblock import (DropBlockApply, DropBlockFused,
-                                           dropblock_apply_reference, dropblock_mask_cuda,
+from axcnn_torch.kernels.dropblock import (DropBlockApply, DropBlockFused, DropBlockFusedWindow,
+                                           dropblock_apply_reference,
+                                           dropblock_fused_window_reference, dropblock_mask_cuda,
                                            dropblock_mask_reference, fused_route)
 
 
 def _spatial_dropblock(x, seeds, keep_prob, block_size, uniforms, spatial):
-    """The global program's site on this rank's rows (module docstring)."""
+    """The global program's site on this rank's rows (module docstring);
+    ``seeds`` and ``uniforms`` are the global batch's."""
     n, _, h, w = x.shape
+    if seeds.shape[0] != n * spatial.data_parts:
+        raise ValueError(f"seeds must be the global batch's {n * spatial.data_parts}, got "
+                         f"{seeds.shape[0]}")
     row0, hg = spatial.rows(h)
     bs = min(block_size, hg, w)
     gamma = float(dropblock_gamma(keep_prob, bs, hg, w))
-    window = dict(row0=row0, h_global=hg)
-    if x.device.type == "cpu":
-        mask, counts = dropblock_mask_reference(seeds, gamma, h, w, bs, uniforms, **window)
-    else:
-        if uniforms is not None:
-            raise ValueError("uniforms are taken on the plain (CPU) path only")
-        mask, counts = dropblock_mask_cuda(seeds, gamma, h, w, bs, **window)
-    counts = spatial.global_counts(counts)
+    first = spatial.data_index * n
     numel = x.numel() * spatial.parts * spatial.data_parts
-    if x.device.type == "cpu":
+    on_cpu = x.device.type == "cpu"
+    if uniforms is not None and not on_cpu:
+        raise ValueError("uniforms are taken on the plain (CPU) path only")
+    if fused_route(hg, w):
+        window = dict(row0=row0, h_global=hg, first=first, numel=numel)
+        if on_cpu:
+            return dropblock_fused_window_reference(x, seeds, gamma, bs, uniforms=uniforms,
+                                                    **window)[0]
+        return DropBlockFusedWindow.apply(x, seeds, gamma, bs, *window.values())
+    mine, window = seeds[first:first + n], dict(row0=row0, h_global=hg)
+    if on_cpu:
+        mask, counts = dropblock_mask_reference(
+            mine, gamma, h, w, bs, None if uniforms is None else uniforms[first:first + n],
+            **window)
+    else:
+        mask, counts = dropblock_mask_cuda(mine, gamma, h, w, bs, **window)
+    counts = spatial.global_counts(counts)
+    if on_cpu:
         return dropblock_apply_reference(x, mask, counts, numel)
     return DropBlockApply.apply(x, mask, counts, numel)
 
@@ -84,8 +104,9 @@ def sample_seeds(rng: np.random.Generator, n: int) -> np.ndarray:
 def dropblock(x, seeds, *, keep_prob, block_size: int = 7, train: bool,
               uniforms=None, spatial=None):
     """``seeds``: (N,) int32 (numpy or tensor). ``uniforms`` (N, H, W), only
-    on the plain path, replace the hashed draws (the tests' hook); under
-    ``spatial`` they are the whole map's, (N, H_global, W)."""
+    on the plain path, replace the hashed draws (the tests' hook). Under
+    ``spatial`` both are the global batch's: (D * N,) seeds, uniforms of
+    the whole maps, (D * N, H_global, W)."""
     if not train:
         return x
     seeds = torch.as_tensor(seeds, dtype=torch.int32).to(x.device, non_blocking=True)

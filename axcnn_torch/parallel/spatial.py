@@ -155,8 +155,8 @@ class SpatialContext:
     """This rank's place in the ``(data, spatial)`` grid and the groups its
     collectives run over: ``row_group`` (the ``S`` ranks of its data index:
     halos and pooled sums) and ``column_group`` (the ``D`` ranks of its
-    spatial index: the DropBlock counts, mixup's mirror, the eval's sums;
-    None when ``D == 1``)."""
+    spatial index: the DropBlock counts past the fused line, mixup's mirror,
+    the eval's sums; None when ``D == 1``)."""
     index: int  # s
     parts: int  # S
     data_index: int  # d
@@ -195,7 +195,9 @@ class SpatialContext:
     def global_counts(self, counts: torch.Tensor) -> torch.Tensor:
         """The DropBlock keep counts of the global batch: this data shard's
         per-sample counts of its window, summed over the row, then the
-        ``D`` shards' gathered over the column in data order."""
+        ``D`` shards' gathered over the column in data order. Only a site
+        whose global map is past the fused line needs it: within the line
+        each rank counts the global batch itself (``axcnn_torch.ops.dropblock``)."""
         counts = counts.clone()
         dist.all_reduce(counts, group=self.row_group)
         if self.column_group is None:

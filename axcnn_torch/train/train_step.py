@@ -145,9 +145,8 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, total_steps: int,
     this rank's shard. With it, ``mixup_lam`` is a 0-d device tensor too.
     With ``spatial`` as well it is the spatially partitioned step of the
     module docstring; ``batch`` is then this rank's data shard at full H,
-    the injected ``dropblock_uniforms`` are the whole maps of this rank's
-    images (of each micro-batch), and ``aa_draws`` the global
-    (micro-)batch's.
+    and the injected ``dropblock_uniforms`` (the whole maps) and
+    ``aa_draws`` are the global (micro-)batch's.
     """
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")

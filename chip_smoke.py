@@ -172,24 +172,40 @@ points and checks them:
     against the unsharded kernel's; the mask over a window of rows (row0 >
     0, windows that cut a block, bs 7 and 5) against the plain window and
     the whole-map kernel's rows; the apply with the global batch's counts
-    and element count, forward and backward, NaNs included;
+    and element count, forward and backward, NaNs included; the fused
+    window kernel (a window's rows of the global batch's mask, its counts
+    drawn over the whole map by every rank, the apply, in one launch) at
+    those windows, one and two data shards at both offsets, fp32 and bf16,
+    16-byte and per-element units: its output (bit patterns), mask and
+    counts against its plain version and against today's route past the
+    fused line (the windowed mask of each window of the map, the counts
+    summed, the apply);
     kernel_time also times those kernels at the 448x448 S = 2 shards'
-    shapes, b128 bf16, beside the same yardsticks (outside the summary's
-    sums, which stay one R50 step's);
+    shapes, b128 bf16, beside the same yardsticks, and the fused window
+    kernel there beside the windowed mask and apply it replaces (outside
+    the summary's sums of the older kernels, which stay one R50 step's;
+    the fused window kernel's are those two sites');
 33. spatial_parity (needs two cards): a seeded full-width assembled R50,
     fp32 with TF32 off, b4 at 128x128, one train step with DropBlock and
     mixup active on ``(D, S) = (1, 2)`` over NCCL, beside the one-card step
     and the CPU's float64 step from the same state, batch and draws: the
     spatial step as near the float64 step as the one-card step is (loss,
     every parameter, every BN statistic), the eval's counts equal; the
-    spatial kernels' launches;
+    spatial kernels' launches; a rank's all-reduce and all-gather calls in
+    the step, and in the same step with the fused line moved to 0 (the
+    route every site took before the fused window kernel): 9 all-reduces
+    fewer, one a DropBlock site; that step's launches (the windowed mask
+    and the forward apply 9 each, no fused window kernel), and its
+    DropBlock sites' outputs and loss, bit for bit the fused step's (not
+    its end state: cuDNN's wgrad need not be deterministic run to run);
 34. spatial_448: ``--config=finetune_fgvc`` at 448x448 on synthetic data,
     bf16: on one card at b128 (peak memory, step wall), then (two cards)
     the CLI's ranks with ``--runtime.spatial_partitions=2`` at b128 and b256:
     finite losses, each card's peak memory, step walls, img/s, and the
     launches of each kernel by path (BlurPool with top padding 0 3 + 3 a
-    step, the windowed mask, the forward apply and the apply backward 9 each,
-    no fused kernel). On a machine with one card the two-card parts print
+    step, the fused window kernel and the apply backward 9 each, no
+    windowed mask, forward apply or fused kernel). On a machine with one
+    card the two-card parts print
     ``"ran": false``;
 35. drive_convergence: ``axcnn_torch.drives.convergence`` at the reference's
     full budget: config 4 (``bn_momentum`` 0.9, ``ema_decay`` 0.99) at full
@@ -220,7 +236,12 @@ points and checks them:
     distance at most 3x the one-card step's); the int8 eval's counts equal
     to the one-card int8 eval's and every conv's int32 accumulators before
     the first pooled sum the one-card ones' rows, bit for bit; each leg's
-    kernel launches on each rank;
+    kernel launches on each rank; each rank's all-reduce and all-gather
+    calls in the plain and the accumulating leg, and in the same legs with
+    the fused line moved to 0: one all-reduce a DropBlock site fewer (9 a
+    step, 18 at A = 2), and those legs' launches (the windowed mask and the
+    forward apply once a site, no fused window kernel), DropBlock site
+    outputs and losses, bit for bit the fused legs';
 38. spatial_448_options: ``--config=finetune_fgvc`` at 448x448, bf16,
     through the CLI with ``--runtime.spatial_partitions=2
     --model.remat=blocks --train.grad_accum_steps=2
@@ -230,7 +251,7 @@ points and checks them:
     over NCCL a card a rank: finite losses, each rank's peak memory, rank
     0's record-gap step walls, the augmentation alone (events and enqueue
     ms, as ``aa_time``; every rank of a row runs it), and the launches (a step: BlurPool 12 + 6,
-    the windowed mask, the forward apply and the apply backward 18 each);
+    the fused window kernel and the apply backward 18 each);
 39. drives_cut_more (after drives_cut, on its root): ``convergence_scale``
     (20 steps, echo 2, on drives_cut's 50-class set), ``finetune`` (three
     ``run()`` calls of 5 steps, 22 images a class), ``convergence_1k`` (the
@@ -299,6 +320,7 @@ import dataclasses
 import functools
 import glob
 import io
+import itertools
 import json
 import os
 import signal
@@ -518,21 +540,29 @@ def _seeds(n, gen):
                          dtype=torch.int32)
 
 
+def _with_specials(x, mask):
+    """``x`` with inf, -inf and NaN at a dropped and at a kept pixel of
+    ``mask`` (as many channels as it has)."""
+    for keep in (0.0, 1.0):
+        hit = (mask == keep).nonzero()
+        if len(hit):
+            s, r, col = hit[0].tolist()
+            x[s, :3, r, col] = torch.tensor([float("inf"), -float("inf"), float("nan")],
+                                            device=x.device)[:x.shape[1]].to(x.dtype)
+    return x
+
+
 def _apply_inputs(shape, dtype, gen, offset=0, specials=True):
     """A channels_last NCHW input (NHWC ``shape``), with inf, -inf and NaN at
     a dropped and at a kept pixel unless ``specials`` is false, its seeds,
     and the mask kernel's mask (drop rate APPLY_GAMMA, block size up to 7)
     and counts for them."""
-    n, h, w, c = shape
+    n, h, w, _ = shape
     x = _nchw_input(shape, dtype, gen, offset)
     seeds = _seeds(n, gen)
     mask, counts = kdrop.dropblock_mask_cuda(seeds, APPLY_GAMMA, h, w, min(7, h, w))
-    for keep in (0.0, 1.0):
-        hit = (mask == keep).nonzero() if specials else []
-        if len(hit):
-            s, r, col = hit[0].tolist()
-            x[s, :3, r, col] = torch.tensor([float("inf"), -float("inf"), float("nan")],
-                                            device="cuda")[:c].to(dtype)
+    if specials:
+        x = _with_specials(x, mask)
     return x, seeds, mask, counts
 
 
@@ -552,7 +582,7 @@ def _apply_fns(mask, counts, backward, numel=None):
 def kernel_check_phase():
     """Each kernel against its plain version; returns max abs error by kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {"fwd": 0.0, "bwd": 0.0, "mask": 0.0, "apply": 0.0, "fused": 0.0}
+    errs = {"fwd": 0.0, "bwd": 0.0, "mask": 0.0, "apply": 0.0, "fused": 0.0, "fused_window": 0.0}
     routes = set()
 
     def check_route(kind, before, shape, dtype, want):
@@ -693,7 +723,7 @@ def big_sites_phase(errs):
     torch.cuda.synchronize()
     counts = _counts()
     want = {"fwd": 0, "bwd": 0, "mask": len(BIG_SITES), "apply": len(BIG_SITES),
-            "apply_bwd": len(BIG_SITES), "fused": 0}
+            "apply_bwd": len(BIG_SITES), "fused": 0, "fused_window": 0}
     for shape, dtype, bs, x, g, seeds, y, dx in runs:
         n, h, w, c = shape
         gamma = float(dropblock_gamma(kp, bs, h, w))
@@ -779,8 +809,9 @@ def kernel_time_phase(errs):
     must equal its plain version's; ``errs`` takes the largest error."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     totals = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": set(),
-                  "library_ms": 0.0} for k in ("fwd", "bwd", "mask", "apply", "fused")}
-    totals["fused"]["pair_ms"] = 0.0
+                  "library_ms": 0.0}
+              for k in ("fwd", "bwd", "mask", "apply", "fused", "fused_window")}
+    totals["fused"]["pair_ms"] = totals["fused_window"]["pair_ms"] = 0.0
 
     def add(kind, k, p, bound, bound_by, lib):
         tot = totals[kind]
@@ -940,6 +971,58 @@ def kernel_time_phase(errs):
         add("fused", k, p, bound, bound_by, None)
         totals["fused"]["pair_ms"] += pair
         del xs
+    # the fused window kernel at the 448x448 S = 2 shards' sites (the second
+    # shard, D = 1: every rank draws the 128 samples' whole maps)
+    for (n, rows, w, c), h in SPATIAL_APPLY_SHAPES:
+        bs, shape = 7, (n, rows, w, c)
+        window = dict(row0=rows, h_global=h, first=0, numel=2 * n * rows * w * c)
+        x = _nchw_input(shape, torch.bfloat16, gen)
+        seeds = _seeds(n, gen)
+        xs = _rotating(x)
+        elems = x.numel()
+        # bf16 in and out once each, the global seeds read, the window's fp32
+        # mask and the global counts written once; two fp32 multiplies per
+        # element and the mask's ops over every global sample's whole map
+        nbytes = 2 * elems * x.element_size() + n * 4 + n * rows * w * 4 + n * 4
+        ops = 2 * elems + n * h * w * (14 + 2 * bs)
+        bound, bound_by = _bound_us(nbytes, ops)
+        mask, counts = kdrop.dropblock_mask_cuda(seeds, APPLY_GAMMA, rows, w, bs, row0=rows,
+                                                 h_global=h)
+        fns = {
+            "plain": lambda t: kdrop.dropblock_fused_window_reference(
+                t, seeds, APPLY_GAMMA, bs, **window),
+            "kernel": lambda t: kdrop.dropblock_fused_window_cuda(t, seeds, APPLY_GAMMA, bs,
+                                                                  **window),
+            # the two launches it replaces (the counts' collective between
+            # them is not timed: one card), and the apply alone
+            "pair": lambda t: kdrop.dropblock_apply_cuda(
+                t, *kdrop.dropblock_mask_cuda(seeds, APPLY_GAMMA, rows, w, bs, row0=rows,
+                                              h_global=h), numel=window["numel"]),
+            "apply": lambda t: kdrop.dropblock_apply_cuda(t, mask, counts,
+                                                          numel=window["numel"])}
+        errs["fused_window"] = max(errs["fused_window"], _check_equal(
+            "dropblock_fused_window", shape, "bf16, timed input", fns["kernel"](xs[0])[0],
+            fns["plain"](xs[0])[0], bits=True))
+        copy, srcs = _copy_yardstick(nbytes, gen)
+        fns["copy"] = copy
+        t = _time_set(fns, xs, inputs={"copy": srcs})
+        k, p, pair, alone, cp = (t[n][0] for n in ("kernel", "plain", "pair", "apply", "copy"))
+        emit("kernel_time", kernel="fused_window", shape_nhwc=list(shape), h_global=h,
+             rows=[rows, 2 * rows - 1], n_global=n, dtype="bf16", bs=bs, gamma=APPLY_GAMMA,
+             kernel_us=k * 1e3, plain_us=p * 1e3, library_us=None, copy_us=cp * 1e3,
+             mask_then_apply_us=pair * 1e3, apply_alone_us=alone * 1e3, bound_us=bound,
+             bound_by=bound_by, pct_of_bound=100 * bound / (k * 1e3),
+             pair_pct_of_bound=100 * bound / (pair * 1e3),
+             copy_pct_of_bound=100 * bound / (cp * 1e3), kernel_over_copy=k / cp,
+             kernel_runs_us=[v * 1e3 for v in t["kernel"][1]],
+             plain_runs_us=[v * 1e3 for v in t["plain"][1]],
+             mask_then_apply_runs_us=[v * 1e3 for v in t["pair"][1]],
+             apply_alone_runs_us=[v * 1e3 for v in t["apply"][1]],
+             copy_runs_us=[v * 1e3 for v in t["copy"][1]], bytes=nbytes, ops=ops,
+             rotating_inputs=len(xs), kernel_gb_per_s=nbytes / (k * 1e-3) / 1e9)
+        add("fused_window", k, p, bound, bound_by, None)
+        totals["fused_window"]["pair_ms"] += pair
+        del xs, srcs
     for tot in totals.values():
         tot["bound_by"] = "/".join(sorted(tot["bound_by"]))
     return totals
@@ -961,6 +1044,7 @@ def _write_jpegs(directory, count):
 def _zero_counts():
     kblur.LAUNCHES = kblur.BWD_LAUNCHES = kdrop.LAUNCHES = 0
     kdrop.APPLY_LAUNCHES = kdrop.APPLY_BWD_LAUNCHES = kdrop.FUSED_LAUNCHES = 0
+    kdrop.FUSED_WINDOW_LAUNCHES = 0
     kblur.BWD_G_NOT_CHANNELS_LAST = kdrop.APPLY_NOT_CHANNELS_LAST = 0
     kblur.ROUTES.update(dict.fromkeys(kblur.ROUTES, 0))
 
@@ -968,15 +1052,17 @@ def _zero_counts():
 def _counts():
     return {"fwd": kblur.LAUNCHES, "bwd": kblur.BWD_LAUNCHES, "mask": kdrop.LAUNCHES,
             "apply": kdrop.APPLY_LAUNCHES, "apply_bwd": kdrop.APPLY_BWD_LAUNCHES,
-            "fused": kdrop.FUSED_LAUNCHES}
+            "fused": kdrop.FUSED_LAUNCHES, "fused_window": kdrop.FUSED_WINDOW_LAUNCHES}
 
 
 def _launches(fwd, bwd, sites):
     """Expected counts: BlurPool forward and backward launches, and
     ``sites`` DropBlock sites of the presets' maps (14x14, 7x7), each the
     fused kernel forward and the apply backward; the standalone mask and
-    forward apply launch only past the fused line (``big_sites``)."""
-    return {"fwd": fwd, "bwd": bwd, "mask": 0, "apply": 0, "apply_bwd": sites, "fused": sites}
+    forward apply launch only past the fused line (``big_sites``), the fused
+    window kernel only under spatial partitioning."""
+    return {"fwd": fwd, "bwd": bwd, "mask": 0, "apply": 0, "apply_bwd": sites, "fused": sites,
+            "fused_window": 0}
 
 
 def serve_phase():
@@ -2856,14 +2942,133 @@ def spatial_kernel_check_phase(errs):
                 errs["apply"] = max(errs["apply"], _check_equal(
                     f"dropblock_apply_{'bwd' if backward else 'fwd'}", shape, case, got,
                     ref(x, mask, counts, numel), bits=True))
+    _fused_window_check(errs, gen)
+
+
+def _fused_window_check(errs, gen, n=8, gamma=APPLY_GAMMA):
+    """The fused window kernel at each of ``SPATIAL_MASK_WINDOWS`` on a rank
+    of one and of two data shards (both offsets), fp32 and bf16, C = 64
+    (16-byte units) and 6 (per element): output bits, mask and counts
+    against its plain version, then against today's route past the fused
+    line: the windowed mask kernel over every window that covers the map,
+    the window counts summed and the data shards' in data order, the apply
+    kernel with them."""
+    for h, w, bs, row0, rows in SPATIAL_MASK_WINDOWS:
+        cover = [(r0, r1 - r0) for r0, r1 in ((0, row0), (row0, row0 + rows),
+                                             (row0 + rows, h)) if r1 > r0]
+        for data, dtype, c in itertools.product((1, 2), (torch.float32, torch.bfloat16), (64, 6)):
+            seeds = _seeds(n * data, gen)
+            today = torch.cat([sum(kdrop.dropblock_mask_cuda(
+                seeds[d * n:(d + 1) * n], gamma, r, w, bs, row0=r0, h_global=h)[1]
+                for r0, r in cover) for d in range(data)])
+            for d in range(data):
+                window = dict(row0=row0, h_global=h, first=d * n, numel=data * n * h * w * c)
+                x = _nchw_input((n, rows, w, c), dtype, gen)
+                _, mask, _ = kdrop.dropblock_fused_window_reference(x, seeds, gamma, bs,
+                                                                    **window)
+                x = _with_specials(x, mask)
+                got = kdrop.dropblock_fused_window_cuda(x, seeds, gamma, bs, **window)
+                want = kdrop.dropblock_fused_window_reference(x, seeds, gamma, bs, **window)
+                mask_k, counts_k = kdrop.dropblock_mask_cuda(
+                    seeds[d * n:(d + 1) * n], gamma, rows, w, bs, row0=row0, h_global=h)
+                before = kdrop.dropblock_apply_cuda(x, mask_k, today, numel=window["numel"])
+                torch.cuda.synchronize()
+                shape = (n, rows, w, c)
+                case = (f"{dtype}, rows {row0}-{row0 + rows - 1} of {h}, bs {bs}, D{data} "
+                        f"first {d * n}")
+                errs["fused_window"] = max(
+                    errs["fused_window"],
+                    _check_equal("dropblock_fused_window", shape, case, got[0], want[0],
+                                 bits=True),
+                    _check_equal("dropblock_fused_window.mask", shape, case, got[1], want[1]),
+                    _check_equal("dropblock_fused_window.counts", shape, case, got[2],
+                                 want[2]))
+                _check_equal("dropblock_fused_window", shape, f"{case}, vs the windowed mask, "
+                             "the counts summed, the apply", got[0], before, bits=True)
+                _check_equal("dropblock_fused_window.mask", shape, f"{case}, vs the windowed "
+                             "mask", got[1], mask_k)
+                _check_equal("dropblock_fused_window.counts", shape, f"{case}, vs the windows' "
+                             "sum", got[2], today)
 
 
 def _spatial_launches(fwd, bwd, sites):
     """Expected counts on a spatial path: BlurPool with top padding 0
-    forward and backward, and per DropBlock site the windowed mask, the
-    forward apply and the apply backward; no fused kernel."""
-    return {"fwd": fwd, "bwd": bwd, "mask": sites, "apply": sites, "apply_bwd": sites,
-            "fused": 0}
+    forward and backward, and per DropBlock site (every map within the
+    fused line) the fused window kernel and the apply backward; no windowed
+    mask, forward apply or fused kernel."""
+    return {"fwd": fwd, "bwd": bwd, "mask": 0, "apply": 0, "apply_bwd": sites, "fused": 0,
+            "fused_window": sites}
+
+
+@contextlib.contextmanager
+def _counting_collectives():
+    """The calls of ``torch.distributed.all_reduce`` and ``all_gather`` in
+    the block, by name."""
+    import torch.distributed as dist
+
+    calls = {"all_reduce": 0, "all_gather": 0}
+
+    def counted(name):
+        fn = getattr(dist, name)
+
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    with mock.patch.object(dist, "all_reduce", counted("all_reduce")), \
+            mock.patch.object(dist, "all_gather", counted("all_gather")):
+        yield calls
+
+
+def _past_line(launches):
+    """The launches of a spatial path's counts with the fused line moved to
+    0: each site's fused window launch becomes the windowed mask and the
+    forward apply."""
+    sites = launches["fused_window"]
+    return {**launches, "mask": sites, "apply": sites, "fused_window": 0}
+
+
+@contextlib.contextmanager
+def _site_outputs():
+    """The forward outputs of the spatial DropBlock sites run in the block,
+    in call order, copied to the CPU, whichever route each site takes."""
+    from axcnn_torch.ops import dropblock as op_dropblock
+
+    outs = []
+
+    def recorded(function):
+        class Recorded:
+            @staticmethod
+            def apply(*args):
+                y = function.apply(*args)
+                outs.append(y.detach().cpu())
+                return y
+        return Recorded
+
+    with mock.patch.object(op_dropblock, "DropBlockFusedWindow",
+                           recorded(kdrop.DropBlockFusedWindow)), \
+            mock.patch.object(op_dropblock, "DropBlockApply", recorded(kdrop.DropBlockApply)):
+        yield outs
+
+
+def _same_sites(now, past, sites):
+    """Whether two runs' ``sites`` DropBlock site outputs are equal bit for
+    bit (a step's end state is not: cuDNN's wgrad need not be deterministic
+    run to run, but the forward up to each site is)."""
+    def bits(t):
+        return t.contiguous().view(torch.uint8)
+    return len(now) == len(past) == sites and all(
+        a.shape == b.shape and a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+        for a, b in zip(now, past))
+
+
+def _collective_drop(now, past, sites, data=1):
+    """Whether a step issued one all-reduce a DropBlock site fewer (and, with
+    ``data`` > 1 shards, one all-gather a site fewer) than the same step with
+    the fused line moved to 0."""
+    return (past["all_reduce"] - now["all_reduce"] == sites
+            and past["all_gather"] - now["all_gather"] == (sites if data > 1 else 0))
 
 
 def _spatial_parity_rank(rank, world, coordinator, workdir):
@@ -2881,21 +3086,40 @@ def _spatial_parity_rank(rank, world, coordinator, workdir):
         ctx = make_spatial_context(world)
         payload = torch.load(os.path.join(workdir, "spatial_in.pt"), weights_only=False)
         cfg = _assembled_cfg()
-        state = create_train_state(cfg, generator=torch.Generator(), device=device)
-        state.model.load_state_dict(payload["model"])
-        state.velocity = {k: v.to(device) for k, v in payload["velocity"].items()}
-        state.ema = {k: v.to(device) for k, v in payload["ema"].items()}
-        state.step = payload["step"]
         batch = {k: v.to(device) for k, v in payload["batch"].items()}
         group = mesh.data_group()
+
+        def step():
+            state = create_train_state(cfg, generator=torch.Generator(), device=device)
+            state.model.load_state_dict(payload["model"])
+            # copies: the step updates the velocity and the EMA in place
+            state.velocity = {k: v.to(device, copy=True) for k, v in payload["velocity"].items()}
+            state.ema = {k: v.to(device, copy=True) for k, v in payload["ema"].items()}
+            state.step = payload["step"]
+            with _counting_collectives() as calls, _site_outputs() as sites:
+                state, metrics = _parity_step(cfg, group=group, spatial=ctx)(state, batch,
+                                                                              SEED + 1)
+                torch.cuda.synchronize()
+            return state, metrics, calls, sites
+
+        # the same step with the fused line moved to 0 first: the route every
+        # site took before the fused window kernel
         _zero_counts()
-        state, metrics = _parity_step(cfg, group=group, spatial=ctx)(state, batch, SEED + 1)
+        with mock.patch.object(kdrop, "FUSED_MAX_HW", 0):
+            _, past_metrics, past, past_sites = step()
+        past_launches = _counts()
+        _zero_counts()
+        state, metrics, calls, sites = step()
+        past_equal = (_same_sites(sites, past_sites, 9)
+                      and float(metrics["loss"]) == float(past_metrics["loss"]))
         ev = make_eval_step(cfg, use_ema=True, group=group, spatial=ctx)(state, batch)
         torch.cuda.synchronize()
         out = {"params": {k: p.detach().cpu() for k, p in state.model.named_parameters()},
                "buffers": {k: b.cpu() for k, b in state.model.named_buffers()},
                "metrics": {k: float(v) for k, v in metrics.items()},
-               "eval": {k: float(v) for k, v in ev.items()}, "launches": _counts()}
+               "eval": {k: float(v) for k, v in ev.items()}, "launches": _counts(),
+               "collectives": calls, "collectives_past_line": past,
+               "launches_past_line": past_launches, "past_line_equal": past_equal}
     finally:
         mesh.shutdown()
     torch.save(out, os.path.join(workdir, f"spatial_rank{rank}.pt"))
@@ -2988,12 +3212,24 @@ def spatial_parity_phase(smi, tmp):
     tol = dict(loss_rel=1e-4, median_vs_one_card=3.0, worst_vs_one_card=3.0)
     want = _spatial_launches(3, 3, 9)
     eval_equal = all(sp["eval"][k] == ev_card[k] for k in ("count", "top1", "top5"))
+    want_past = _past_line(want)
+    drop_ok = all(_collective_drop(r["collectives"], r["collectives_past_line"], 9)
+                  and r["past_line_equal"] and r["launches_past_line"] == want_past
+                  for r in ranks)
+    emit("spatial_collectives", path="spatial_parity", grid="D1xS2", backend="nccl",
+         per_rank_step=[{"fused_line": r["collectives"],
+                         "line_at_0": r["collectives_past_line"],
+                         "line_at_0_launches": r["launches_past_line"],
+                         "line_at_0_sites_and_loss_bit_equal": r["past_line_equal"]}
+                        for r in ranks],
+         expected_drop={"all_reduce": 9, "all_gather": 0}, expected_line_at_0_launches=want_past,
+         ok=drop_ok)
     ok = (loss_rel <= tol["loss_rel"]
           and med(e_sp) <= tol["median_vs_one_card"] * med(e_one)
           and max(e_sp.values()) <= tol["worst_vs_one_card"] * max(e_one.values())
           and max(b_sp.values()) <= tol["worst_vs_one_card"] * max(b_one.values())
           and all(r["params"][k].equal(sp["params"][k]) for r in ranks for k in sp["params"])
-          and eval_equal and sp["eval"]["count"] == n
+          and eval_equal and sp["eval"]["count"] == n and drop_ok
           and all(r["launches"] == {**want, "fwd": 6} for r in ranks))
     emit("spatial_parity", ran=True, ranks=2, grid="D1xS2", backend="nccl", batch=n,
          image_size=size, dtype="fp32", tf32=False, loss_spatial=sp["metrics"]["loss"],
@@ -3120,6 +3356,9 @@ def spatial_448_phase(smi, tmp):
 # partitioning, on two Gloo ranks on card 0
 SPATIAL_OPTION_LEGS = ("accum", "remat", "aa", "kd", "bl")
 SPATIAL_OPTION_KD = dict(kd_temp=2.0, kd_alpha=0.5)
+# the legs whose collectives are counted past the fused line too: the step
+# with device AutoAugment (9 DropBlock sites) and with accumulation (18)
+SPATIAL_COLLECTIVE_LEGS = {"aa": 9, "accum": 18}
 
 
 def _option_cfg(leg):
@@ -3212,13 +3451,28 @@ def _spatial_options_rank(rank, world, coordinator, workdir):
         out = {}
         for leg in SPATIAL_OPTION_LEGS:
             _zero_counts()
-            state, metrics = _option_step(payload, leg, device, group=group, spatial=ctx)
-            torch.cuda.synchronize()
+            with _counting_collectives() as calls, _site_outputs() as sites:
+                state, metrics = _option_step(payload, leg, device, group=group, spatial=ctx)
+                torch.cuda.synchronize()
             out[leg] = {"params": {k: p.detach().cpu() for k, p in
                                    state.model.named_parameters()},
                         "buffers": {k: b.cpu() for k, b in state.model.named_buffers()},
-                        "loss": float(metrics["loss"]), "launches": _counts()}
+                        "loss": float(metrics["loss"]), "launches": _counts(),
+                        "collectives": calls}
             del state
+            if leg in SPATIAL_COLLECTIVE_LEGS:
+                out[leg]["sites"] = sites
+        # the plain and the accumulating step again with the fused line moved
+        # to 0: the route every site took before the fused window kernel
+        for leg, n_sites in SPATIAL_COLLECTIVE_LEGS.items():
+            _zero_counts()
+            with mock.patch.object(kdrop, "FUSED_MAX_HW", 0), _counting_collectives() as calls, \
+                    _site_outputs() as sites:
+                _, metrics = _option_step(payload, leg, device, group=group, spatial=ctx)
+                torch.cuda.synchronize()
+            out[leg].update(collectives_past_line=calls, launches_past_line=_counts(),
+                            past_line_equal=(_same_sites(out[leg].pop("sites"), sites, n_sites)
+                                             and float(metrics["loss"]) == out[leg]["loss"]))
         _zero_counts()
         ev, accs = _int8_option_eval(payload, device, group=group, spatial=ctx)
         torch.cuda.synchronize()
@@ -3364,6 +3618,23 @@ def spatial_options_parity_phase(smi, tmp):
                         required_leading=prefix, launches=ranks[0]["int8"]["launches"],
                         expected=want["int8"], ok=int8_ok)
     ok = ok and int8_ok
+    drop_ok = all(_collective_drop(x[leg]["collectives"], x[leg]["collectives_past_line"], sites)
+                  and x[leg]["past_line_equal"]
+                  and x[leg]["launches_past_line"] == _past_line(want[leg])
+                  for x in ranks for leg, sites in SPATIAL_COLLECTIVE_LEGS.items())
+    emit("spatial_collectives", path="spatial_options_parity", grid="D1xS2", backend="gloo",
+         per_rank_step={leg: [{"fused_line": x[leg]["collectives"],
+                               "line_at_0": x[leg].get("collectives_past_line"),
+                               "line_at_0_launches": x[leg].get("launches_past_line"),
+                               "line_at_0_sites_and_loss_bit_equal":
+                                   x[leg].get("past_line_equal")}
+                              for x in ranks]
+                        for leg in SPATIAL_OPTION_LEGS},
+         expected_drop={leg: {"all_reduce": sites, "all_gather": 0}
+                        for leg, sites in SPATIAL_COLLECTIVE_LEGS.items()},
+         expected_line_at_0_launches={leg: _past_line(want[leg])
+                                      for leg in SPATIAL_COLLECTIVE_LEGS}, ok=drop_ok)
+    ok = ok and drop_ok
     emit("spatial_options_parity", ranks=2, grid="D1xS2", backend="gloo",
          card="0 (both ranks)", batch=n, image_size=size, dtype="fp32", tf32=False,
          legs=legs, tolerance=tol, ranks_seconds=ranks_s, fp64_cpu_seconds=fp64_s,
@@ -3511,7 +3782,8 @@ model_dir = next(a.split("=", 1)[1] for a in sys.argv if a.startswith("--runtime
 with open(os.path.join(model_dir, "kernel_counts.json"), "w") as f:
     json.dump({"counts": {"fwd": kblur.LAUNCHES, "bwd": kblur.BWD_LAUNCHES,
                           "mask": kdrop.LAUNCHES, "apply": kdrop.APPLY_LAUNCHES,
-                          "apply_bwd": kdrop.APPLY_BWD_LAUNCHES, "fused": kdrop.FUSED_LAUNCHES},
+                          "apply_bwd": kdrop.APPLY_BWD_LAUNCHES, "fused": kdrop.FUSED_LAUNCHES,
+                          "fused_window": kdrop.FUSED_WINDOW_LAUNCHES},
                "teacher_loaded": loaded}, f)
 """
 
@@ -3791,7 +4063,7 @@ finally:
     with open(path, "w") as f:
         json.dump({"fwd": kblur.LAUNCHES, "bwd": kblur.BWD_LAUNCHES, "mask": kdrop.LAUNCHES,
                    "apply": kdrop.APPLY_LAUNCHES, "apply_bwd": kdrop.APPLY_BWD_LAUNCHES,
-                   "fused": kdrop.FUSED_LAUNCHES}, f)
+                   "fused": kdrop.FUSED_LAUNCHES, "fused_window": kdrop.FUSED_WINDOW_LAUNCHES}, f)
 sys.exit(code if isinstance(code, int) else 0)
 """
 # the acceptance drive's legs, in the order it runs them
@@ -4061,6 +4333,8 @@ KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces
     ("apply", ("apply", "apply_bwd"), "dropblock_apply", "axcnn_torch/csrc/dropblock.cu",
      "axcnn/pallas/dropblock.py:135"),
     ("fused", ("fused",), "dropblock_fused", "axcnn_torch/csrc/dropblock.cu",
+     "axcnn/pallas/dropblock.py:100"),
+    ("fused_window", ("fused_window",), "dropblock_fused_window", "axcnn_torch/csrc/dropblock.cu",
      "axcnn/pallas/dropblock.py:100"),
 )
 

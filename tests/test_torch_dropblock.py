@@ -258,7 +258,7 @@ def test_fused_line_is_the_kernel_source_line():
     src = (pathlib.Path(kdrop.__file__).parents[1] / "csrc" / "dropblock.cu").read_text()
     assert int(re.search(r"constexpr int kWholeMapHW = (\d+);", src).group(1)) == kdrop.FUSED_MAX_HW
     entry = src[src.index('extern "C" int axcnn_dropblock_fused'):]
-    assert "h * w > kWholeMapHW" in entry[:entry.index("return")]
+    assert "h_global * w > kWholeMapHW" in entry[:entry.index("return")]
 
 
 class _Recorder:

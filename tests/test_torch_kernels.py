@@ -895,3 +895,41 @@ def test_apply_with_global_counts_matches_plain_on_card(dtype, backward):
     got = kdrop.dropblock_apply_cuda(x, mask, counts, backward=backward, numel=numel)
     torch.cuda.synchronize()
     assert torch.equal(_bits(got), _bits(ref(x, mask, counts, numel)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hg,w,bs,parts,data,c", [(28, 28, 7, 2, 1, 1024), (14, 14, 7, 2, 2, 64),
+                                                  (28, 28, 5, 4, 2, 64), (15, 17, 5, 3, 2, 6)])
+def test_fused_window_kernel_matches_plain_on_card(dtype, hg, w, bs, parts, data, c):
+    """Every rank of the grid: the fused window kernel's output (bit
+    patterns, the input's inf and NaN included), mask and global counts
+    against its plain version; the counts are the windowed mask kernel's
+    window counts summed over the ranks; the autograd Function's gradient
+    is the apply kernel's backward with the global counts."""
+    _cuda()
+    n, h = 4, hg // parts
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (n * data,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(46)).cuda()
+    windows = [kdrop.dropblock_mask_cuda(seeds[d * n:(d + 1) * n], 0.1, h, w, bs, row0=s * h,
+                                         h_global=hg)[1] for d in range(data) for s in range(parts)]
+    summed = torch.cat([sum(windows[d * parts:(d + 1) * parts]) for d in range(data)])
+    for d in range(data):
+        for s in range(parts):
+            x = _nchw((n, h, w, c), 47 + d * parts + s, "cuda", dtype).contiguous(
+                memory_format=torch.channels_last)
+            x[0, 0, 0, 0], x[-1, -1, -1, -1] = float("nan"), float("inf")
+            window = dict(row0=s * h, h_global=hg, first=d * n, numel=x.numel() * parts * data)
+            got = kdrop.dropblock_fused_window_cuda(x, seeds, 0.1, bs, **window)
+            want = kdrop.dropblock_fused_window_reference(x, seeds, 0.1, bs, **window)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got[0]), _bits(want[0]))
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+            assert torch.equal(got[2], summed)
+            xg = x.clone().requires_grad_()
+            y = kdrop.DropBlockFusedWindow.apply(xg, seeds, 0.1, bs, *window.values())
+            g = _nchw((n, h, w, c), 48, "cuda", dtype).contiguous(memory_format=torch.channels_last)
+            (dx,) = torch.autograd.grad(y, xg, g)
+            assert torch.equal(_bits(y), _bits(got[0]))
+            assert torch.equal(_bits(dx), _bits(kdrop.dropblock_apply_bwd_reference(
+                g, got[1], got[2], window["numel"])))

@@ -30,6 +30,7 @@ runs a train forward and backward that the one-rank one matches. What the
 step still refuses closes the file.
 """
 
+import contextlib
 import os
 import socket
 import subprocess
@@ -47,6 +48,7 @@ if __name__ == "__main__":  # a rank: the port only
 
 from axcnn_torch.core.dtypes import Policy  # noqa: E402
 from axcnn_torch.kernels import blurpool as kblur  # noqa: E402
+from axcnn_torch.kernels import dropblock as kdrop  # noqa: E402
 from axcnn_torch.kernels.dropblock import (dropblock_apply_reference,  # noqa: E402
                                            dropblock_mask_reference)
 from axcnn_torch.models.resnet import ModelConfig  # noqa: E402
@@ -345,6 +347,29 @@ def _bl_remat_pass(images, group=None, spatial=None):
             "moved": {k: b - start[k] for k, b in model.named_buffers()}}
 
 
+@contextlib.contextmanager
+def _counting_collectives():
+    """Counts, by name, the calls of ``torch.distributed.all_reduce`` and
+    ``all_gather`` and of ``SpatialContext.global_counts`` in the block."""
+    import torch.distributed as dist
+
+    calls = dict.fromkeys(("all_reduce", "all_gather", "global_counts"), 0)
+
+    def counted(owner, name):
+        fn = getattr(owner, name)
+
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    with pytest.MonkeyPatch.context() as mp:
+        for owner, name in ((dist, "all_reduce"), (dist, "all_gather"),
+                            (sp.SpatialContext, "global_counts")):
+            mp.setattr(owner, name, counted(owner, name))
+        yield calls
+
+
 def _rank_main(rank, world, spatial_parts, port, workdir):
     from axcnn_torch.parallel import mesh
 
@@ -366,9 +391,20 @@ def _rank_main(rank, world, spatial_parts, port, workdir):
         # mixup's partner: data shard D - 1 - d's rows
         imgs = payload["images"][d * n:(d + 1) * n]
         out["mirror"] = ctx.mirror(ctx.slice_rows(imgs), payload["labels"][d * n:(d + 1) * n])
-        uniforms = {k: u[d * n:(d + 1) * n] for k, u in payload["uniforms"].items()}
-        out["step"] = _f64_step(payload, imgs, payload["labels"][d * n:(d + 1) * n], uniforms,
-                                group=mesh.data_group(), spatial=ctx)
+        # the injected uniforms are the global batch's: every rank counts
+        # every global sample's keep-mask itself
+        step = lambda: _f64_step(payload, imgs, payload["labels"][d * n:(d + 1) * n],  # noqa: E731
+                                 payload["uniforms"], group=mesh.data_group(), spatial=ctx)
+        with _counting_collectives() as calls:
+            out["step"] = step()
+        out["collectives"] = dict(calls)
+        # the same step with the fused line moved to 0: every site takes the
+        # route past it (every site's route before the fused window kernel),
+        # the window counts summed over the grid
+        with pytest.MonkeyPatch.context() as mp, _counting_collectives() as calls:
+            mp.setattr(kdrop, "FUSED_MAX_HW", 0)
+            out["step_past_line"] = step()
+        out["collectives_past_line"] = dict(calls)
         if ctx.data_parts == 1:
             out["bl_remat"] = _bl_remat_pass(imgs, group=mesh.data_group(), spatial=ctx)
     finally:
@@ -565,6 +601,26 @@ def test_spatial_step_matches_the_reference(spatial_runs, grid):
     ref, mine = _leaves(new.ema), _leaves(tree["ema"])
     for k in ref:
         np.testing.assert_allclose(mine[k], ref[k], rtol=1e-7, atol=1e-7, err_msg=k)
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"D{g[0]}xS{g[1]}")
+def test_spatial_dropblock_sites_issue_no_collective(spatial_runs, grid):
+    """Within the fused line no DropBlock site calls ``global_counts``: on
+    every rank the step issues one all-reduce a site fewer (the window
+    counts' sum over the row) and, with two data shards, one all-gather a
+    site fewer (their counts) than the same step with the line moved to 0,
+    the route every site took before; and the two end in the same state,
+    bit for bit."""
+    sites, data = len(SITES), grid[0]
+    for r in spatial_runs["ranks"][grid]:
+        now, past = r["collectives"], r["collectives_past_line"]
+        assert now["global_counts"] == 0 and past["global_counts"] == sites
+        assert past["all_reduce"] - now["all_reduce"] == sites
+        assert past["all_gather"] - now["all_gather"] == (sites if data > 1 else 0)
+        assert r["step_past_line"]["metrics"] == r["step"]["metrics"]
+        for field, tensors in _fields(r["step"]).items():
+            for k, t in tensors.items():
+                assert torch.equal(r["step_past_line"][field][k], t), (field, k)
 
 
 @pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"D{g[0]}xS{g[1]}")

@@ -147,9 +147,9 @@ def _tensors(state, metrics):
             "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
-def _train_leg(leg, payload, images, labels, rows, group=None, spatial=None):
-    """The port's float64 step of ``leg`` on ``images`` (rows ``rows`` of
-    the global batch): the one-rank step, or with ``spatial`` the rank's."""
+def _train_leg(leg, payload, images, labels, group=None, spatial=None):
+    """The port's float64 step of ``leg``: the one-rank step on the global
+    batch, or with ``spatial`` the rank's on its data shard ``images``."""
     cfg, state = _state(payload, leg)
     kw, call = {}, {}
     if leg in ("accum", "whole"):
@@ -160,12 +160,10 @@ def _train_leg(leg, payload, images, labels, rows, group=None, spatial=None):
         kw["autoaugment_fn"] = make_device_autoaugment("v0", num_groups=1)
         call["aa_draws"] = payload["aa_draws"]
     if leg == "whole":
-        # micro-batch i's uniforms are its M images' maps; this rank's
-        # rows of it are the same part of it as ``rows`` of the batch
-        m, first = len(labels) // A, rows.start // A
+        # micro-batch i's uniforms are its M images' maps, the global
+        # micro-batch's on every rank
         call["lam"] = payload["lams"]
-        call["dropblock_uniforms"] = [{k: u[first:first + m] for k, u in unis.items()}
-                                      for unis in payload["uniforms"]]
+        call["dropblock_uniforms"] = payload["uniforms"]
     step = make_train_step(cfg, lr_schedule=t_lr(**LR_KW), policy=F64, group=group,
                            spatial=spatial, **STEP_KW, **kw)
     with _fp32_casts_to_float64():
@@ -199,7 +197,7 @@ def _rank_main(rank, world, port, workdir):
         out = {"grid": (ctx.data_index, ctx.index),
                "micro": ctx.micro_batches(images, labels, steps=A)}
         for leg in TRAIN_LEGS + ("whole",):
-            out[leg] = _train_leg(leg, payload, images, labels, rows, group=group, spatial=ctx)
+            out[leg] = _train_leg(leg, payload, images, labels, group=group, spatial=ctx)
         out["int8"] = _int8_leg(payload, images, labels, group=group, spatial=ctx)
     finally:
         mesh.shutdown()
@@ -338,7 +336,7 @@ def runs(tmp_path_factory):
             j_new, j_metrics = jstep(jstate, batch, root_key)
             want = (jstate, jax.tree.map(np.asarray, j_new), jax.device_get(j_metrics))
         images, labels = payload["images"], payload["labels"]
-        one = {leg: _train_leg(leg, payload, images, labels, slice(0, N))
+        one = {leg: _train_leg(leg, payload, images, labels)
                for leg in TRAIN_LEGS}
         one["int8"] = _int8_leg(payload, images, labels)
         outs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]

@@ -16,7 +16,7 @@ ranks, CLI subprocesses, spawned ranks), for the file's duration. The
 port's tests run at toy sizes in parallel workers: a thread pool on every
 core in each worker and each rank spins against the others' and multiplies
 the CPU seconds a test burns, while one thread loses little on tensors
-this small. ``default_threads()`` gives a block torch's own count back.
+this small.
 """
 
 import contextlib
@@ -30,7 +30,6 @@ import torch
 
 _RUN = subprocess.run
 THREADS = 1
-DEFAULT_THREADS = torch.get_num_threads()  # torch's own: one a core
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -42,19 +41,6 @@ def capped_threads():
         mp.setenv("MKL_NUM_THREADS", str(THREADS))
         yield
     torch.set_num_threads(threads)
-
-
-@contextlib.contextmanager
-def default_threads():
-    """torch's own intra-op thread count for the block: for an fp32 result
-    whose bound was set at it (the reduction order of a conv follows the
-    thread count, and a cancelling sum shows it)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(DEFAULT_THREADS)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def run(cmd, *args, stdout=None, stderr=None, capture_output=False, **kw):
