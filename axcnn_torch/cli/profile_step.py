@@ -69,6 +69,7 @@ Needs a CUDA card; measures whichever ``axcnn_torch`` is first on the path.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -208,8 +209,20 @@ def _bl_models():
     return {"bl": bl, "ablation": preset_model("bl_resnet50", bl_alpha=0, bl_beta=0)}
 
 
+SCHEDULE = dict(base_lr=0.05, total_steps=100, warmup_steps=0)
+
+
 def _step_runner(cfg, *, kd: bool = False, group=None, spatial=None, image_size: int = 224,
-                 grad_accum_steps: int = 1):
+                 grad_accum_steps: int = 1, device="cuda", batch_size: int = BATCH,
+                 schedule=SCHEDULE, teacher_cfg=None, batches=None, **step_kw):
+    """``(enqueue, wait)`` for ``_measure``: ``enqueue()`` runs one bf16 train
+    step of ``cfg`` (mixup 0.2, label smoothing 0.1, the learning rate of
+    ``schedule``) on ``device`` and returns its metrics. The step takes a
+    seeded random uint8 batch of ``batch_size`` images resident on the
+    device, or, with ``batches``, the next batch of that iterator.
+    ``teacher_cfg`` adds a seeded frozen teacher (``step_kw`` then carries
+    ``kd_temp`` and ``kd_alpha``); ``kd``: the KD preset's (R50 teacher,
+    batch 1024 as 8 micro-batches)."""
     from axcnn_torch.core.dtypes import BF16_POLICY
     from axcnn_torch.models.resnet import ResNet
     from axcnn_torch.train.schedules import make_lr_schedule
@@ -218,32 +231,67 @@ def _step_runner(cfg, *, kd: bool = False, group=None, spatial=None, image_size:
 
     kw = dict(policy=BF16_POLICY, label_smoothing=0.1, mixup_alpha=0.2,
               grad_accum_steps=grad_accum_steps)
-    batch_size = BATCH
     if kd:
         preset = load_preset("assemble_resnet152_kd")
-        teacher = ResNet(preset_model("assemble_resnet50"),
-                         generator=torch.Generator().manual_seed(SEED + 1))
-        kw.update(teacher=teacher.to("cuda", memory_format=torch.channels_last).eval()
-                  .requires_grad_(False), kd_temp=preset.train.kd_temp,
-                  kd_alpha=preset.train.kd_alpha, grad_accum_steps=8)
+        teacher_cfg = preset_model("assemble_resnet50")
+        kw.update(kd_temp=preset.train.kd_temp, kd_alpha=preset.train.kd_alpha,
+                  grad_accum_steps=8)
         batch_size = 8 * BATCH
+    if teacher_cfg is not None:
+        teacher = ResNet(teacher_cfg, generator=torch.Generator().manual_seed(SEED + 1))
+        kw["teacher"] = teacher.to(device, memory_format=torch.channels_last).eval() \
+            .requires_grad_(False)
+    kw.update(step_kw)
     state = create_train_state(cfg, generator=torch.Generator().manual_seed(SEED),
-                               device="cuda", use_ema=True)
-    step = make_train_step(cfg, lr_schedule=make_lr_schedule(
-        base_lr=0.05, total_steps=100, warmup_steps=0), total_steps=100, group=group,
-        spatial=spatial, **kw)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    shape = (batch_size, image_size, image_size, 3)
-    batch = {"images": torch.randint(0, 256, shape, generator=gen, device="cuda",
-                                     dtype=torch.uint8),
-             "labels": torch.randint(0, 1001, (batch_size,), generator=gen, device="cuda")}
+                               device=device, use_ema=True)
+    step = make_train_step(cfg, lr_schedule=make_lr_schedule(**schedule),
+                           total_steps=schedule["total_steps"], group=group, spatial=spatial,
+                           **kw)
+    if batches is None:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        shape = (batch_size, image_size, image_size, 3)
+        batches = itertools.repeat({
+            "images": torch.randint(0, 256, shape, generator=gen, device=device,
+                                    dtype=torch.uint8),
+            "labels": torch.randint(0, cfg.num_classes, (batch_size,), generator=gen,
+                                    device=device)})
     box = [state]
 
     def enqueue():
-        box[0], metrics = step(box[0], batch, SEED + 1)
+        box[0], metrics = step(box[0], next(batches), SEED + 1)
         return metrics
 
     return enqueue, _wait_loss
+
+
+def chained_s(enqueue, wait, steps: int):
+    """``(seconds, the last step's result)`` for ``steps`` steps enqueued
+    back to back and one wait for the last: the reference scripts' chained
+    timing, ending in one fetch."""
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        pending = enqueue()
+    wait(pending)
+    return time.perf_counter() - t0, pending
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.splitlines()[0]
+
+
+def measurement_device(cpu: bool, prog: str):
+    """``(device, card)`` for a measurement module: the CPU when asked
+    (``card`` is then ``"cpu"``), else the card; ``None`` with a message
+    when there is no card (the module exits 1, never falling back)."""
+    if cpu:
+        return torch.device("cpu"), "cpu"
+    if not torch.cuda.is_available():
+        print(f"{prog}: no CUDA device (--cpu runs on the host)", file=sys.stderr)
+        return None
+    return torch.device("cuda", torch.cuda.current_device()), card_line()
 
 
 def _dropblock_runner():
@@ -415,8 +463,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
+    card = card_line()
     if args.what in ("dp", "spatial"):
         result = _measure_dp(args.ranks, args.untraced, args.steps, args.image_size,
                              spatial=args.what == "spatial", remat=args.remat,
@@ -438,7 +485,7 @@ def main(argv=None) -> int:
                 image_size=args.image_size)
         result = _measure(*runner, args.untraced, args.steps)
     print(json.dumps({"profile": args.what, "label": args.label, "dtype": "bf16",
-                      "card": smi.splitlines()[0], **result}), flush=True)
+                      "card": card, **result}), flush=True)
     return 0
 
 

@@ -81,6 +81,16 @@ _EXPANSION = 4
 _BL_STAGES = (1, 2)  # 0-indexed stages that get the Big-Little branches
 
 
+def refuse_xla_remat(cfg) -> None:
+    """Raises ``NotImplementedError`` for a remat mode the port has no
+    counterpart for (``conv``, ``conv_nocse``); a training forward calls it."""
+    if cfg.remat in ("conv", "conv_nocse"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is an XLA name policy (save only the tagged conv "
+            "outputs and BN statistics, recompute the rest) with no torch counterpart; "
+            "remat='blocks' is the port's memory lever (ROADMAP.md Queue A item 11)")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Same fields, defaults and validation as the reference's
@@ -319,11 +329,8 @@ class ResNet(nn.Module):
         ``N``, and the uniforms are the global batch's whole maps
         (D * N, H_global, W)."""
         cfg = self.cfg
-        if train and cfg.remat in ("conv", "conv_nocse"):
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} is an XLA name policy (save only the tagged conv "
-                "outputs and BN statistics, recompute the rest) with no torch counterpart; "
-                "remat='blocks' is the port's memory lever (ROADMAP.md Queue A item 11)")
+        if train:
+            refuse_xla_remat(cfg)
         remat = train and cfg.remat == "blocks"
         use_db = train and cfg.use_dropblock
         if use_db and rng is None:

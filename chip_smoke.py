@@ -291,6 +291,16 @@ points and checks them:
     224x224, b64): every logged loss finite, each leg's hyperparameters, and
     the launches (the probe's 5 teacher forwards; a leg's 3 + 3 + 3 BlurPool
     and 39 + 39 DropBlock launches a step, 3 an eval batch).
+42. measurement_scripts: the five measurement modules (``axcnn_torch.cli``'s
+    ports of the reference's ``scripts/``) through their ``main()`` at
+    their smallest settings (``MEASURE_ARGV``): ``latency_bench`` (the
+    assembled R50 served at b1 and b8, bf16, 10 timed forwards each way),
+    ``remat_bench`` (R50 b16, ``none`` and ``blocks``, 3 timed steps),
+    ``capacity_probe`` (config 5's R152 + R50 KD step at b8, ``blocks``),
+    ``loader_bench`` (512 generated JPEGs, 2 measured batches a real row,
+    the card feed included) and ``echo_bench`` (R50 b128 on those JPEGs,
+    host AA, factor 2 for 4 steps: 2 host batches); each row's keys and
+    finite values, and each module's launches (``_measure_launches``).
 
 Every phase prints one JSON line, stamped with the script's elapsed
 seconds; any failure raises and exits non-zero. The last two lines are the
@@ -306,7 +316,8 @@ acceptance_cut in a process of its own beside drives_cut_more and
 kd_diag_cut) run in a process of their own beside the phases that check
 results in this one (train_parity, dp, bl_parity, bl_assembled,
 blur_sizes, aa_parity, int8_check, export, mce, drive_convergence,
-spatial_parity, spatial_options_parity, spatial_448_options; the walls
+spatial_parity, spatial_options_parity, spatial_448_options,
+measurement_scripts; the walls
 and img/s that export, drive_convergence and spatial_448_options print are
 read under that load). They share no files and count their launches in
 their own processes; their host work (CLI processes starting, CPU ranks)
@@ -319,6 +330,7 @@ import contextlib
 import dataclasses
 import functools
 import glob
+import importlib
 import io
 import itertools
 import json
@@ -4323,6 +4335,77 @@ class _Group:
             return json.load(f)
 
 
+# each measurement module's smallest setting, and the rows' keys that must be
+# finite numbers (the data directory is the phase's own)
+MEASURE_ARGV = {
+    "latency_bench": ["--batches=1,8", "--dtypes=bf16", "--models=assembled", "--warmup=2",
+                      "--timed=10"],
+    "remat_bench": ["--batches=16", "--modes=none,blocks", "--warmup=1", "--timed=3"],
+    "capacity_probe": ["--batches=8", "--modes=blocks"],
+    "loader_bench": ["--n_images=512", "--batches=2"],
+    "echo_bench": ["--n_images=512", "--factors=2", "--aa=host", "--warmup=1", "--timed=3",
+                   "--windows=1"],
+}
+MEASURE_KEYS = {
+    "latency_bench": ("sync_ms", "pipelined_ms", "pipelined_img_s"),
+    "remat_bench": ("ms", "img_s", "gflop", "tflops", "peak_gib", "loss"),
+    "capacity_probe": ("peak_allocated_gib", "peak_reserved_gib", "card_gib", "loss"),
+    "loader_bench": ("stub_producer_ips", "stub_with_marshal_ips", "framing_stream_ips",
+                     "seed_us_per_record", "real_ips_workers1", "real_ips_workers2",
+                     "real_ips_workers4", "serial_us_per_record", "decode_us_per_record_1core",
+                     "projected_scaling_limit_cores", "multiproducer_stub_ips_p2",
+                     "consumer_us_per_record", "consumer_scaling_limit_cores_vs_decode",
+                     "real_to_card_ips_workers4", "host_cores", "affinity_cores"),
+    "echo_bench": ("echo2", "steps", "host_batches", "host_cores", "affinity_cores"),
+}
+
+
+def _measure_launches():
+    """Each module's launches at ``MEASURE_ARGV``: a step's (warm-up and
+    timed) or a forward's counts times their number. R50 (remat ``none``)
+    3 + 3 + 9 + 9 a step, ``blocks`` 6 (3 by the replay) + 3 + 9 + 9;
+    config 5 with ``blocks``: the student's 6 + 3, the teacher's 3, 39 + 39
+    a step, 2 steps; latency 2 + 10 + 10 forwards a batch, 3 each."""
+    per = lambda n, fwd, bwd, sites: _launches(n * fwd, n * bwd, n * sites)  # noqa: E731
+    plain, rem = per(1 + 3, 3, 3, 9), per(1 + 3, 6, 3, 9)
+    return {"latency_bench": per(2 * (2 + 10 + 10), 3, 0, 0),
+            "remat_bench": {k: plain[k] + rem[k] for k in plain},
+            "capacity_probe": per(2, 6 + 3, 3, 39),
+            "loader_bench": _launches(0, 0, 0),
+            "echo_bench": per(1 + 3, 3, 3, 9)}
+
+
+def measurement_scripts_phase(smi, tmp):
+    """Phase 42: {module: its launch counts}."""
+    paths = {}
+    for name, argv in MEASURE_ARGV.items():
+        module = importlib.import_module(f"axcnn_torch.cli.{name}")
+        if name in ("loader_bench", "echo_bench"):
+            argv = argv + [f"--data_dir={os.path.join(tmp, 'measure_data')}"]
+        out = io.StringIO()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = module.main(argv)
+        torch.cuda.synchronize()
+        seconds, counts = time.perf_counter() - t0, _counts()
+        rows = [json.loads(line) for line in out.getvalue().splitlines()]
+        finite = all(isinstance(r.get(k), (int, float)) and np.isfinite(r[k])
+                     for r in rows for k in MEASURE_KEYS[name])
+        want = _measure_launches()[name]
+        ok = (code == 0 and bool(rows) and finite and counts == want
+              and all(r["card"] == smi for r in rows)
+              and (name != "echo_bench" or rows[0]["host_batches"] == 2)
+              and (name != "capacity_probe" or rows[0]["fits_card"]))
+        emit("measurement_scripts", module=name, argv=argv, rows=rows, launches=counts,
+             expected=want, seconds=seconds, card=smi, ok=ok)
+        if not ok:
+            raise AssertionError(f"measurement_scripts {name} failed: exit {code}, "
+                                 f"launches {counts}, expected {want}, rows {rows}")
+        paths[f"measure_{name}"] = counts
+    return paths
+
+
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
     ("fwd", ("fwd",), "blur_pool3_s2_fwd", "axcnn_torch/csrc/blurpool.cu",
      "axcnn/pallas/blurpool.py:73"),
@@ -4387,6 +4470,7 @@ def _checked_phases(smi, tmp, train_dir):
     torch.cuda.empty_cache()  # what this process holds, for the ranks the next two start
     paths["spatial_options_parity"] = spatial_options_parity_phase(smi, tmp)
     paths.update(spatial_448_options_phase(smi, tmp))
+    paths.update(measurement_scripts_phase(smi, tmp))
     return paths
 
 

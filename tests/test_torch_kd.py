@@ -27,9 +27,8 @@ JAX reference, on the CPU.
   of this file runs on one thread (at one thread that leaf lies 7.8e-2
   away). The bound sits inside both packages' fp32 noise: over states one
   ulp apart the reference's own jitted fp32 step passes it too only in most
-  of them. ``test_fp32_noise_matches_the_reference_over_rounding_realizations``
-  (run on demand: ``AXCNN_FP32_REALIZATIONS=12``, about a minute a kind)
-  compares the two packages' noise over such realizations instead.
+  of them. ``tests/test_torch_kd_noise.py`` compares the two packages' noise
+  over such realizations instead, at 1 and at 8 threads.
   Under accumulation the micro-batch is 4 and stage 4 is 2x2, so BN sees 16
   samples per channel there.
 - Three KD steps under accumulation from a fresh init at the learning rates
@@ -44,7 +43,7 @@ JAX reference, on the CPU.
 import contextlib
 import copy
 import dataclasses
-import os
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -344,20 +343,34 @@ def _threads(count):
         torch.set_num_threads(threads)
 
 
+# each kind's reference state and the teacher's trees, by seed
+STATE_SEEDS = {"kd": 81, "accum": 82, "kd_accum": 85}
+TEACHER_SEED = 83
+
+
+@functools.cache
+def _reference64(kind):
+    """The reference's jitted step of ``kind`` in float64 (its fp32 casts
+    re-pointed) from the kind's state: (state, float64 state, new state,
+    metrics)."""
+    jstate = _reference_state(STATE_SEEDS[kind])
+    trees = _teacher_trees(TEACHER_SEED) if "kd" in kind else None
+    with _float64():
+        j_in = jax.tree.map(_f64, jstate)
+        j_new, j_metrics = _reference_step(kind, trees)(j_in, _batch(),
+                                                         jax.random.key(ROOT_KEY))
+        return jstate, j_in, jax.tree.map(np.asarray, j_new), jax.device_get(j_metrics)
+
+
 @pytest.fixture(scope="module", params=["kd", "accum", "kd_accum"])
 def step_run(request):
     """The reference's jitted step in float64 (its fp32 casts re-pointed),
     once per kind, and the port's step from the same state, batch and draws
     in float64 (its fp32 casts re-pointed) and in fp32."""
     kind = request.param
-    jstate = _reference_state({"kd": 81, "accum": 82, "kd_accum": 85}[kind])
-    trees = _teacher_trees(83) if "kd" in kind else None
+    jstate, j_in, j_new, j_metrics = _reference64(kind)
+    trees = _teacher_trees(TEACHER_SEED) if "kd" in kind else None
     with _float64():
-        j_in = jax.tree.map(_f64, jstate)
-        j_new, j_metrics = _reference_step(kind, trees)(j_in, _batch(),
-                                                         jax.random.key(ROOT_KEY))
-        j_new = jax.tree.map(np.asarray, j_new)
-        j_metrics = jax.device_get(j_metrics)
         draws = _draws(accum="accum" in kind)
         got64 = _port_step(jstate, kind, trees, draws, torch.float64)
     with _threads(FP32_THREADS):
@@ -428,84 +441,31 @@ def test_bn_statistics_match(step_run, dtype):
     assert any(_rel_l2(want[k], old[k]) > 1e-4 for k in want)  # they moved
 
 
-# rounding realizations for the fp32 noise check below; 0 skips it
-FP32_REALIZATIONS = int(os.environ.get("AXCNN_FP32_REALIZATIONS", "0"))
-
-
-def _nudged(jstate, seed):
-    """``jstate`` with every fp32 parameter moved by -1, 0 or +1 ulp at
-    random (seed 0: unmoved)."""
-    if seed == 0:
-        return jstate
-    rng = np.random.default_rng(seed)
-
-    def nudge(a):
-        step = rng.integers(-1, 2, np.shape(a)).astype(np.float32) * np.float32(2.0 ** -23)
-        return (np.asarray(a, np.float32) * (np.float32(1.0) + step)).astype(np.float32)
-    return jstate._replace(params=jax.tree.map(nudge, jstate.params))
-
-
-@pytest.mark.skipif(not FP32_REALIZATIONS, reason="about a minute a kind: set "
-                    "AXCNN_FP32_REALIZATIONS to the number of realizations to run it")
-@pytest.mark.parametrize("kind", ["kd", "accum", "kd_accum"])
-def test_fp32_noise_matches_the_reference_over_rounding_realizations(kind):
-    """The port's fp32 step is as near the exact step as the reference's
-    own jitted fp32 step, read over rounding realizations rather than one:
-    each realization moves every parameter of the state by at most one ulp
-    (the first leaves it as it is), the exact step is the port's float64
-    step from it (the reference's, to 1e-11: ``test_update_matches``), and
-    the port runs at 1 and at 8 torch threads. Per field, the median over
-    realizations of the worst leaf's distance, and the mean of the median
-    leaf's (a few ties flip a realization's median leaf by 100x), are
-    within 3x of the reference's. Prints every realization's readings."""
-    base = _reference_state({"kd": 81, "accum": 82, "kd_accum": 85}[kind])
-    trees = _teacher_trees(83) if "kd" in kind else None
-    key = jax.random.key(ROOT_KEY)
+def test_shared_reference_step_at_kd_alpha_0_is_the_accum_step():
+    """In float64 the reference's KD step under accumulation with
+    ``kd_alpha`` and the teacher's trees as arguments (the one jitted step
+    ``accum`` and ``kd_accum`` share in ``tests/test_torch_kd_noise.py``) is,
+    at ``kd_alpha = 0``, the reference's own ``grad_accum_steps=2`` step
+    without a teacher: the loss and every leaf of the new state to 1e-11,
+    the distance at which the two packages agree."""
+    _, j_in, want, want_m = _reference64("accum")
     with _float64():
-        draws = _draws(accum="accum" in kind)
-    reference = _reference_step(kind, trees)  # its fp32 step: outside _float64
-    fields = ("params", "velocity", "ema")
-    runs = ("port, 1 thread", "port, 8 threads", "reference, jitted")
-    worst = {(run, f): [] for run in runs for f in fields}
-    median = {(run, f): [] for run in runs for f in fields}
-    for seed in range(FP32_REALIZATIONS):
-        jstate = _nudged(base, seed)
-        with _float64():
-            old = jax.tree.map(_f64, jstate)
-            exact = _port_step(jstate, kind, trees, draws, torch.float64)[0]
-        got = {}
-        for run, threads in zip(runs, (1, 8)):
-            with _threads(threads):
-                got[run] = _port_step(jstate, kind, trees, draws, torch.float32)[0]
-        new = reference(jstate, _batch(), key)[0]
-        got[runs[2]] = {f: jax.tree.map(lambda a: np.asarray(a, np.float64), getattr(new, f))
-                        for f in fields}
-        for run in runs:
-            for f in fields:
-                errs = _update_errors(dict(old=old, want=dataclasses.make_dataclass(
-                    "Exact", fields)(*(exact[g] for g in fields)), got=got[run]), f)
-                leaf = max(errs, key=errs.get)
-                worst[run, f].append(errs[leaf])
-                median[run, f].append(float(np.median(list(errs.values()))))
-                print(f"{kind} realization {seed} {run:17s} {f:8s} worst {errs[leaf]:.3g} "
-                      f"({leaf}), median {median[run, f][-1]:.3g}")
-    for f in fields:
-        ref_worst = float(np.median(worst[runs[2], f]))
-        ref_median = float(np.mean(median[runs[2], f]))
-        for run in runs[:2]:
-            got_worst = float(np.median(worst[run, f]))
-            got_median = float(np.mean(median[run, f]))
-            print(f"{kind} {run} {f}: worst leaf, median over realizations {got_worst:.3g} "
-                  f"(reference {ref_worst:.3g}); median leaf, mean {got_median:.3g} "
-                  f"(reference {ref_median:.3g})")
-            assert got_worst <= 3 * ref_worst, (run, f, got_worst, ref_worst)
-            assert got_median <= 3 * ref_median, (run, f, got_median, ref_median)
+        got, got_m = _reference_kd_accum_step(LR_KW, STEP_KW, KD_KW["kd_temp"])(
+            j_in, _batch(), jax.random.key(ROOT_KEY), 0.0,
+            *jax.tree.map(_f64, _teacher_trees(TEACHER_SEED)))
+        got = jax.tree.map(np.asarray, got)
+    np.testing.assert_allclose(float(got_m["loss"]), float(want_m["loss"]), rtol=1e-11)
+    for field in ("params", "model_state", "velocity", "ema"):
+        w, g = _leaves(getattr(want, field)), _leaves(getattr(got, field))
+        assert set(g) == set(w)
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-11, atol=1e-15, err_msg=f"{field} {k}")
 
 
 def test_kd_term_changes_the_step():
     """A KD step's gradient differs from the same step without the teacher by
     far more than the tolerances above: the parity covers the KD term."""
-    jstate, trees = _reference_state(81), _teacher_trees(83)
+    jstate, trees = _reference_state(STATE_SEEDS["kd"]), _teacher_trees(TEACHER_SEED)
     draws = [[np.float32(0.3)], [{k: np.asarray(u, np.float32) for k, u in
                                   _draws(accum=False)[1][0].items()}]]
     kd_state, kd_m = _port_step(jstate, "kd", trees, draws, torch.float32)
@@ -545,7 +505,7 @@ def trajectory_start():
     with _float64():
         port = _port_state(jstate, torch.float64)
     step_kw = {**STEP_KW, "total_steps": PRESET_STEPS}
-    return dict(jstate=jstate, trees=_teacher_trees(83), batches=batches, port=port,
+    return dict(jstate=jstate, trees=_teacher_trees(TEACHER_SEED), batches=batches, port=port,
                 step_kw=step_kw,
                 jstep=_reference_kd_accum_step(PRESET_LR, step_kw, PRESET_KD["kd_temp"]))
 
