@@ -110,29 +110,30 @@ def category(name: str) -> str:
     return next((cat for cat, keys in CATEGORIES if any(k in name for k in keys)), "other")
 
 
-def _busy_us(events) -> float:
-    """Length of the union of the events' intervals."""
+def busy_us(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
     busy, end = 0.0, -float("inf")
-    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+    for s, e in sorted(spans):
         if e > end:
             busy += e - max(s, end)
             end = e
     return busy
 
 
-def breakdown(events, steps: int, wall_s: float) -> dict:
-    """Per-step totals of a window of ``steps`` steps."""
+def breakdown(spans, steps: int, wall_s: float) -> dict:
+    """Per-step totals of a window of ``steps`` steps: ``spans`` holds each
+    device event's ``(name, start µs, end µs)``."""
+    spans = list(spans)
     by_cat, by_name = {}, {}
-    for e in events:
-        us = e.time_range.end - e.time_range.start
-        by_cat[category(e.name)] = by_cat.get(category(e.name), 0.0) + us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-    busy_ms = _busy_us(events) / 1e3 / steps
+    for name, start, end in spans:
+        by_cat[category(name)] = by_cat.get(category(name), 0.0) + end - start
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    busy_ms = busy_us((start, end) for _, start, end in spans) / 1e3 / steps
     wall_ms = wall_s * 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         "steps": steps, "wall_ms": wall_ms, "busy_ms": busy_ms,
-        "idle_share": 1 - busy_ms / wall_ms, "device_events": len(events) / steps,
+        "idle_share": 1 - busy_ms / wall_ms, "device_events": len(spans) / steps,
         "by_category_ms": {k: v / 1e3 / steps for k, v in sorted(by_cat.items(),
                                                                   key=lambda kv: -kv[1])},
         "by_category_share": {k: v / 1e3 / steps / busy_ms for k, v in by_cat.items()},
@@ -146,12 +147,10 @@ def _stats(values) -> dict:
             "max": float(v.max())}
 
 
-def _measure(enqueue, wait, untraced: int, steps: int) -> dict:
-    """``enqueue()`` runs one step and returns what ``wait`` needs to block
-    until the step is done."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
+def untraced_steps(enqueue, wait, untraced: int, warmup: int = 3) -> dict:
+    """``warmup`` steps, then ``untraced`` steps each timed to the end of its
+    ``wait``: the walls' and the host enqueues' statistics in ms."""
+    for _ in range(warmup):
         wait(enqueue())
     walls, enqueues = [], []
     for _ in range(untraced):
@@ -161,8 +160,16 @@ def _measure(enqueue, wait, untraced: int, steps: int) -> dict:
         wait(pending)
         walls.append(time.perf_counter() - t0)
         enqueues.append(t1 - t0)
-    result = {"untraced_steps": untraced, "untraced_wall_ms": _stats(walls),
-              "untraced_enqueue_ms": _stats(enqueues)} if untraced else {}
+    return {"untraced_steps": untraced, "untraced_wall_ms": _stats(walls),
+            "untraced_enqueue_ms": _stats(enqueues)} if untraced else {}
+
+
+def _measure(enqueue, wait, untraced: int, steps: int) -> dict:
+    """``enqueue()`` runs one step and returns what ``wait`` needs to block
+    until the step is done."""
+    from torch.profiler import ProfilerActivity, profile
+
+    result = untraced_steps(enqueue, wait, untraced)
     if steps:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -171,7 +178,8 @@ def _measure(enqueue, wait, untraced: int, steps: int) -> dict:
                 wait(enqueue())
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        result.update(breakdown(device_events(prof), steps, wall))
+        result.update(breakdown(((e.name, e.time_range.start, e.time_range.end)
+                                 for e in device_events(prof)), steps, wall))
     return result
 
 

@@ -1,5 +1,5 @@
-"""Step time, FLOP rate and peak memory of the assembled ResNet-50 train step
-by ``ModelConfig.remat`` mode and batch on one CUDA card
+"""Step time, FLOP rate, bytes and peak memory of the assembled ResNet-50
+train step by ``ModelConfig.remat`` mode and batch on one CUDA card
 (``scripts/remat_bench.py``).
 
     python -m axcnn_torch.cli.remat_bench [--batches 128,256] [--modes none,blocks]
@@ -10,17 +10,22 @@ DropBlock, zero-gamma, 1000 classes, 224x224, bf16, learning rate 0.4 over
 decay 1e-4, EMA; random uint8 images resident on the card, random weights
 from seed 0. Per (batch, mode), after ``WARMUP`` steps: ``TIMED`` steps
 enqueued back to back and one read of the last loss; ``ms`` and ``img_s``
-per step, ``gflop`` (3x the eval forward's FLOPs, ``profile_step``'s
-``forward_gflops``: convolutions and matmuls), ``tflops``, and ``peak_gib``
-(``torch.cuda.max_memory_allocated``, reset before each row). One JSON line
-a row, with ``card`` (the ``nvidia-smi`` name and power limit).
+per step; then one more step, not timed, counted by the per-op accountant
+(``profile_roofline.count_step``): ``gflop``, the step's FLOPs as executed
+(``flop_registry``'s convolutions and matmuls; with ``blocks`` the replay's
+included, as the reference's cost model counts it), ``model_gflop``
+without the replay, ``gb`` (each op's unique input and output bytes);
+from them and the timed steps ``tflops``, ``mfu`` (against 989 TFLOP/s of
+dense bf16), ``gbps`` and ``hbm_util`` (against 3,350 GB/s: the H100 SXM's
+data-sheet peaks); and ``peak_gib`` (``torch.cuda.max_memory_allocated``,
+reset before each row). One JSON line a row, with ``card`` (the
+``nvidia-smi`` name and power limit).
 
-Left out of the reference's rows: ``gb``, ``temp_gb`` and ``gbps`` (XLA's
-cost and memory analyses of the compiled step, which an eager step does not
-have) and ``mfu`` / ``hbm_util`` (against the TPU's peak rates; the card's
-come with a roofline calibration of its own). ``conv`` is an XLA name
-policy with no torch meaning: the port refuses it (``models/resnet.py``), so
-``--modes`` with ``conv`` exits 1 with that refusal and prints no row for it.
+Left out of the reference's rows: ``temp_gb`` (XLA's memory analysis of
+the compiled step; ``peak_gib`` is the card's measure). ``conv`` is an XLA
+name policy with no torch meaning: the port refuses it
+(``models/resnet.py``), so ``--modes`` with ``conv`` exits 1 with that
+refusal and prints no row for it.
 
 ``--cpu`` runs it on the host (the tests, at ``--width`` and
 ``--image_size`` below the defaults); without it and without a card it exits
@@ -36,8 +41,9 @@ import sys
 
 import torch
 
-from axcnn_torch.cli.profile_step import (_step_runner, chained_s, forward_gflops,
-                                          measurement_device)
+from axcnn_torch.cli.calibrate_roofline import SPEC_HBM_GBPS, SPEC_TFLOPS_BF16
+from axcnn_torch.cli.profile_roofline import count_step
+from axcnn_torch.cli.profile_step import _step_runner, chained_s, measurement_device
 from axcnn_torch.models.resnet import ModelConfig, refuse_xla_remat
 
 WARMUP = 3
@@ -64,9 +70,13 @@ def measure(mode: str, batch: int, device, image_size: int = 224, width: float =
     seconds, metrics = chained_s(enqueue, wait, timed)
     dt, loss = seconds / timed, float(metrics["loss"])
     assert math.isfinite(loss), loss
-    gflop = 3 * forward_gflops(cfg, image_size) * batch
+    counted = count_step(enqueue, wait)
+    gflop, gb = counted["flops"] / 1e9, counted["bytes"] / 1e9
+    tflops, gbps = gflop / dt / 1e3, gb / dt
     return {"mode": mode, "batch": batch, "ms": dt * 1e3, "img_s": batch / dt,
-            "gflop": gflop, "tflops": gflop / dt / 1e3, "loss": loss,
+            "gflop": gflop, "model_gflop": counted["model_flops"] / 1e9, "gb": gb,
+            "tflops": tflops, "mfu": tflops / SPEC_TFLOPS_BF16, "gbps": gbps,
+            "hbm_util": gbps / SPEC_HBM_GBPS, "loss": loss,
             "peak_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
                          if device.type == "cuda" else None)}
 

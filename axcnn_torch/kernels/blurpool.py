@@ -43,7 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from axcnn_torch.kernels.build import entry
+from axcnn_torch.kernels.build import entry, launch
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -134,8 +134,9 @@ def _launch(name: str, kind: str, src: torch.Tensor, out: torch.Tensor, hw,
     n, c = src.shape[:2]
     route = ctypes.c_int(-1)
     stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = entry(name, ENTRY_ARGTYPES)(src.data_ptr(), out.data_ptr(), _DTYPE_CODES[src.dtype],
-                                      n, *hw, c, pad_top, stream, ctypes.byref(route))
+    fn = entry(name, ENTRY_ARGTYPES)
+    err = launch(f"blur_pool3_s2_{kind}", (src,), (out,), fn, src.data_ptr(), out.data_ptr(),
+                 _DTYPE_CODES[src.dtype], n, *hw, c, pad_top, stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"{name} failed: error {err} (a CUDA error; 9999: no "
                            f"cuTensorMapEncodeTiled or cuCtxGetCurrent; 10000 + r: the encode "

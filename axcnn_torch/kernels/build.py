@@ -6,6 +6,13 @@ one shared library with a plain C interface, loaded with ``ctypes``: one
 happens at first use, into ``axcnn_torch/build/`` (git-ignored), and is
 keyed on a hash of the sources and flags, so a fresh checkout builds itself
 and an edited source rebuilds. Nothing here runs at import time.
+
+``launch`` is the one call through which every wrapper enters its C entry
+point. While a per-op accountant is active (``ACCOUNTANT``, set by
+``axcnn_torch.cli.profile_roofline.RooflineAccountant``), it hands the call
+to the accountant, which records the kernel's name and bytes and brackets
+the launch in a profiler range of its own; otherwise it costs one ``None``
+check. It adds no launch and changes no argument.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ LINK_FLAGS = ("-ldl",)  # blurpool.cu finds its driver entry points with dlsym
 
 _lib: ctypes.CDLL | None = None
 _entries: dict = {}
+# the active per-op accountant, if any (``launch``)
+ACCOUNTANT = None
 
 
 def _nvcc() -> str:
@@ -101,3 +110,12 @@ def entry(name: str, argtypes):
         fn.restype = ctypes.c_int
         _entries[name] = fn
     return fn
+
+
+def launch(name: str, reads, writes, fn, *args) -> int:
+    """``fn(*args)``, a bound C entry point's call, returning its error
+    code. ``name`` is the kernel's, ``reads`` and ``writes`` the tensors it
+    reads and writes, for the active accountant (none: neither is used)."""
+    if ACCOUNTANT is None:
+        return fn(*args)
+    return ACCOUNTANT.launch(name, reads, writes, fn, *args)

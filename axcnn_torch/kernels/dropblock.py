@@ -52,7 +52,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from axcnn_torch.kernels.build import entry
+from axcnn_torch.kernels.build import entry, launch
 
 LAUNCHES = 0
 APPLY_LAUNCHES = 0
@@ -242,9 +242,10 @@ def dropblock_mask_cuda(seeds: torch.Tensor, gamma, h: int, w: int,
     if n == 0:
         return mask, counts
     stream = torch.cuda.current_stream(seeds.device).cuda_stream
-    err = entry("axcnn_dropblock_mask", MASK_ARGTYPES)(
-        seeds.data_ptr(), float(gamma), mask.data_ptr(), counts.data_ptr(), n, h, w,
-        block_size, row0, hg, stream)
+    fn = entry("axcnn_dropblock_mask", MASK_ARGTYPES)
+    err = launch("dropblock_mask", (seeds,), (mask, counts), fn,
+                 seeds.data_ptr(), float(gamma), mask.data_ptr(), counts.data_ptr(), n, h, w,
+                 block_size, row0, hg, stream)
     if err != 0:
         raise RuntimeError(f"axcnn_dropblock_mask failed: CUDA error {err}")
     LAUNCHES += 1
@@ -317,10 +318,11 @@ def dropblock_apply_cuda(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tens
         return y
     n, c, h, w = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = entry("axcnn_dropblock_apply", APPLY_ARGTYPES)(
-        x.data_ptr(), mask.data_ptr(), counts.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
-        float(x.numel() if numel is None else numel), n, h * w, c, counts.shape[0],
-        int(backward), stream)
+    fn = entry("axcnn_dropblock_apply", APPLY_ARGTYPES)
+    err = launch("dropblock_apply_bwd" if backward else "dropblock_apply", (x, mask, counts),
+                 (y,), fn, x.data_ptr(), mask.data_ptr(), counts.data_ptr(), y.data_ptr(),
+                 _DTYPE_CODES[x.dtype], float(x.numel() if numel is None else numel), n, h * w,
+                 c, counts.shape[0], int(backward), stream)
     if err != 0:
         raise RuntimeError(f"axcnn_dropblock_apply failed: CUDA error {err}")
     if backward:
@@ -330,10 +332,11 @@ def dropblock_apply_cuda(x: torch.Tensor, mask: torch.Tensor, counts: torch.Tens
     return y
 
 
-def _launch_fused(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size: int, *, row0: int,
-                  h_global: int, first: int, numel: int):
-    """The fused kernel's launch for a checked ``x`` and ``seeds`` on the
-    card: ``(y, mask, counts, launched)``; nothing is launched for N = 0."""
+def _launch_fused(name: str, x: torch.Tensor, seeds: torch.Tensor, gamma, block_size: int, *,
+                  row0: int, h_global: int, first: int, numel: int):
+    """The fused kernel's launch, under ``name``, for a checked ``x`` and
+    ``seeds`` on the card: ``(y, mask, counts, launched)``; nothing is
+    launched for N = 0."""
     n, c, h, w = x.shape
     x, seeds = _channels_last(x), seeds.contiguous()
     y = torch.empty_like(x, memory_format=torch.channels_last)
@@ -342,10 +345,11 @@ def _launch_fused(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size: int, 
     if n == 0:
         return y, mask, counts, False
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = entry("axcnn_dropblock_fused", FUSED_ARGTYPES)(
-        x.data_ptr(), seeds.data_ptr(), float(gamma), y.data_ptr(), mask.data_ptr(),
-        counts.data_ptr(), _DTYPE_CODES[x.dtype], float(numel), n, h, w, c, block_size, row0,
-        h_global, first, seeds.shape[0], stream)
+    fn = entry("axcnn_dropblock_fused", FUSED_ARGTYPES)
+    err = launch(name, (x, seeds), (y, mask, counts), fn, x.data_ptr(), seeds.data_ptr(),
+                 float(gamma), y.data_ptr(), mask.data_ptr(), counts.data_ptr(),
+                 _DTYPE_CODES[x.dtype], float(numel), n, h, w, c, block_size, row0, h_global,
+                 first, seeds.shape[0], stream)
     if err != 0:
         raise RuntimeError(f"axcnn_dropblock_fused failed: CUDA error {err}")
     return y, mask, counts, True
@@ -376,8 +380,8 @@ def dropblock_fused_cuda(x: torch.Tensor, seeds: torch.Tensor, gamma, block_size
         raise ValueError(f"dropblock_fused_cuda needs CUDA tensors on one device, got "
                          f"{x.device}, {seeds.device}")
     # the whole batch: the kernel's trivial window
-    y, mask, counts, launched = _launch_fused(x, seeds, gamma, block_size, row0=0, h_global=h,
-                                              first=0, numel=x.numel())
+    y, mask, counts, launched = _launch_fused("dropblock_fused", x, seeds, gamma, block_size,
+                                              row0=0, h_global=h, first=0, numel=x.numel())
     FUSED_LAUNCHES += launched
     return y, mask, counts
 
@@ -416,8 +420,9 @@ def dropblock_fused_window_cuda(x: torch.Tensor, seeds: torch.Tensor, gamma, blo
     if x.device.type != "cuda" or seeds.device != x.device:
         raise ValueError(f"dropblock_fused_window_cuda needs CUDA tensors on one device, got "
                          f"{x.device}, {seeds.device}")
-    y, mask, counts, launched = _launch_fused(x, seeds, gamma, block_size, row0=row0,
-                                              h_global=h_global, first=first, numel=numel)
+    y, mask, counts, launched = _launch_fused("dropblock_fused_window", x, seeds, gamma,
+                                              block_size, row0=row0, h_global=h_global,
+                                              first=first, numel=numel)
     FUSED_WINDOW_LAUNCHES += launched
     return y, mask, counts
 

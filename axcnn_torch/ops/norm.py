@@ -66,6 +66,11 @@ def replaying():
         _REPLAY.on = before
 
 
+def in_replay() -> bool:
+    """Whether the calling thread is inside ``replaying()``."""
+    return getattr(_REPLAY, "on", False)
+
+
 def bn_train(x, gamma, beta, moving_mean, moving_var, *,
              momentum: float = BN_MOMENTUM, eps: float = BN_EPS, group=None):
     """Normalize channel dim 1 of ``x`` with its batch statistics (over every
@@ -77,7 +82,7 @@ def bn_train(x, gamma, beta, moving_mean, moving_var, *,
     if group is not None:
         mean, mean2 = all_reduce_mean(torch.stack([mean, mean2]), group)
     var = torch.clamp_min(mean2 - mean.square(), 0.0)
-    if not getattr(_REPLAY, "on", False):
+    if not in_replay():
         with torch.no_grad():
             moving_mean.copy_(moving_mean * momentum + mean * (1.0 - momentum))
             moving_var.copy_(moving_var * momentum + var * (1.0 - momentum))

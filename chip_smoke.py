@@ -291,7 +291,7 @@ points and checks them:
     224x224, b64): every logged loss finite, each leg's hyperparameters, and
     the launches (the probe's 5 teacher forwards; a leg's 3 + 3 + 3 BlurPool
     and 39 + 39 DropBlock launches a step, 3 an eval batch).
-42. measurement_scripts: the five measurement modules (``axcnn_torch.cli``'s
+42. measurement_scripts: the six measurement modules (``axcnn_torch.cli``'s
     ports of the reference's ``scripts/``) through their ``main()`` at
     their smallest settings (``MEASURE_ARGV``): ``latency_bench`` (the
     assembled R50 served at b1 and b8, bf16, 10 timed forwards each way),
@@ -299,8 +299,20 @@ points and checks them:
     ``capacity_probe`` (config 5's R152 + R50 KD step at b8, ``blocks``),
     ``loader_bench`` (512 generated JPEGs, 2 measured batches a real row,
     the card feed included) and ``echo_bench`` (R50 b128 on those JPEGs,
-    host AA, factor 2 for 4 steps: 2 host batches); each row's keys and
-    finite values, and each module's launches (``_measure_launches``).
+    host AA, factor 2 for 4 steps: 2 host batches), ``opt_experiments``
+    (the batch sweep at b16); each row's keys and finite values, and each
+    module's launches (``_measure_launches``);
+43. roofline (with the timed phases): ``calibrate_roofline`` at its
+    defaults (the card's STREAM and bf16 GEMM walls, each at most 1.05x
+    the data sheet's), then ``profile_roofline`` for the R50 b128 bf16
+    train step and serving forward (``ROOFLINE_ARGV``): the step's
+    ``mfu``, fraction of the speed of light and HBM share finite and in
+    (0, 1.05], unattributed device time at most 1% of busy time, the
+    table's FLOPs equal to ``FlopCounterMode``'s, each hand-written
+    kernel's bytes in the step equal to the bytes ``kernel_time`` bounds
+    for the same shapes, the two traced windows' busy time within 10% of
+    each other, and the launches those of plain steps (a step 3 + 3 + 9 +
+    9, a forward 3), in the table and on the wrappers' counts.
 
 Every phase prints one JSON line, stamped with the script's elapsed
 seconds; any failure raises and exits non-zero. The last two lines are the
@@ -310,7 +322,8 @@ Order: the kernel phases (1-5) run alone, so the timings see an idle card;
 then ``spatial_448`` (its one-card 448x448 step peaks at 54 GiB); then,
 alone too, the phases that time the program (train, checkpoint, kd, remat,
 bl_train, bl_serve, aa_time, aa_train, int8_serve, tf_import,
-fgvc_finetune, dp_nccl, and resume and serve_ckpt, whose run kd reads).
+fgvc_finetune, roofline, dp_nccl, and resume and serve_ckpt, whose run kd
+reads).
 Then the drive phases 36 and 39-41 (``drives_group``: drives_cut, then
 acceptance_cut in a process of its own beside drives_cut_more and
 kd_diag_cut) run in a process of their own beside the phases that check
@@ -794,6 +807,27 @@ def _bound_us(nbytes, ops):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def _blur_bytes(n, h, w, c, itemsize=2, pad_top=1):
+    """BlurPool's bytes at an input of N x H x W x C: the input read and the
+    output written once (the backward moves as many, from the output's
+    extent to the input's)."""
+    return (n * h * w * c + n * kblur.out_rows(h, pad_top) * ((w + 1) // 2) * c) * itemsize
+
+
+def _apply_bytes(n, h, w, c, itemsize=2, counts=None):
+    """The DropBlock apply's bytes: the activation in and out once, the fp32
+    mask and the ``counts`` (N by default) fp32 counts read once."""
+    return 2 * n * h * w * c * itemsize + n * h * w * 4 + (n if counts is None else counts) * 4
+
+
+def _fused_bytes(n, h, w, c, itemsize=2, seeds=None):
+    """The fused DropBlock kernel's bytes: the activation in and out once,
+    the ``seeds`` (N by default) int32 seeds read, the fp32 mask and as many
+    fp32 counts as seeds written once."""
+    seeds = n if seeds is None else seeds
+    return 2 * n * h * w * c * itemsize + seeds * 4 + n * h * w * 4 + seeds * 4
+
+
 def _blur_library(kind, c, hw, dtype, pad_top=1):
     """One PyTorch call for the same function, used only as a yardstick:
     cuDNN's depthwise conv with the fixed binomial filter (exact in bf16),
@@ -854,7 +888,7 @@ def kernel_time_phase(errs):
                 ops = 3 * out_elems  # 12 ops per 2x2 block of dx
             library = _blur_library(kind, c, (h, w), torch.bfloat16, pt)
             xs = _rotating(_nchw_input(shape, torch.bfloat16, gen))
-            nbytes = xs[0].nbytes + out_elems * xs[0].element_size()
+            nbytes = _blur_bytes(TIME_BATCH, h, w, c, xs[0].element_size(), pt)
             bound, bound_by = _bound_us(nbytes, ops)
             want = plain(xs[0])
             lib_err = (library(xs[0]).float() - want.float()).abs().max().item()
@@ -922,7 +956,7 @@ def kernel_time_phase(errs):
         elems = x.numel()
         # bf16 in and out once each, the fp32 mask and counts read once; two
         # fp32 multiplies per element
-        nbytes = 2 * elems * x.element_size() + n * h * w * 4 + counts.numel() * 4
+        nbytes = _apply_bytes(n, h, w, c, x.element_size(), counts.numel())
         bound, bound_by = _bound_us(nbytes, 2 * elems)
         copy, srcs = _copy_yardstick(nbytes, gen)
         for backward in (False, True):
@@ -954,7 +988,7 @@ def kernel_time_phase(errs):
         elems = x.numel()
         # bf16 in and out once each, the seeds read, the fp32 mask and counts
         # written once; two fp32 multiplies per element and the mask's ops
-        nbytes = 2 * elems * x.element_size() + n * 4 + n * h * w * 4 + n * 4
+        nbytes = _fused_bytes(n, h, w, c, x.element_size())
         ops = 2 * elems + n * h * w * (14 + 2 * bs)
         bound, bound_by = _bound_us(nbytes, ops)
         fns = {
@@ -995,7 +1029,7 @@ def kernel_time_phase(errs):
         # bf16 in and out once each, the global seeds read, the window's fp32
         # mask and the global counts written once; two fp32 multiplies per
         # element and the mask's ops over every global sample's whole map
-        nbytes = 2 * elems * x.element_size() + n * 4 + n * rows * w * 4 + n * 4
+        nbytes = _fused_bytes(n, rows, w, c, x.element_size(), seeds=n)
         ops = 2 * elems + n * h * w * (14 + 2 * bs)
         bound, bound_by = _bound_us(nbytes, ops)
         mask, counts = kdrop.dropblock_mask_cuda(seeds, APPLY_GAMMA, rows, w, bs, row0=rows,
@@ -4345,10 +4379,12 @@ MEASURE_ARGV = {
     "loader_bench": ["--n_images=512", "--batches=2"],
     "echo_bench": ["--n_images=512", "--factors=2", "--aa=host", "--warmup=1", "--timed=3",
                    "--windows=1"],
+    "opt_experiments": ["--batches=16", "--cases=batch"],
 }
 MEASURE_KEYS = {
     "latency_bench": ("sync_ms", "pipelined_ms", "pipelined_img_s"),
-    "remat_bench": ("ms", "img_s", "gflop", "tflops", "peak_gib", "loss"),
+    "remat_bench": ("ms", "img_s", "gflop", "model_gflop", "gb", "tflops", "mfu", "gbps",
+                    "hbm_util", "peak_gib", "loss"),
     "capacity_probe": ("peak_allocated_gib", "peak_reserved_gib", "card_gib", "loss"),
     "loader_bench": ("stub_producer_ips", "stub_with_marshal_ips", "framing_stream_ips",
                      "seed_us_per_record", "real_ips_workers1", "real_ips_workers2",
@@ -4357,22 +4393,25 @@ MEASURE_KEYS = {
                      "consumer_us_per_record", "consumer_scaling_limit_cores_vs_decode",
                      "real_to_card_ips_workers4", "host_cores", "affinity_cores"),
     "echo_bench": ("echo2", "steps", "host_batches", "host_cores", "affinity_cores"),
+    "opt_experiments": ("step_ms", "images_per_sec", "gflop", "tflops", "mfu"),
 }
 
 
 def _measure_launches():
-    """Each module's launches at ``MEASURE_ARGV``: a step's (warm-up and
-    timed) or a forward's counts times their number. R50 (remat ``none``)
-    3 + 3 + 9 + 9 a step, ``blocks`` 6 (3 by the replay) + 3 + 9 + 9;
-    config 5 with ``blocks``: the student's 6 + 3, the teacher's 3, 39 + 39
-    a step, 2 steps; latency 2 + 10 + 10 forwards a batch, 3 each."""
+    """Each module's launches at ``MEASURE_ARGV``: a step's (warm-up, timed
+    and counted) or a forward's counts times their number. R50 (remat
+    ``none``) 3 + 3 + 9 + 9 a step, ``blocks`` 6 (3 by the replay) + 3 + 9 +
+    9; config 5 with ``blocks``: the student's 6 + 3, the teacher's 3, 39 +
+    39 a step, 2 steps; latency 2 + 10 + 10 forwards a batch, 3 each;
+    remat and opt_experiments count one step more than they time."""
     per = lambda n, fwd, bwd, sites: _launches(n * fwd, n * bwd, n * sites)  # noqa: E731
-    plain, rem = per(1 + 3, 3, 3, 9), per(1 + 3, 6, 3, 9)
+    plain, rem = per(1 + 3 + 1, 3, 3, 9), per(1 + 3 + 1, 6, 3, 9)
     return {"latency_bench": per(2 * (2 + 10 + 10), 3, 0, 0),
             "remat_bench": {k: plain[k] + rem[k] for k in plain},
             "capacity_probe": per(2, 6 + 3, 3, 39),
             "loader_bench": _launches(0, 0, 0),
-            "echo_bench": per(1 + 3, 3, 3, 9)}
+            "echo_bench": per(1 + 3, 3, 3, 9),
+            "opt_experiments": per(3 + 10 + 1, 3, 3, 9)}
 
 
 def measurement_scripts_phase(smi, tmp):
@@ -4404,6 +4443,96 @@ def measurement_scripts_phase(smi, tmp):
                                  f"launches {counts}, expected {want}, rows {rows}")
         paths[f"measure_{name}"] = counts
     return paths
+
+
+ROOFLINE_ARGV = ["--untraced=3"]  # profile_roofline's, beside --mode and --calibration
+ROOFLINE_WALL_LIMIT = 1.05  # a measured wall at most this share of the data sheet's
+# the accountant's kernel names -> ``_counts`` keys
+ROOFLINE_KERNELS = {"blur_pool3_s2_fwd": "fwd", "blur_pool3_s2_bwd": "bwd",
+                    "dropblock_mask": "mask", "dropblock_apply": "apply",
+                    "dropblock_apply_bwd": "apply_bwd", "dropblock_fused": "fused",
+                    "dropblock_fused_window": "fused_window"}
+
+
+def _roofline_bytes(mode):
+    """Each hand-written kernel's bytes a step of ``mode`` (sorted): the
+    BlurPool sites' (``SLICE_SHAPES``) and, training, the 9 DropBlock sites'
+    (6 at 14x14x1024, 3 at 7x7x2048), as ``kernel_time`` bounds them."""
+    blur = sorted(_blur_bytes(*shape) for shape in SLICE_SHAPES)
+    if mode == "serve":
+        return {"fwd": blur}
+    sites = [s for s in APPLY_TIME_SHAPES for _ in range(6 if s[1] == 14 else 3)]
+    return {"fwd": blur, "bwd": blur, "fused": sorted(_fused_bytes(*s) for s in sites),
+            "apply_bwd": sorted(_apply_bytes(*s) for s in sites)}
+
+
+def _main_rows(module, argv):
+    """``module.main(argv)`` in this process: (exit code, its JSON rows)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = module.main(argv)
+    torch.cuda.synchronize()
+    return code, [json.loads(line) for line in out.getvalue().splitlines()
+                  if line.startswith("{")]
+
+
+def roofline_phase(smi, tmp):
+    """Phase 43: the card's walls, then the per-op roofline of the R50 b128
+    train step and serving forward, checked (module docstring)."""
+    from axcnn_torch.cli import calibrate_roofline as cal
+    from axcnn_torch.cli import profile_roofline as prof
+
+    t0 = time.perf_counter()
+    code, (walls,) = _main_rows(cal, [])
+    checks = {"exit": code == 0, "card": walls["card"] == smi,
+              "hbm_wall": 0 < walls["measured_hbm_gbps"]
+              <= ROOFLINE_WALL_LIMIT * cal.SPEC_HBM_GBPS,
+              "gemm_wall": 0 < walls["measured_tflops_bf16"]
+              <= ROOFLINE_WALL_LIMIT * cal.SPEC_TFLOPS_BF16}
+    emit("roofline", what="calibrate", row=walls, seconds=time.perf_counter() - t0,
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"roofline calibrate failed: {checks}, {walls}")
+    calibration = os.path.join(tmp, "roofline_calibration.json")
+    with open(calibration, "w") as f:
+        f.write(json.dumps(walls) + "\n")
+    for mode in ("train", "serve"):
+        t0 = time.perf_counter()
+        _zero_counts()
+        code, (row,) = _main_rows(prof, [f"--mode={mode}", f"--calibration={calibration}",
+                                         *ROOFLINE_ARGV])
+        counts = _counts()
+        per = _launches(3, 3, 9) if mode == "train" else _launches(3, 0, 0)
+        runs = prof.WARMUP + (1 + row["chained_windows"]) * row["untraced"] + 2 * row["steps"]
+        kernels = {ROOFLINE_KERNELS[name]: k for name, k in row["kernels"].items()}
+        in_step = {key: kernels[key]["launches"] if key in kernels else 0 for key in per}
+        checks = {
+            "exit": code == 0, "card": row["card"] == smi,
+            **{k: np.isfinite(row[k]) and 0 < row[k] <= ROOFLINE_WALL_LIMIT
+               for k in ("mfu", "fraction_of_speed_of_light", "hbm_fraction_of_spec",
+                         "hbm_fraction_of_measured")},
+            "unattributed": row["unattributed_share"] <= 0.01,
+            "flops": row["train_gflop_per_step"] == row["flop_counter_gflop_per_step"] > 0,
+            "kernel_bytes": all(key in kernels and kernels[key]["bytes"]
+                                == sorted(b * row["steps"]) for key, b
+                                in _roofline_bytes(mode).items()),
+            "windows": abs(row["busy_ratio"] - 1) <= 0.10,
+            "launches_in_step": in_step == per,
+            "launches": counts == {k: v * runs for k, v in per.items()}}
+        summary = {k: row[k] for k in (
+            "step_ms", "chained_ms", "smi", "synced_step_ms", "enqueue_ms",
+            "train_gflop_per_step", "model_gflop_per_step",
+            "gbytes_per_step", "tflops", "mfu", "hbm_gbps", "hbm_fraction_of_measured",
+            "speed_of_light_ms", "fraction_of_speed_of_light", "speed_of_light_achievable_ms",
+            "fraction_of_achievable", "plain_busy_ms", "plain_idle_share", "accounted_busy_ms",
+            "busy_ratio",
+            "unattributed_ms", "unattributed_share", "records_per_step",
+            "device_events_per_step", "categories", "kernels")}
+        emit("roofline", what="profile", mode=mode, **summary, top_ops=row["top_ops"][:5],
+             launches=counts, seconds=time.perf_counter() - t0, checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"roofline {mode} failed: {checks}, launches {counts}, "
+                                 f"kernels {row['kernels']}")
 
 
 KERNELS = (  # (key, its launch counts, name, source, the TPU kernel it replaces)
@@ -4444,6 +4573,7 @@ def _timed_phases(smi, tmp):
     paths["tf_import"], paths["tf_import_serve"], imported = tf_import_phase(
         smi, import_dir, tmp)
     paths["fgvc_finetune"] = fgvc_finetune_phase(smi, import_dir, imported, tmp)
+    roofline_phase(smi, tmp)
     dp_nccl_phase(smi, tmp, single)
     return paths, train_dir
 

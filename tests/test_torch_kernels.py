@@ -443,7 +443,8 @@ def test_profile_breakdown_counts_union_and_categories():
     assert category(nccl.name) == "NCCL collectives"
     prof = types.SimpleNamespace(events=lambda: [nccl, ev("nccl:all_reduce", 60, 70)])
     assert device_events(prof) == [nccl]
-    out = breakdown(events, steps=2, wall_s=0.001)
+    out = breakdown([(e.name, e.time_range.start, e.time_range.end) for e in events],
+                    steps=2, wall_s=0.001)
     assert out["busy_ms"] == (50.0 + 10.0 + 20.0) / 1e3 / 2
     assert out["device_events"] == 2.0 and out["wall_ms"] == 0.5
     assert out["by_category_ms"] == {"hand-written kernels": 0.03,

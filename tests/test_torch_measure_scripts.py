@@ -228,11 +228,25 @@ def test_remat_rows_and_conv_refused(capsys):
                                                "--warmup=1", "--timed=1"])
     assert [r["mode"] for r in rows] == ["none", "blocks"]
     for r in rows:
-        assert set(r) == {"mode", "batch", "ms", "img_s", "gflop", "tflops", "loss",
-                          "peak_gib", "card"}
-        _finite(r, ("ms", "img_s", "gflop", "tflops", "loss"))
+        assert set(r) == {"mode", "batch", "ms", "img_s", "gflop", "model_gflop", "gb",
+                          "tflops", "mfu", "gbps", "hbm_util", "loss", "peak_gib", "card"}
+        _finite(r, ("ms", "img_s", "gflop", "model_gflop", "gb", "tflops", "mfu", "gbps",
+                    "hbm_util", "loss"))
         assert r["peak_gib"] is None  # no device memory on the host
-    assert rows[0]["gflop"] == rows[1]["gflop"]
+        assert r["mfu"] == r["tflops"] / 989.0 and r["hbm_util"] == r["gbps"] / 3350.0
+    # the executed step's FLOPs: blocks adds its replay, the forward of the stem
+    # and every residual block (the whole forward's but the head's)
+    none, blocks = rows
+    cfg = remat_bench.model_config("none", 0.125)
+    with torch.device("meta"):
+        from axcnn_torch.models.resnet import ResNet
+
+        head = 2 * 2 * ResNet(cfg).head.weight.numel()  # its matmul at batch 2
+    from axcnn_torch.cli.profile_step import forward_gflops
+
+    replay = forward_gflops(cfg, 64) * 2 - head / 1e9
+    assert none["gflop"] == none["model_gflop"] == blocks["model_gflop"]
+    assert blocks["gflop"] - none["gflop"] == pytest.approx(replay, rel=1e-12)
     assert remat_bench.main(SMALL + ["--modes=none,conv"]) == 1
     captured = capsys.readouterr()
     assert not captured.out and "no torch counterpart" in captured.err
